@@ -1,0 +1,240 @@
+"""Executor: run a Program block op by op over torch tensors.
+
+The port of ``paddle_tpu/core/executor.py``.  Where the reference traces a
+whole block into one jitted XLA computation, this Executor is the
+reference framework's own shape (``Executor::Run``, ``executor.cc:185``):
+an interpreter loop that calls one registered kernel per op
+(``ops/registry.py``) on tensors that live on the executor's device.
+There is no jit and no buffer donation: persistable state the block
+writes is stored back into the Scope after the run.
+
+Entry points run on the card unless the caller asks for the CPU:
+``Executor()`` means ``CUDAPlace(0)``, and with no CUDA device it raises
+instead of carrying on on the CPU.  Pass ``CPUPlace()`` to run on the CPU.
+"""
+
+import numpy as np
+import torch
+
+from .framework import CPUPlace, CUDAPlace, Variable, default_main_program
+from .. import ops as _ops  # noqa: F401  (importing registers the kernels)
+from ..ops import registry
+
+
+class Scope:
+    """name -> tensor map (scope.h:48 analogue, flat for now)."""
+
+    def __init__(self, parent=None):
+        self.vars = {}
+        self.parent = parent
+        self.kids = []
+
+    def var(self, name):
+        if name not in self.vars:
+            self.vars[name] = None
+        return self.vars[name]
+
+    def find_var(self, name):
+        s = self
+        while s is not None:
+            if name in s.vars:
+                return s.vars[name]
+            s = s.parent
+        return None
+
+    def set_var(self, name, value):
+        self.vars[name] = value
+
+    def new_scope(self):
+        k = Scope(self)
+        self.kids.append(k)
+        return k
+
+    def drop_kids(self):
+        self.kids = []
+
+    def local_var_names(self):
+        return list(self.vars)
+
+
+_global_scope = Scope()
+_scope_stack = [_global_scope]
+
+
+def global_scope():
+    return _scope_stack[-1]
+
+
+class scope_guard:
+    def __init__(self, scope):
+        self.scope = scope
+
+    def __enter__(self):
+        _scope_stack.append(self.scope)
+
+    def __exit__(self, *a):
+        _scope_stack.pop()
+
+
+def device_of(place):
+    """torch.device of a Place.  A CUDAPlace with no CUDA device raises:
+    the port never moves a run to the CPU behind the caller's back."""
+    if isinstance(place, CPUPlace):
+        return torch.device("cpu")
+    if isinstance(place, CUDAPlace):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{place!r} was requested but PyTorch sees no CUDA device; "
+                "pass fluid.CPUPlace() (or AnalysisConfig.disable_gpu()) "
+                "to run on the CPU")
+        if place.device_id >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"{place!r} was requested but only "
+                f"{torch.cuda.device_count()} CUDA device(s) exist")
+        return torch.device("cuda", place.device_id)
+    raise TypeError(f"unknown place {place!r}: use CPUPlace() or "
+                    "CUDAPlace(i)")
+
+
+def _as_fetch_name(f):
+    return f.name if isinstance(f, Variable) else f
+
+
+def _normalize_feed(program, feed):
+    """Expand ragged feed values for lod_level>0 vars into the dense +
+    lengths pair (value under the var name, lengths under name@SEQ_LEN).
+    Accepts LoDTensor, (array, lengths), list-of-arrays, or dense array."""
+    from . import lod as lod_mod
+
+    block = program.global_block()
+    out = {}
+    for name, val in feed.items():
+        v = block.vars.get(name)
+        if v is not None and getattr(v, "lod_level", 0) >= 2:
+            level = v.lod_level
+            if isinstance(val, lod_mod.LoDTensor) and \
+                    len(val.recursive_sequence_lengths()) == level:
+                val = lod_mod.lod_tensor_to_nested(val)
+            if lod_mod.nesting_depth(val) != level:
+                raise ValueError(
+                    f"lod_level={level} var {name!r} must be fed as a "
+                    f"{level}-deep nested list (lists nest one per LoD "
+                    "level; leaves are per-sequence arrays) or a "
+                    f"LoDTensor carrying {level} levels of "
+                    "recursive_sequence_lengths")
+            padded, lens = lod_mod.to_padded_n(val, level)
+            out[name] = padded
+            for k, lk in enumerate(lens, 1):
+                out.setdefault(lod_mod.seq_lenk_name(name, k), lk)
+        elif v is not None and getattr(v, "lod_level", 0) > 0:
+            sl_name = lod_mod.seq_len_name(name)
+            padded, lens = lod_mod.to_padded(val)
+            out[name] = padded
+            if sl_name not in feed:
+                out[sl_name] = lens
+        else:
+            out[name] = np.asarray(val) if isinstance(
+                val, lod_mod.LoDTensor) else val
+    return out
+
+
+_SUB_BLOCK_OPS = ("while", "conditional_block")
+
+
+def _run_block(block, env, read):
+    """Run a block's ops in order.  `env` maps names to tensors; `read(n)`
+    supplies a name the block reads before writing it (from the Scope)."""
+    for op in block.ops:
+        if op.type in ("feed", "fetch"):
+            continue
+        if op.type in _SUB_BLOCK_OPS:
+            raise NotImplementedError(
+                f"op {op.type!r}: control-flow sub-blocks run in a later "
+                "slice of the port")
+        try:
+            ins = {slot: [env[n] if n in env else read(n) for n in names]
+                   for slot, names in op.inputs.items()}
+            outs = registry.run_op(op.type, ins, op.attrs)
+        except Exception as e:
+            # PADDLE_ENFORCE-style context (enforce.h): name the op and
+            # its Program variables
+            in_names = {s: list(n) for s, n in op.inputs.items()}
+            out_names = {s: list(n) for s, n in op.outputs.items()}
+            e.add_note(f"while running op {op.type!r} "
+                       f"(inputs {in_names}, outputs {out_names})")
+            raise
+        for slot, names in op.outputs.items():
+            for n, v in zip(names, outs.get(slot, [])):
+                if v is not None:
+                    env[n] = v
+        # eager deletion (passes/memory.py): the pass proved these vars
+        # dead once this op has run, so drop the references now and the
+        # allocator can reuse their memory for the ops that follow
+        for n in op.attrs.get("__dead_after__", ()):
+            env.pop(n, None)
+
+
+def _to_numpy(t):
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class Executor:
+    """fluid.Executor parity surface (executor.py:451)."""
+
+    def __init__(self, place=None):
+        self.place = place if place is not None else CUDAPlace(0)
+        self.device = device_of(self.place)
+        # the reference's per-trace rng keys: one generator per executor,
+        # reseeded per random op from (program seed, op seed, step)
+        self.generator = torch.Generator(device=self.device)
+        self._step = 0
+
+    def run(self, program=None, feed=None, fetch_list=None,
+            feed_var_name=None, fetch_var_name=None, scope=None,
+            return_numpy=True, use_program_cache=True):
+        program = program if program is not None else default_main_program()
+        feed = _normalize_feed(program, dict(feed) if feed else {})
+        fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
+        scope = scope if scope is not None else global_scope()
+        block = program.global_block()
+
+        env = {}
+        for n, val in feed.items():
+            dtype = block.var(n).dtype if block.has_var(n) else \
+                str(np.asarray(val).dtype)
+            env[n] = registry.cast_feed(val, dtype, self.device)
+
+        def read(n):
+            val = scope.find_var(n)
+            if val is None:
+                raise RuntimeError(
+                    f"Variable {n!r} is read by the program but has no "
+                    "value in scope — did you run the startup program?")
+            if isinstance(val, torch.Tensor) and val.device != self.device:
+                raise RuntimeError(
+                    f"Variable {n!r} lives on {val.device}, this executor "
+                    f"runs on {self.device}")
+            env[n] = val
+            return val
+
+        ctx = registry.ExecContext(
+            device=self.device, generator=self.generator,
+            seed=program.random_seed, step=self._step,
+            is_test=program._is_test or registry.in_test_mode())
+        with torch.no_grad(), registry.exec_context(ctx):
+            _run_block(block, env, read)
+            fetches = [env[n] if n in env else read(n) for n in fetch_names]
+        self._step += 1
+        for n, v in env.items():
+            if block.has_var(n) and block.var(n).persistable and \
+                    not block.var(n).is_data:
+                scope.set_var(n, v)
+        if return_numpy:
+            return [_to_numpy(f) for f in fetches]
+        return fetches
+
+    def close(self):
+        pass

@@ -1,0 +1,595 @@
+"""Program IR: Program / Block / Operator / Variable / Parameter.
+
+Analogue of the reference's graph-builder front end
+(``python/paddle/fluid/framework.py:1913,1024,577,251,2546`` — Program, Block,
+Operator, Variable, Parameter) and the protobuf ProgramDesc it wraps
+(``paddle/fluid/framework/framework.proto:184``).  This module is the same
+IR as the JAX package's ``core/framework.py``, so a Program built here
+equals one built there op for op:
+
+* The IR is a plain Python object graph (no protobuf round-trip on every
+  mutation); serialization to/from a dict-based format lives in
+  :mod:`paddle_tpu_torch.io` for save/load parity.
+* Ops never execute while the program is built.  The Executor interprets a
+  block op by op over torch tensors (see ``core/executor.py``), so the IR's
+  job is purely structural.
+* Variables carry ``lod_level`` for ragged-sequence metadata; the lowering
+  is dense + lengths, never a host-side offset table.
+"""
+
+import contextlib
+import copy
+
+import numpy as np
+
+from . import unique_name
+
+# ---------------------------------------------------------------------------
+# dtype handling — the reference uses VarType enum (framework.proto:105);
+# we use numpy dtypes canonicalised to strings, with bfloat16 first-class.
+# ---------------------------------------------------------------------------
+
+_DTYPE_ALIASES = {
+    "float32": "float32", "fp32": "float32", float: "float32",
+    "float64": "float64", "fp64": "float64",
+    "float16": "float16", "fp16": "float16",
+    "bfloat16": "bfloat16", "bf16": "bfloat16",
+    "int8": "int8", "uint8": "uint8",
+    "int16": "int16", "int32": "int32", "int64": "int64", int: "int64",
+    "bool": "bool", bool: "bool",
+}
+
+
+def convert_dtype(dtype):
+    if dtype is None:
+        return "float32"
+    if isinstance(dtype, str) and dtype in _DTYPE_ALIASES:
+        return _DTYPE_ALIASES[dtype]
+    if dtype in _DTYPE_ALIASES:
+        return _DTYPE_ALIASES[dtype]
+    # numpy dtype or jax dtype object
+    name = np.dtype(dtype).name if not hasattr(dtype, "name") else dtype.name
+    return _DTYPE_ALIASES.get(name, name)
+
+
+class Variable:
+    """A typed symbolic value in a Block.
+
+    Mirrors ``python/paddle/fluid/framework.py:251``: name, shape (with -1 for
+    the batch dim), dtype, lod_level, persistable, stop_gradient.
+    """
+
+    def __init__(self, block, name=None, shape=None, dtype="float32",
+                 lod_level=0, persistable=False, stop_gradient=False,
+                 is_data=False, **kwargs):
+        self.block = block
+        if name is None:
+            name = unique_name.generate("_generated_var")
+        self.name = name
+        self.shape = tuple(shape) if shape is not None else None
+        self.dtype = convert_dtype(dtype)
+        self.lod_level = lod_level
+        self.persistable = persistable
+        self.stop_gradient = stop_gradient
+        self.is_data = is_data
+        # Sharding annotation consumed by the pjit lowering (TPU-only concept:
+        # jax.sharding.PartitionSpec-compatible tuple or None = replicated).
+        self.sharding = kwargs.get("sharding", None)
+        # Donation decision from the plan_donation pass (passes/memory.py):
+        # None = unplanned (executor default applies), True = donate the
+        # input buffer, False = pinned (fetched/protected state — the
+        # donation-tear class).  Hashed into jitcache keys only when set.
+        self.donate = kwargs.get("donate", None)
+
+    # Convenience used by layers & tests
+    def __repr__(self):
+        return (f"Variable(name={self.name}, shape={self.shape}, "
+                f"dtype={self.dtype}, persistable={self.persistable})")
+
+    @property
+    def grad_name(self):
+        return grad_var_name(self.name)
+
+    def astype(self, dtype):
+        from ..layers import tensor as tensor_layers
+        return tensor_layers.cast(self, dtype)
+
+    # Operator sugar: build elementwise ops like the reference's
+    # monkey-patched Variable methods (framework.py math_op_patch).
+    def _elementwise(self, other, op):
+        from ..layers import math_op_patch
+        return math_op_patch.binary_op(self, other, op)
+
+    def __add__(self, other):
+        return self._elementwise(other, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._elementwise(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        from ..layers import math_op_patch
+        return math_op_patch.binary_op(self, other, "elementwise_sub",
+                                       reverse=True)
+
+    def __mul__(self, other):
+        return self._elementwise(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._elementwise(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        from ..layers import math_op_patch
+        return math_op_patch.binary_op(self, other, "elementwise_div",
+                                       reverse=True)
+
+    def __pow__(self, other):
+        return self._elementwise(other, "elementwise_pow")
+
+    def __rpow__(self, other):
+        from ..layers import math_op_patch
+        return math_op_patch.binary_op(self, other, "elementwise_pow",
+                                       reverse=True)
+
+    def __matmul__(self, other):
+        from ..layers import nn
+        return nn.matmul(self, other)
+
+    def __neg__(self):
+        from ..layers import math_op_patch
+        return math_op_patch.binary_op(self, -1.0, "elementwise_mul")
+
+
+class Parameter(Variable):
+    """A persistable, trainable Variable (framework.py:2546)."""
+
+    def __init__(self, block, shape, dtype, **kwargs):
+        kwargs.setdefault("persistable", True)
+        self.trainable = kwargs.pop("trainable", True)
+        self.optimize_attrs = kwargs.pop("optimize_attrs", {"learning_rate": 1.0})
+        self.regularizer = kwargs.pop("regularizer", None)
+        self.gradient_clip_attr = kwargs.pop("gradient_clip_attr", None)
+        self.do_model_average = kwargs.pop("do_model_average", None)
+        self.initializer = kwargs.pop("initializer", None)
+        super().__init__(block, shape=shape, dtype=dtype,
+                         stop_gradient=kwargs.pop("stop_gradient", False),
+                         **kwargs)
+
+
+GRAD_SUFFIX = "@GRAD"
+GRAD_RENAME_INFIX = "@RENAME@"
+
+
+def grad_var_name(name):
+    return name + GRAD_SUFFIX
+
+
+def grad_rename_name(name, k):
+    """k-th duplicated-contribution gradient term for `name` before the
+    summing op merges them (backward.py _addup_repetitive_outputs_
+    discipline): ``x@GRAD@RENAME@1``, ``x@GRAD@RENAME@2``, ..."""
+    return f"{grad_var_name(name)}{GRAD_RENAME_INFIX}{k}"
+
+
+def is_grad_var_name(name):
+    """Whether `name` follows the backward.py gradient naming
+    discipline (``@GRAD`` suffix, possibly ``@RENAME@k``-qualified)."""
+    return GRAD_SUFFIX in name
+
+
+def strip_grad_suffix(name):
+    """Forward counterpart of a gradient var name: ``x@GRAD`` -> ``x``,
+    ``x@GRAD@RENAME@2`` -> ``x``; None if `name` carries no ``@GRAD``."""
+    pos = name.find(GRAD_SUFFIX)
+    if pos <= 0:
+        return None
+    return name[:pos]
+
+
+class Operator:
+    """One op node: type + named input/output var-name lists + attrs.
+
+    Mirrors OpDesc (framework.proto:43) / framework.py:577.  Inputs and
+    outputs are dicts slot-name -> list[var name]; attrs is a plain dict
+    (values: python scalars, lists, strings, Blocks for control flow).
+    """
+
+    def __init__(self, block, type, inputs=None, outputs=None, attrs=None):
+        self.block = block
+        self.type = type
+        self.inputs = {}
+        self.outputs = {}
+        self.attrs = dict(attrs) if attrs else {}
+        if inputs:
+            for slot, vs in inputs.items():
+                self.inputs[slot] = [v.name if isinstance(v, Variable) else v
+                                     for v in _as_list(vs)]
+        if outputs:
+            for slot, vs in outputs.items():
+                self.outputs[slot] = [v.name if isinstance(v, Variable) else v
+                                      for v in _as_list(vs)]
+
+    def input(self, slot):
+        return self.inputs.get(slot, [])
+
+    def output(self, slot):
+        return self.outputs.get(slot, [])
+
+    @property
+    def input_arg_names(self):
+        return [n for vs in self.inputs.values() for n in vs]
+
+    @property
+    def output_arg_names(self):
+        return [n for vs in self.outputs.values() for n in vs]
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+    def has_attr(self, name):
+        return name in self.attrs
+
+    def _set_attr(self, name, val):
+        self.attrs[name] = val
+
+    def __repr__(self):
+        return f"Op(type={self.type}, in={self.inputs}, out={self.outputs})"
+
+
+def _as_list(x):
+    if x is None:
+        return []
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x]
+
+
+def _shapes_conflict(a, b):
+    """Definite declaration conflict: ranks differ, or a pair of
+    STATIC dims differs (-1/None are dynamic wildcards and never
+    conflict)."""
+    a, b = tuple(a), tuple(b)
+    if len(a) != len(b):
+        return True
+    for x, y in zip(a, b):
+        xs = -1 if (x is None or int(x) < 0) else int(x)
+        ys = -1 if (y is None or int(y) < 0) else int(y)
+        if xs != -1 and ys != -1 and xs != ys:
+            return True
+    return False
+
+
+class Block:
+    """Ordered op list + var map, with parent pointer for nested blocks
+    (control flow sub-blocks), mirroring BlockDesc (framework.proto:171)."""
+
+    def __init__(self, program, idx, parent_idx=-1):
+        self.program = program
+        self.idx = idx
+        self.parent_idx = parent_idx
+        self.vars = {}
+        self.ops = []
+
+    @property
+    def parent_block(self):
+        if self.parent_idx < 0:
+            return None
+        return self.program.blocks[self.parent_idx]
+
+    def create_var(self, name=None, **kwargs):
+        if name is not None and name in self.vars:
+            # Name collision: returning the existing var is the fluid
+            # contract, but ONLY when the request agrees with the
+            # existing declaration — silently handing back a var of a
+            # different shape/dtype turns a build-time bug into a
+            # trace-time jaxpr error (or a silent wrong answer).
+            v = self.vars[name]
+            req_shape = kwargs.get("shape")
+            if req_shape is not None and v.shape is not None and \
+                    _shapes_conflict(req_shape, v.shape):
+                raise ValueError(
+                    f"create_var: {name!r} already declared in block "
+                    f"{self.idx} with shape={tuple(v.shape)}, which "
+                    f"conflicts with the requested "
+                    f"shape={tuple(req_shape)}")
+            req_dtype = kwargs.get("dtype")
+            if req_dtype is not None and \
+                    convert_dtype(req_dtype) != v.dtype:
+                raise ValueError(
+                    f"create_var: {name!r} already declared in block "
+                    f"{self.idx} with dtype={v.dtype!r}, which "
+                    f"conflicts with the requested "
+                    f"dtype={convert_dtype(req_dtype)!r}")
+            return v
+        v = Variable(self, name=name, **kwargs)
+        self.vars[v.name] = v
+        self.program._bump_version()
+        return v
+
+    def create_parameter(self, name=None, shape=None, dtype="float32", **kwargs):
+        if name is None:
+            name = unique_name.generate("_param")
+        p = Parameter(self, shape=shape, dtype=dtype, name=name, **kwargs)
+        self.vars[name] = p
+        # Parameters live in the global block in fluid; mirror that.
+        gb = self.program.global_block()
+        if gb is not self:
+            gb.vars[name] = p
+        self.program._bump_version()
+        return p
+
+    def var(self, name):
+        v = self._find_var_recursive(name)
+        if v is None:
+            raise ValueError(f"Variable {name!r} not found in block {self.idx}")
+        return v
+
+    def has_var(self, name):
+        return self._find_var_recursive(name) is not None
+
+    def has_var_local(self, name):
+        return name in self.vars
+
+    def _find_var_recursive(self, name):
+        b = self
+        while b is not None:
+            if name in b.vars:
+                return b.vars[name]
+            b = b.parent_block
+        return None
+
+    def append_op(self, type=None, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type=type, inputs=inputs, outputs=outputs,
+                      attrs=attrs)
+        self.ops.append(op)
+        self.program._bump_version()
+        return op
+
+    def prepend_op(self, type=None, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type=type, inputs=inputs, outputs=outputs,
+                      attrs=attrs)
+        self.ops.insert(0, op)
+        self.program._bump_version()
+        return op
+
+    def all_parameters(self):
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
+
+class Program:
+    """A list of Blocks; block 0 is the global block (framework.py:1913)."""
+
+    def __init__(self):
+        self.blocks = [Block(self, 0)]
+        self.current_block_idx = 0
+        self._version = 0          # bumped on any mutation; keys compile cache
+        self._seed = 0             # program-level RNG seed (0 = nondeterministic)
+        self._is_test = False
+        self._amp = False          # bf16 mixed-precision execution
+        self.random_seed = 0
+
+    # -- structure ---------------------------------------------------------
+    def global_block(self):
+        return self.blocks[0]
+
+    def current_block(self):
+        return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None):
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent_idx=parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump_version()
+        return b
+
+    def rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
+    def _bump_version(self):
+        self._version += 1
+
+    # -- queries -----------------------------------------------------------
+    def all_parameters(self):
+        return self.global_block().all_parameters()
+
+    def list_vars(self):
+        for blk in self.blocks:
+            yield from blk.vars.values()
+
+    # -- transforms (reference: framework.py:2135,2235,2286) ---------------
+    def clone(self, for_test=False):
+        p = copy.deepcopy(self)
+        if for_test:
+            p._is_test = True
+            for blk in p.blocks:
+                for op in blk.ops:
+                    if "is_test" in op.attrs or op.type in (
+                            "dropout", "batch_norm"):
+                        op.attrs["is_test"] = True
+        return p
+
+    def _prune(self, targets):
+        """Keep only ops needed to compute `targets` (prune.cc:1 analogue)."""
+        target_names = set(t.name if isinstance(t, Variable) else t
+                           for t in targets)
+        blk = self.global_block()
+        needed = set(target_names)
+        kept = []
+        for op in reversed(blk.ops):
+            if any(o in needed for o in op.output_arg_names):
+                kept.append(op)
+                needed.update(op.input_arg_names)
+        kept.reverse()
+        keep_flags = _membership(blk.ops, kept)
+        p = self.clone()
+        p.global_block().ops = [op for op, keep in
+                                zip(p.global_block().ops, keep_flags)
+                                if keep]
+        # clear sub-blocks orphaned by the op filter (a pruned-away op's
+        # Block attr keeps the block object in p.blocks): they are never
+        # executed, and leaving their ops/vars alive would leak grad and
+        # optimizer state into anything that walks the pruned program
+        # (save_inference_model's referenced-var sweep in particular)
+        live = {p.global_block().idx}
+        stack = [p.global_block()]
+        while stack:
+            for op in stack.pop().ops:
+                for v in op.attrs.values():
+                    if isinstance(v, Block) and v.idx not in live:
+                        live.add(v.idx)
+                        stack.append(p.blocks[v.idx])
+        for b in p.blocks:
+            if b.idx not in live:
+                b.ops = []
+                b.vars = {}
+        return p
+
+    def __deepcopy__(self, memo):
+        cls = self.__class__
+        p = cls.__new__(cls)
+        memo[id(self)] = p
+        p.blocks = []
+        p.current_block_idx = self.current_block_idx
+        p._version = self._version
+        p._seed = self._seed
+        p._is_test = self._is_test
+        p._amp = getattr(self, "_amp", False)
+        # quantize-pass gate (passes/quantize.py): a clone losing it
+        # would strip the __quant__ policy bit mid-pipeline and fork
+        # the jitcache hint fingerprint between pre- and post-clone
+        if getattr(self, "_quant", False):
+            p._quant = True
+        p.random_seed = self.random_seed
+        # sharded-table declaration record (sparse.shard_program): a
+        # pass clone losing it would make the verifier's
+        # sparse-undeclared-table rule misfire on its own output
+        if getattr(self, "_sparse_tables", None):
+            p._sparse_tables = dict(self._sparse_tables)
+        # memory-plan budget (passes/remat.py keys its identity fast
+        # path off this): a clone losing it would make the pipeline
+        # remat on the original but not on its own output
+        if getattr(self, "_hbm_budget", None):
+            p._hbm_budget = self._hbm_budget
+        for blk in self.blocks:
+            nb = Block(p, blk.idx, blk.parent_idx)
+            p.blocks.append(nb)
+        for blk, nb in zip(self.blocks, p.blocks):
+            for name, v in blk.vars.items():
+                kw = dict(shape=v.shape, dtype=v.dtype, lod_level=v.lod_level,
+                          persistable=v.persistable,
+                          stop_gradient=v.stop_gradient, name=name)
+                if isinstance(v, Parameter):
+                    nv = Parameter(nb, trainable=v.trainable, **kw)
+                    nv.regularizer = v.regularizer
+                    nv.optimize_attrs = dict(v.optimize_attrs)
+                else:
+                    nv = Variable(nb, is_data=v.is_data, **kw)
+                nv.sharding = v.sharding
+                nv.donate = getattr(v, "donate", None)
+                nb.vars[name] = nv
+            for op in blk.ops:
+                no = Operator(nb, op.type)
+                no.inputs = {k: list(vs) for k, vs in op.inputs.items()}
+                no.outputs = {k: list(vs) for k, vs in op.outputs.items()}
+                no.attrs = copy.deepcopy(
+                    {k: v for k, v in op.attrs.items()
+                     if not isinstance(v, Block)}, memo)
+                for k, v in op.attrs.items():
+                    if isinstance(v, Block):
+                        no.attrs[k] = p.blocks[v.idx]
+                nb.ops.append(no)
+        return p
+
+    def to_string(self, throw_on_error=False):
+        lines = []
+        for blk in self.blocks:
+            lines.append(f"block {blk.idx} (parent {blk.parent_idx}):")
+            for v in blk.vars.values():
+                tag = "param" if isinstance(v, Parameter) else (
+                    "persist" if v.persistable else "var")
+                lines.append(f"  {tag} {v.name}: shape={v.shape} "
+                             f"dtype={v.dtype}")
+            for op in blk.ops:
+                ins = {k: v for k, v in op.inputs.items()}
+                outs = {k: v for k, v in op.outputs.items()}
+                attrs = {k: (f"<block {v.idx}>" if isinstance(v, Block) else v)
+                         for k, v in op.attrs.items()}
+                lines.append(f"  op {op.type} inputs={ins} outputs={outs} "
+                             f"attrs={attrs}")
+        return "\n".join(lines)
+
+    __str__ = to_string
+
+
+def _membership(all_ops, kept):
+    kept_ids = set(id(o) for o in kept)
+    return [id(o) in kept_ids for o in all_ops]
+
+
+# ---------------------------------------------------------------------------
+# Default programs & guards (framework.py:2630-2720)
+# ---------------------------------------------------------------------------
+
+_main_program_ = Program()
+_startup_program_ = Program()
+
+
+def default_main_program():
+    return _main_program_
+
+
+def default_startup_program():
+    return _startup_program_
+
+
+def switch_main_program(program):
+    global _main_program_
+    old = _main_program_
+    _main_program_ = program
+    return old
+
+
+def switch_startup_program(program):
+    global _startup_program_
+    old = _startup_program_
+    _startup_program_ = program
+    return old
+
+
+@contextlib.contextmanager
+def program_guard(main_program, startup_program=None):
+    old_main = switch_main_program(main_program)
+    old_start = None
+    if startup_program is not None:
+        old_start = switch_startup_program(startup_program)
+    try:
+        yield
+    finally:
+        switch_main_program(old_main)
+        if old_start is not None:
+            switch_startup_program(old_start)
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    # Purely cosmetic in the reference (framework.py:126); kept for API parity.
+    yield
+
+
+# -- Places (place.h:31 analogue): which device an Executor runs on. ------
+
+class CPUPlace:
+    def __repr__(self):
+        return "CPUPlace"
+
+
+class CUDAPlace:
+    def __init__(self, device_id=0):
+        self.device_id = device_id
+
+    def __repr__(self):
+        return f"CUDAPlace({self.device_id})"

@@ -1,0 +1,677 @@
+"""Core NN layers — TPU build of fluid's layers/nn.py op-builders.
+
+Reference: ``python/paddle/fluid/layers/nn.py`` (fc at :194, conv2d,
+batch_norm, embedding, dynamic nets...).  Each layer appends IR ops via
+LayerHelper and computes static output shapes (batch dim may be -1).
+"""
+
+from ..core.framework import Variable
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+
+
+def _prod(t):
+    r = 1
+    for v in t:
+        r *= v
+    return r
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully connected (nn.py:194): per-input mul + sum + bias + act."""
+    helper = LayerHelper("fc", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = helper.param_attr
+    if not isinstance(param_attrs, list):
+        param_attrs = [param_attrs] * len(inputs)
+    mul_results = []
+    for inp, pattr in zip(inputs, param_attrs):
+        in_dims = inp.shape
+        # fluid applies fc per *token* on lod tensors ([total, D] there);
+        # our padded rep is [B, T, D], so flatten all but the feature dim
+        xnc = len(in_dims) - 1 if getattr(inp, "lod_level", 0) > 0 \
+            else num_flatten_dims
+        flat = _prod(in_dims[xnc:])
+        w = helper.create_parameter(pattr, shape=[flat, size],
+                                    dtype=inp.dtype)
+        out = helper.create_variable_for_type_inference(inp.dtype)
+        out.shape = tuple(in_dims[:xnc]) + (size,)
+        helper.append_op(type="mul", inputs={"X": [inp], "Y": [w]},
+                         outputs={"Out": [out]},
+                         attrs={"x_num_col_dims": xnc,
+                                "y_num_col_dims": 1})
+        mul_results.append(out)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(inputs[0].dtype)
+        pre_bias.shape = mul_results[0].shape
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
+    bias_dim = len(pre_bias.shape) - 1 \
+        if getattr(inputs[0], "lod_level", 0) > 0 else num_flatten_dims
+    pre_act = helper.append_bias_op(pre_bias, dim_start=bias_dim)
+    out = helper.append_activation(pre_act)
+    from .sequence import propagate_lod
+    return propagate_lod(helper, inputs[0], out)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """Lookup table (nn.py embedding; lookup_table_op.cc:71)."""
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(helper.param_attr, shape=list(size),
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    ishape = input.shape
+    if ishape and ishape[-1] == 1:
+        out.shape = tuple(ishape[:-1]) + (size[1],)
+    else:
+        out.shape = tuple(ishape) + (size[1],)
+    pad = -1 if padding_idx is None else (
+        padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    helper.append_op(type="lookup_table",
+                     inputs={"W": [w], "Ids": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"is_sparse": is_sparse,
+                            "is_distributed": is_distributed,
+                            "padding_idx": pad})
+    from .sequence import propagate_lod
+    return propagate_lod(helper, input, out)
+
+
+def _conv_out_size(in_size, k, pad, stride, dilation=1):
+    if in_size is None or in_size < 0:
+        return -1
+    return (in_size + 2 * pad - (dilation * (k - 1) + 1)) // stride + 1
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    helper = LayerHelper("conv2d", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    num_channels = input.shape[1]
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+
+    def _std_init(attr):
+        from ..initializer import NormalInitializer
+        fan_in = num_channels * filter_size[0] * filter_size[1]
+        std = (2.0 / fan_in) ** 0.5
+        return NormalInitializer(0.0, std)
+
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=input.dtype,
+                                default_initializer=_std_init(None))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    n, _, h, w_in = input.shape
+    out.shape = (n, num_filters,
+                 _conv_out_size(h, filter_size[0], padding[0], stride[0],
+                                dilation[0]),
+                 _conv_out_size(w_in, filter_size[1], padding[1], stride[1],
+                                dilation[1]))
+    helper.append_op(type="conv2d",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": list(stride),
+                            "paddings": list(padding),
+                            "dilations": list(dilation), "groups": groups})
+    pre_act = _append_channel_bias(helper, out)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv2d_transpose", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    num_channels = input.shape[1]
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    w = helper.create_parameter(
+        helper.param_attr,
+        shape=[num_channels, num_filters // groups] + list(filter_size),
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    n, _, h, w_in = input.shape
+
+    def _o(i, k, p, s, d):
+        if i is None or i < 0:
+            return -1
+        return (i - 1) * s - 2 * p + d * (k - 1) + 1
+
+    out.shape = (n, num_filters,
+                 _o(h, filter_size[0], padding[0], stride[0], dilation[0]),
+                 _o(w_in, filter_size[1], padding[1], stride[1], dilation[1]))
+    helper.append_op(type="conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": list(stride),
+                            "paddings": list(padding),
+                            "dilations": list(dilation), "groups": groups})
+    pre_act = _append_channel_bias(helper, out)
+    return helper.append_activation(pre_act)
+
+
+def _append_channel_bias(helper, out):
+    bias_attr = helper.bias_attr
+    if bias_attr is False:
+        return out
+    b = helper.create_parameter(bias_attr, shape=[out.shape[1]],
+                                dtype=out.dtype, is_bias=True)
+    pre_act = helper.create_variable_for_type_inference(out.dtype)
+    pre_act.shape = out.shape
+    helper.append_op(type="elementwise_add",
+                     inputs={"X": [out], "Y": [b]},
+                     outputs={"Out": [pre_act]}, attrs={"axis": 1})
+    return pre_act
+
+
+def _pair(x):
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x, x]
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    pool_size = _pair(pool_size)
+    pool_stride = _pair(pool_stride)
+    pool_padding = _pair(pool_padding)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    n, c, h, w = input.shape
+    if global_pooling:
+        out.shape = (n, c, 1, 1)
+    else:
+        def _po(i, k, p, s):
+            if i is None or i < 0:
+                return -1
+            if ceil_mode:
+                return (i - k + 2 * p + s - 1) // s + 1
+            return (i - k + 2 * p) // s + 1
+        out.shape = (n, c, _po(h, pool_size[0], pool_padding[0],
+                               pool_stride[0]),
+                     _po(w, pool_size[1], pool_padding[1], pool_stride[1]))
+    helper.append_op(type="pool2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type,
+                            "ksize": pool_size, "strides": pool_stride,
+                            "paddings": pool_padding,
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False, name=None):
+    helper = LayerHelper("batch_norm", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    c_axis = 1 if data_layout == "NCHW" else len(input.shape) - 1
+    channels = input.shape[c_axis]
+    from ..initializer import ConstantInitializer
+    scale = helper.create_parameter(
+        helper.param_attr, shape=[channels], dtype=input.dtype,
+        default_initializer=ConstantInitializer(1.0), suffix="scale")
+    bias = helper.create_parameter(
+        helper.bias_attr if helper.bias_attr is not False else ParamAttr(),
+        shape=[channels], dtype=input.dtype, is_bias=True, suffix="offset")
+    # moving stats: persistable, non-trainable, updated in place by the op
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False,
+                  initializer=ConstantInitializer(0.0)),
+        shape=[channels], dtype=input.dtype, suffix="mean")
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False,
+                  initializer=ConstantInitializer(1.0)),
+        shape=[channels], dtype=input.dtype, suffix="variance")
+    variance.stop_gradient = True
+
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    saved_mean = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    from ..initializer import ConstantInitializer
+    norm_shape = [_prod(input.shape[begin_norm_axis:])]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            helper.param_attr, shape=norm_shape, dtype=input.dtype,
+            default_initializer=ConstantInitializer(1.0), suffix="scale")
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(
+            helper.bias_attr if helper.bias_attr is not False
+            else ParamAttr(), shape=norm_shape, dtype=input.dtype,
+            is_bias=True, suffix="offset")
+        inputs["Bias"] = [b]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    mean = helper.create_variable_for_type_inference(input.dtype, True)
+    var = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None,
+            dropout_implementation="downgrade_in_infer", name=None):
+    from ..initializer import _next_seed
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    mask = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type="dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": _next_seed(seed or 0),
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xs = list(x.shape or ())
+    ys = list(y.shape or ())
+    if xs and ys:
+        if transpose_x and len(xs) > 1:
+            xs[-1], xs[-2] = xs[-2], xs[-1]
+        if transpose_y and len(ys) > 1:
+            ys[-1], ys[-2] = ys[-2], ys[-1]
+        if len(xs) > 1 and len(ys) > 1:
+            batch = xs[:-2] if len(xs) >= len(ys) else ys[:-2]
+            out.shape = tuple(batch) + (xs[-2], ys[-1])
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    return out
+
+
+def softmax(input, axis=-1, use_cudnn=False, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = tuple(input.shape[:-1]) + (1,)
+    from .sequence import _assert_level1
+    _assert_level1(input, "cross_entropy")
+    ins = {"X": [input], "Label": [label]}
+    if getattr(input, "lod_level", 0) > 0:
+        # token-level loss over a padded lod tensor: mask pad positions
+        # (the reference's packed rep has no pad rows to mask —
+        # lod_tensor.h:44)
+        from .sequence import _len_var, propagate_lod
+        ins["SeqLen"] = [_len_var(input)]
+    helper.append_op(type="cross_entropy", inputs=ins,
+                     outputs={"Out": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    if getattr(input, "lod_level", 0) > 0:
+        propagate_lod(helper, input, out)
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, return_softmax=False,
+                               axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    softmax_out.shape = logits.shape
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    loss.shape = tuple(logits.shape[:-1]) + (1,)
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [softmax_out], "Loss": [loss]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = ()
+    from .sequence import _assert_level1
+    _assert_level1(x, "mean")
+    ins = {"X": [x]}
+    if getattr(x, "lod_level", 0) > 0:
+        # mean over a lod tensor averages valid tokens only (the packed
+        # reference rep has exactly sum(lens) rows)
+        from .sequence import _len_var
+        ins["SeqLen"] = [_len_var(x)]
+    helper.append_op(type="mean", inputs=ins, outputs={"Out": [out]})
+    return out
+
+
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        reduce_all = dim is None
+        if dim is None:
+            dim = [0]
+        if isinstance(dim, int):
+            dim = [dim]
+        if input.shape is not None:
+            if reduce_all:
+                out.shape = ()
+            else:
+                nd = len(input.shape)
+                dims = set(d % nd for d in dim)
+                sh = [(1 if i in dims else s)
+                      for i, s in enumerate(input.shape)]
+                if not keep_dim:
+                    sh = [s for i, s in enumerate(sh) if i not in dims]
+                out.shape = tuple(sh)
+        helper.append_op(type=op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]},
+                         attrs={"dim": dim, "keep_dim": keep_dim,
+                                "reduce_all": reduce_all})
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype,
+                                                       stop_gradient=True)
+    indices = helper.create_variable_for_type_inference("int64",
+                                                        stop_gradient=True)
+    if input.shape is not None:
+        values.shape = tuple(input.shape[:-1]) + (k,)
+        indices.shape = values.shape
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """metric_op.py accuracy: top-k then compare (metrics/accuracy_op.cc)."""
+    helper = LayerHelper("accuracy")
+    values, indices = topk(input, k=k)
+    acc_out = helper.create_variable_for_type_inference("float32",
+                                                        stop_gradient=True)
+    acc_out.shape = ()
+    if correct is None:
+        correct = helper.create_variable_for_type_inference("int32", True)
+    if total is None:
+        total = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op(type="accuracy",
+                     inputs={"Out": [values], "Indices": [indices],
+                             "Label": [label]},
+                     outputs={"Accuracy": [acc_out], "Correct": [correct],
+                              "Total": [total]})
+    return acc_out
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
+    helper = LayerHelper("reshape", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        sh = list(shape)
+        known = _prod([s for s in sh if s > 0])
+        for i, s in enumerate(sh):
+            if s == 0:
+                sh[i] = x.shape[i]
+                known *= sh[i] if sh[i] and sh[i] > 0 else 1
+        if -1 in sh and all(s is not None and s >= 0 for s in x.shape):
+            total = _prod(x.shape)
+            sh[sh.index(-1)] = total // known
+        out.shape = tuple(sh)
+    helper.append_op(type="reshape", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"shape": list(shape)})
+    return helper.append_activation(out) if act else out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(x.shape[p] for p in perm)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    ax = dim if dim >= 0 else len(input.shape) + dim
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        sections = []
+        sizes = [input.shape[ax] // n] * n if input.shape[ax] > 0 else \
+            [-1] * n
+    else:
+        sections = list(num_or_sections)
+        n = len(sections)
+        sizes = sections
+    outs = []
+    for s in sizes:
+        o = helper.create_variable_for_type_inference(input.dtype)
+        sh = list(input.shape)
+        sh[ax] = s
+        o.shape = tuple(sh)
+        outs.append(o)
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"axis": ax, "num": n if not sections else 0,
+                            "sections": sections})
+    return outs
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    if xs[0].shape is not None:
+        sh = list(xs[0].shape)
+        ax = axis if axis >= 0 else len(sh) + 1 + axis
+        sh.insert(ax, len(xs))
+        out.shape = tuple(sh)
+    helper.append_op(type="stack", inputs={"X": list(xs)},
+                     outputs={"Y": [out]}, attrs={"axis": axis})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        nd = len(input.shape)
+        drop = set(a % nd for a in axes)
+        out.shape = tuple(s for i, s in enumerate(input.shape)
+                          if i not in drop)
+    helper.append_op(type="squeeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": list(axes)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        sh = list(input.shape)
+        for a in sorted(axes):
+            sh.insert(a, 1)
+        out.shape = tuple(sh)
+    helper.append_op(type="unsqueeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": list(axes)})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        d0 = _prod(x.shape[:axis])
+        d1 = _prod(x.shape[axis:])
+        if any(s is not None and s < 0 for s in x.shape[:axis]):
+            d0 = -1
+        out.shape = (d0, d1)
+    helper.append_op(type="flatten", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": min, "max": max})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"max_norm": max_norm})
+    return out
+
+
+def elementwise_op_layer(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, name=name, act=act)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        out.shape = x.shape
+        helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]}, attrs={"axis": axis})
+        return helper.append_activation(out)
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = elementwise_op_layer("elementwise_add")
+elementwise_sub = elementwise_op_layer("elementwise_sub")
+elementwise_mul = elementwise_op_layer("elementwise_mul")
+elementwise_div = elementwise_op_layer("elementwise_div")
+elementwise_max = elementwise_op_layer("elementwise_max")
+elementwise_min = elementwise_op_layer("elementwise_min")
+elementwise_pow = elementwise_op_layer("elementwise_pow")
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", name=name, act=act)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"scale": scale, "bias": bias,
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    if input.shape is not None:
+        base = input.shape[:-1] if input.shape[-1] == 1 else input.shape
+        out.shape = tuple(base) + (depth,)
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = label.shape
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def dropout_like_unary(op_type):
+    def layer(x, name=None, **attrs):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        out.shape = x.shape
+        helper.append_op(type=op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+l2_normalize = dropout_like_unary("l2_normalize")
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out

@@ -1,0 +1,853 @@
+"""Layer builders for the wider op corpus (losses, vision, misc).
+
+Mirrors the corresponding declarative builders in the reference's
+``python/paddle/fluid/layers/nn.py`` — each fn appends IR ops via
+LayerHelper and computes a static output shape where downstream layers
+need one.
+"""
+
+from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+
+
+def _simple(op_type, ins, outs_shapes, attrs=None, dtype=None, act=None,
+            name=None):
+    """Append one op; ins: dict slot->var(list); outs_shapes: dict
+    slot->shape (None = copy first input's shape).  Returns created vars
+    in outs_shapes order (single var if one output)."""
+    helper = LayerHelper(op_type, name=name, act=act)
+    ins = {k: v for k, v in ins.items() if v is not None}
+    first_in = next(iter(ins.values()))
+    if isinstance(first_in, (list, tuple)):
+        first_in = first_in[0]
+    dtype = dtype or first_in.dtype
+    outs = {}
+    created = []
+    for slot, shape in outs_shapes.items():
+        v = helper.create_variable_for_type_inference(dtype)
+        v.shape = first_in.shape if shape is None else shape
+        outs[slot] = [v]
+        created.append(v)
+    helper.append_op(type=op_type,
+                     inputs={k: (list(v) if isinstance(v, (list, tuple))
+                                 else [v]) for k, v in ins.items()},
+                     outputs=outs, attrs=attrs or {})
+    if act is not None:
+        created[0] = helper.append_activation(created[0])
+    return created[0] if len(created) == 1 else tuple(created)
+
+
+# -- losses ------------------------------------------------------------------
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    return _simple("log_loss", {"Predicted": input, "Labels": label},
+                   {"Loss": input.shape}, {"epsilon": epsilon}, name=name)
+
+
+def hinge_loss(input, label, name=None):
+    return _simple("hinge_loss", {"Logits": input, "Labels": label},
+                   {"Loss": input.shape}, name=name)
+
+
+def rank_loss(label, left, right, name=None):
+    return _simple("rank_loss",
+                   {"Label": label, "Left": left, "Right": right},
+                   {"Out": label.shape}, name=name)
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    out, _ = _simple("margin_rank_loss",
+                     {"Label": label, "X1": left, "X2": right},
+                     {"Out": label.shape, "Activated": label.shape},
+                     {"margin": margin}, name=name)
+    return out
+
+
+def huber_loss(input, label, delta, name=None):
+    out, _ = _simple("huber_loss", {"X": input, "Y": label},
+                     {"Out": input.shape, "Residual": input.shape},
+                     {"delta": delta}, name=name)
+    return out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    shape = () if reduction in ("mean", "sum", "batchmean") else x.shape
+    return _simple("kldiv_loss", {"X": x, "Target": target},
+                   {"Loss": shape}, {"reduction": reduction}, name=name)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=1.0):
+    ins = {"X": x, "Y": y}
+    if inside_weight is not None:
+        ins["InsideWeight"] = inside_weight
+    if outside_weight is not None:
+        ins["OutsideWeight"] = outside_weight
+    n = x.shape[0] if x.shape else -1
+    out, _ = _simple("smooth_l1_loss", ins,
+                     {"Out": (n, 1), "Diff": x.shape}, {"sigma": sigma})
+    return out
+
+
+def bpr_loss(input, label, name=None):
+    n = input.shape[0] if input.shape else -1
+    return _simple("bpr_loss", {"X": input, "Label": label},
+                   {"Y": (n, 1)}, name=name)
+
+
+def cos_sim(X, Y):
+    n = X.shape[0] if X.shape else -1
+    out, _, _ = _simple("cos_sim", {"X": X, "Y": Y},
+                        {"Out": (n, 1), "XNorm": (n, 1), "YNorm": (n, 1)})
+    return out
+
+
+def squared_l2_distance(x, y):
+    n = x.shape[0] if x.shape else -1
+    out, _ = _simple("squared_l2_distance", {"X": x, "Y": y},
+                     {"Out": (n, 1), "sub_result": x.shape})
+    return out
+
+
+def modified_huber_loss(x, y, name=None):
+    out, _ = _simple("modified_huber_loss", {"X": x, "Y": y},
+                     {"Out": x.shape, "IntermediateVal": x.shape}, name=name)
+    return out
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    return _simple("teacher_student_sigmoid_loss",
+                   {"X": input, "Label": label}, {"Y": input.shape},
+                   {"soft_max_up_bound": soft_max_up_bound,
+                    "soft_max_lower_bound": soft_max_lower_bound})
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    helper = LayerHelper("bilinear_tensor_product", name=name,
+                         param_attr=param_attr, bias_attr=bias_attr, act=act)
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[size, x.shape[-1], y.shape[-1]],
+                                dtype=x.dtype)
+    ins = {"X": [x], "Y": [y], "Weight": [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                    shape=[1, size], dtype=x.dtype,
+                                    is_bias=True)
+        ins["Bias"] = [b]
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = (x.shape[0], size)
+    helper.append_op(type="bilinear_tensor_product", inputs=ins,
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None, sampler="uniform",
+        custom_dist=None, seed=0, is_sparse=False):
+    helper = LayerHelper("nce", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr)
+    dim = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                shape=[num_total_classes],
+                                dtype=input.dtype, is_bias=True)
+    num_neg = num_neg_samples or 10
+    n = input.shape[0] if input.shape else -1
+    t = label.shape[-1] if label.shape else 1
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    cost.shape = (n, 1)
+    slogits = helper.create_variable_for_type_inference(input.dtype)
+    slogits.shape = (n, t + num_neg)
+    slabels = helper.create_variable_for_type_inference("int64")
+    slabels.shape = (n, t + num_neg)
+    helper.append_op(type="nce",
+                     inputs={"Input": [input], "Label": [label],
+                             "Weight": [w], "Bias": [b]},
+                     outputs={"Cost": [cost], "SampleLogits": [slogits],
+                              "SampleLabels": [slabels]},
+                     attrs={"num_total_classes": num_total_classes,
+                            "num_neg_samples": num_neg, "seed": seed})
+    return cost
+
+
+# -- vision ------------------------------------------------------------------
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW", name=None):
+    return _simple("affine_channel",
+                   {"X": x, "Scale": scale, "Bias": bias}, {"Out": x.shape},
+                   {"data_layout": data_layout}, name=name)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    c = input.shape[1]
+    from ..initializer import ConstantInitializer
+    scale = helper.create_parameter(helper.param_attr, shape=[c],
+                                    dtype=input.dtype,
+                                    default_initializer=ConstantInitializer(
+                                        1.0))
+    bias = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                   shape=[c], dtype=input.dtype, is_bias=True)
+    n = input.shape[0] if input.shape else -1
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    mean = helper.create_variable_for_type_inference(input.dtype)
+    mean.shape = (n, groups)
+    var = helper.create_variable_for_type_inference(input.dtype)
+    var.shape = (n, groups)
+    helper.append_op(type="group_norm",
+                     inputs={"X": [input], "Scale": [scale], "Bias": [bias]},
+                     outputs={"Y": [out], "Mean": [mean], "Variance": [var]},
+                     attrs={"groups": groups, "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    out, _ = _simple("lrn", {"X": input},
+                     {"Out": input.shape, "MidOut": input.shape},
+                     {"n": n, "k": k, "alpha": alpha, "beta": beta},
+                     name=name)
+    return out
+
+
+def maxout(x, groups, name=None):
+    n, c = x.shape[0], x.shape[1]
+    shape = (n, c // groups) + tuple(x.shape[2:])
+    return _simple("maxout", {"X": x}, {"Out": shape}, {"groups": groups},
+                   name=name)
+
+
+def space_to_depth(x, blocksize, name=None):
+    n, c, h, w = x.shape
+    shape = (n, c * blocksize * blocksize, h // blocksize, w // blocksize)
+    return _simple("space_to_depth", {"X": x}, {"Out": shape},
+                   {"blocksize": blocksize}, name=name)
+
+
+def shuffle_channel(x, group, name=None):
+    return _simple("shuffle_channel", {"X": x}, {"Out": x.shape},
+                   {"group": group}, name=name)
+
+
+def _interp(op_type, input, out_shape, align_corners, name):
+    oh, ow = out_shape
+    n, c = input.shape[0], input.shape[1]
+    return _simple(op_type, {"X": input}, {"Out": (n, c, oh, ow)},
+                   {"out_h": oh, "out_w": ow, "align_corners": align_corners},
+                   name=name)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    align_corners=True, align_mode=1):
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale), int(input.shape[3] * scale)]
+    return _interp("bilinear_interp", input, out_shape, align_corners, name)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   align_corners=True):
+    if out_shape is None:
+        out_shape = [int(input.shape[2] * scale), int(input.shape[3] * scale)]
+    return _interp("nearest_interp", input, out_shape, align_corners, name)
+
+
+image_resize = resize_bilinear
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    if hasattr(shape, "name"):  # Variable ref shape
+        ref = shape
+        return _simple("crop", {"X": x, "Y": ref}, {"Out": ref.shape},
+                       {"offsets": offsets or [0] * len(x.shape)}, name=name)
+    return _simple("crop", {"X": x}, {"Out": tuple(shape)},
+                   {"offsets": offsets or [0] * len(x.shape),
+                    "shape": list(shape)}, name=name)
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    return _simple("pad_constant_like", {"X": x, "Y": y}, {"Out": x.shape},
+                   {"pad_value": pad_value}, name=name)
+
+
+def random_crop(x, shape, seed=None):
+    lead = len(x.shape) - len(shape)
+    out_shape = tuple(x.shape[:lead]) + tuple(shape)
+    return _simple("random_crop", {"X": x}, {"Out": out_shape},
+                   {"shape": list(shape), "seed": seed or 0})
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv3d", name=name, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act)
+    k = [filter_size] * 3 if isinstance(filter_size, int) else filter_size
+    s = [stride] * 3 if isinstance(stride, int) else stride
+    p = [padding] * 3 if isinstance(padding, int) else padding
+    d = [dilation] * 3 if isinstance(dilation, int) else dilation
+    ci = input.shape[1]
+    w = helper.create_parameter(
+        helper.param_attr, shape=[num_filters, ci // groups] + list(k),
+        dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    spatial = []
+    for i in range(3):
+        size = input.shape[2 + i]
+        spatial.append(
+            None if size in (None, -1) else
+            (size + 2 * p[i] - (d[i] * (k[i] - 1) + 1)) // s[i] + 1)
+    out.shape = (input.shape[0], num_filters) + tuple(spatial)
+    helper.append_op(type="conv3d",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": s, "paddings": p, "dilations": d,
+                            "groups": groups})
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                    shape=[num_filters], dtype=input.dtype,
+                                    is_bias=True)
+        biased = helper.create_variable_for_type_inference(input.dtype)
+        biased.shape = out.shape
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [biased]}, attrs={"axis": 1})
+        out = biased
+    return helper.append_activation(out)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, name=None):
+    k = [pool_size] * 3 if isinstance(pool_size, int) else pool_size
+    s = [pool_stride] * 3 if isinstance(pool_stride, int) else pool_stride
+    p = [pool_padding] * 3 if isinstance(pool_padding, int) else pool_padding
+    n, c = input.shape[0], input.shape[1]
+    if global_pooling:
+        shape = (n, c, 1, 1, 1)
+    else:
+        spatial = tuple(
+            None if input.shape[2 + i] in (None, -1) else
+            (input.shape[2 + i] + 2 * p[i] - k[i]) // s[i] + 1
+            for i in range(3))
+        shape = (n, c) + spatial
+    return _simple("pool3d", {"X": input}, {"Out": shape},
+                   {"pooling_type": pool_type, "ksize": k, "strides": s,
+                    "paddings": p, "global_pooling": global_pooling},
+                   name=name)
+
+
+def grid_sampler(x, grid, name=None):
+    n, c = x.shape[0], x.shape[1]
+    h, w = grid.shape[1], grid.shape[2]
+    return _simple("grid_sampler", {"X": x, "Grid": grid},
+                   {"Output": (n, c, h, w)}, name=name)
+
+
+def affine_grid(theta, out_shape, name=None):
+    n = out_shape[0]
+    return _simple("affine_grid", {"Theta": theta},
+                   {"Output": (n, out_shape[2], out_shape[3], 2)},
+                   {"output_shape": list(out_shape)}, name=name)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    d = input.shape[-1]
+    f = helper.create_parameter(helper.param_attr,
+                                shape=[future_context_size + 1, d],
+                                dtype=input.dtype)
+    out = _simple("row_conv", {"X": input, "Filter": f}, {"Out": input.shape})
+    return helper.append_activation(out)
+
+
+# -- misc --------------------------------------------------------------------
+
+def multiplex(inputs, index):
+    return _simple("multiplex", {"X": list(inputs), "Ids": index},
+                   {"Out": inputs[0].shape})
+
+
+def argsort(input, axis=-1, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    idx = helper.create_variable_for_type_inference("int64")
+    idx.shape = input.shape
+    helper.append_op(type="argsort", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [idx]},
+                     attrs={"axis": axis})
+    return out, idx
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64"):
+    n = x.shape[0] if x.shape else -1
+    return _simple("sampling_id", {"X": x}, {"Out": (n,)},
+                   {"seed": seed}, dtype=dtype)
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    attrs = {}
+    if scale is not None:
+        attrs["scale"] = scale
+    if alpha is not None:
+        attrs["alpha"] = alpha
+    return _simple("selu", {"X": x}, {"Out": x.shape}, attrs, name=name)
+
+
+def is_empty(x, cond=None):
+    return _simple("is_empty", {"X": x}, {"Out": ()}, dtype="bool")
+
+
+def has_inf(x):
+    return _simple("isfinite", {"X": x}, {"Out": (1,)}, dtype="bool")
+
+
+has_nan = has_inf
+
+
+def sign(x):
+    return _simple("sign", {"X": x}, {"Out": x.shape})
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _simple("elementwise_mod", {"X": x, "Y": y}, {"Out": x.shape},
+                   {"axis": axis}, act=act, name=name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _simple("elementwise_floordiv", {"X": x, "Y": y},
+                   {"Out": x.shape}, {"axis": axis}, act=act, name=name)
+
+
+def ring_attention(q, k, v, causal=False, seq_axis="seq", batch_axis="data",
+                   name=None):
+    """Sequence-parallel exact attention over [B, T, H, D] (new vs the
+    reference; lowers to a ppermute ring under a mesh with `seq_axis`)."""
+    return _simple("ring_attention", {"Q": q, "K": k, "V": v},
+                   {"Out": q.shape},
+                   {"causal": causal, "seq_axis": seq_axis,
+                    "batch_axis": batch_axis}, name=name)
+
+
+def fused_attention(q, k, v, bias=None, causal=False, dropout_rate=0.0,
+                    scale=0.0, is_test=False, name=None):
+    """Scaled-dot-product attention over [B, H, T, D] with optional
+    additive bias [B, H, Tq, Tk] and attention-weight dropout — the
+    fused core of multi_head_attention.  Lowers through the flash/
+    composed measured-win kernel tier (ops/kernel_select.py)."""
+    from ..initializer import _next_seed
+
+    ins = {"Q": q, "K": k, "V": v}
+    if bias is not None:
+        ins["Bias"] = bias
+    out_shape = (tuple(q.shape[:-1]) + (v.shape[-1],)) \
+        if q.shape and v.shape else q.shape
+    return _simple("fused_attention", ins, {"Out": out_shape},
+                   {"causal": causal, "dropout_prob": dropout_rate,
+                    "scale": scale, "is_test": is_test,
+                    # per-op seed: layers must not share dropout masks
+                    "seed": _next_seed(0)}, name=name)
+
+
+def slice(input, axes, starts, ends, name=None):
+    shape = list(input.shape) if input.shape else None
+    if shape is not None:
+        for a, s, e in zip(axes, starts, ends):
+            if shape[a] not in (None, -1):
+                dim = shape[a]
+                s2 = max(s + dim, 0) if s < 0 else min(s, dim)
+                e2 = max(e + dim, 0) if e < 0 else min(e, dim)
+                shape[a] = e2 - s2
+    return _simple("slice", {"Input": input},
+                   {"Out": tuple(shape) if shape else None},
+                   {"axes": list(axes), "starts": list(starts),
+                    "ends": list(ends)}, name=name)
+
+
+def shape(input):
+    return _simple("shape", {"Input": input},
+                   {"Out": (len(input.shape),) if input.shape else None},
+                   dtype="int32")
+
+
+def gather(input, index, overwrite=True):
+    n = index.shape[0] if index.shape else -1
+    return _simple("gather", {"X": input, "Index": index},
+                   {"Out": (n,) + tuple(input.shape[1:])})
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    return _simple("scatter",
+                   {"X": input, "Ids": index, "Updates": updates},
+                   {"Out": input.shape}, {"overwrite": overwrite},
+                   name=name)
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """Linear-chain CRF cost (reference layers/nn.py linear_chain_crf over
+    linear_chain_crf_op.h).  input: lod emission [B, T, K]; label: lod
+    [B, T, 1] int.  Returns the per-sequence negative conditional
+    log-likelihood [B, 1] (a cost, as upstream)."""
+    from .sequence import _len_var
+
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size], dtype=input.dtype)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    ll.shape = (input.shape[0] if input.shape else -1, 1)
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input], "Transition": [transition],
+                "Label": [label], "SeqLen": [_len_var(input)]},
+        outputs={"LogLikelihood": [ll]})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None):
+    """Viterbi decode with the transition weights learned by
+    linear_chain_crf (crf_decoding_op.h).  With `label`, emits the 0/1
+    per-token correctness vector used by chunk_eval."""
+    from .sequence import _len_var, _make_lod_out
+
+    helper = LayerHelper("crf_decoding", param_attr=param_attr)
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size], dtype=input.dtype)
+    out, out_len = _make_lod_out(helper, input, dtype="int64")
+    if input.shape:
+        out.shape = tuple(input.shape[:-1]) + (1,)
+    ins = {"Emission": [input], "Transition": [transition],
+           "SeqLen": [_len_var(input)]}
+    if label is not None:
+        ins["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=ins,
+                     outputs={"ViterbiPath": [out], "OutLen": [out_len]})
+    return out
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None,
+                return_parent_idx=True):
+    """One static-width beam step (beam_search_op.cc).  pre_ids/pre_scores
+    [B*K, 1]; ids/scores [B*K, K2] accumulated candidate log-probs.
+    Returns (selected_ids, selected_scores, parent_idx) — the parent chain
+    the reference encodes in output LoD is an explicit tensor here (feed
+    it to beam_search_decode via a parents array)."""
+    helper = LayerHelper("beam_search", name=name)
+    sel_ids = helper.create_variable_for_type_inference("int64")
+    sel_scores = helper.create_variable_for_type_inference(pre_scores.dtype)
+    parent_idx = helper.create_variable_for_type_inference("int64")
+    if pre_ids.shape:
+        sel_ids.shape = tuple(pre_ids.shape[:1]) + (1,)
+        sel_scores.shape = sel_ids.shape
+        parent_idx.shape = tuple(pre_ids.shape[:1])
+    helper.append_op(
+        type="beam_search",
+        inputs={"pre_ids": [pre_ids], "pre_scores": [pre_scores],
+                "ids": [ids], "scores": [scores]},
+        outputs={"selected_ids": [sel_ids],
+                 "selected_scores": [sel_scores],
+                 "parent_idx": [parent_idx]},
+        attrs={"beam_size": beam_size, "end_id": end_id, "level": level,
+               "is_accumulated": is_accumulated})
+    if return_parent_idx:
+        return sel_ids, sel_scores, parent_idx
+    return sel_ids, sel_scores
+
+
+def beam_search_decode(ids, scores, beam_size, end_id, parents=None,
+                       name=None):
+    """Backtrack finished beams (beam_search_decode_op.cc).  ids/scores/
+    parents are TensorArrays written once per decode step; returns
+    (sentence_ids [B, K, C], sentence_scores [B, K])."""
+    if parents is None:
+        raise ValueError(
+            "the TPU lowering carries the parent chain explicitly: pass "
+            "parents=<array of beam_search parent_idx per step>")
+    helper = LayerHelper("beam_search_decode", name=name)
+    sentence_ids = helper.create_variable_for_type_inference("int64")
+    sentence_scores = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="beam_search_decode",
+        inputs={"Ids": [ids], "Scores": [scores], "Parents": [parents]},
+        outputs={"SentenceIds": [sentence_ids],
+                 "SentenceScores": [sentence_scores]},
+        attrs={"beam_size": beam_size, "end_id": end_id})
+    return sentence_ids, sentence_scores
+
+
+def expand(x, expand_times, name=None):
+    """Tile x along each dim (expand_op.cc)."""
+    shape = None
+    if x.shape:
+        shape = tuple(d if d in (None, -1) else d * t
+                      for d, t in zip(x.shape, expand_times))
+    return _simple("expand", {"X": x}, {"Out": shape},
+                   {"expand_times": list(expand_times)}, name=name)
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, name=None):
+    """CTC loss (layers/nn.py warpctc over warpctc_op.cc).  input: lod
+    logits [B, T, C]; label: lod [B, L].  Returns loss [B, 1]."""
+    from .sequence import _len_var
+
+    helper = LayerHelper("warpctc", name=name)
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    loss.shape = (input.shape[0] if input.shape else -1, 1)
+    helper.append_op(
+        type="warpctc",
+        inputs={"Logits": [input], "Label": [label],
+                "LogitsLen": [_len_var(input)],
+                "LabelLen": [_len_var(label)]},
+        outputs={"Loss": [loss]},
+        attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """Greedy CTC decode (layers/nn.py ctc_greedy_decoder): per-step
+    argmax then merge-repeats/drop-blanks."""
+    from .sequence import _len_var, _make_lod_out
+    from .tensor import argmax
+
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    best = argmax(input, axis=-1)
+    out, out_len = _make_lod_out(helper, input, dtype="int64")
+    if input.shape:
+        out.shape = tuple(input.shape[:2])
+    helper.append_op(
+        type="ctc_align",
+        inputs={"Input": [best], "SeqLen": [_len_var(input)]},
+        outputs={"Output": [out], "OutLen": [out_len]},
+        attrs={"blank": blank, "merge_repeated": True})
+    return out
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid loss (layers/nn.py hsigmoid)."""
+    helper = LayerHelper("hierarchical_sigmoid", name=name,
+                         param_attr=param_attr, bias_attr=bias_attr)
+    dim = input.shape[-1]
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_classes - 1, dim],
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = (input.shape[0] if input.shape else -1, 1)
+    pre = helper.create_variable_for_type_inference(input.dtype)
+    import math
+    pre.shape = (input.shape[0] if input.shape else -1,
+                 max(int(math.ceil(math.log2(num_classes))), 1))
+    ins = {"X": [input], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr or ParamAttr(),
+                                    shape=[num_classes - 1],
+                                    dtype=input.dtype, is_bias=True)
+        ins["Bias"] = [b]
+    helper.append_op(type="hierarchical_sigmoid", inputs=ins,
+                     outputs={"Out": [out], "PreOut": [pre]},
+                     attrs={"num_classes": num_classes})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    """Image patches as a sequence (im2sequence_op.h)."""
+    ksize = [filter_size] * 2 if isinstance(filter_size, int) \
+        else list(filter_size)
+    strides = [stride] * 2 if isinstance(stride, int) else list(stride)
+    pads = [padding] * 4 if isinstance(padding, int) else list(padding)
+    if len(pads) == 2:
+        pads = pads * 2
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.lod_level = 1
+    b, c, h, w = input.shape
+    if h in (None, -1) or w in (None, -1):
+        oh = ow = -1
+    else:
+        oh = (h + pads[0] + pads[2] - ksize[0]) // strides[0] + 1
+        ow = (w + pads[1] + pads[3] - ksize[1]) // strides[1] + 1
+    out.shape = (b, oh * ow, c * ksize[0] * ksize[1])
+    from ..core.lod import seq_len_name
+    out_len = out.block.create_var(name=seq_len_name(out.name),
+                                   shape=(b,), dtype="int32",
+                                   stop_gradient=True)
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out], "OutLen": [out_len]},
+                     attrs={"kernels": ksize, "strides": strides,
+                            "paddings": pads, "out_stride": out_stride})
+    return out
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """XXH64 row hashing modulo hash_size (hash_op.h)."""
+    helper = LayerHelper("hash", name=name)
+    out = helper.create_variable_for_type_inference("int64")
+    out.shape = (input.shape[0], num_hash, 1)
+    helper.append_op(type="hash", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"mod_by": hash_size, "num_hash": num_hash})
+    return out
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    """Similarity-focus mask (similarity_focus_op.h)."""
+    return _simple("similarity_focus", {"X": input}, {"Out": input.shape},
+                   {"axis": axis, "indexes": list(indexes)}, name=name)
+
+
+def tensor_array_to_tensor(input, axis=1, use_stack=False, name=None):
+    """Concat/stack a TensorArray's entries
+    (tensor_array_to_tensor_op.cc).  Returns (out, index)."""
+    helper = LayerHelper("tensor_array_to_tensor", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idx = helper.create_variable_for_type_inference("int32")
+    helper.append_op(type="tensor_array_to_tensor",
+                     inputs={"X": [input]},
+                     outputs={"Out": [out], "OutIndex": [idx]},
+                     attrs={"axis": axis, "use_stack": use_stack})
+    return out, idx
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1,
+                                       remove_accidental_hits=True,
+                                       use_customized_samples=False,
+                                       customized_samples=None,
+                                       customized_probabilities=None,
+                                       seed=0, name=None):
+    """Sampled-softmax loss via the sample_logits op
+    (sample_logits_op.h + the reference layer of the same name)."""
+    helper = LayerHelper("sample_logits", name=name)
+    b = logits.shape[0]
+    k = num_true + num_samples
+    samples = helper.create_variable_for_type_inference("int32")
+    samples.shape = (b, k)
+    probs = helper.create_variable_for_type_inference(logits.dtype)
+    probs.shape = (b, k)
+    s_logits = helper.create_variable_for_type_inference(logits.dtype)
+    s_logits.shape = (b, k)
+    s_labels = helper.create_variable_for_type_inference("int32")
+    s_labels.shape = (b, num_true)
+    ins = {"Logits": [logits], "Labels": [label]}
+    if use_customized_samples:
+        ins["CustomizedSamples"] = [customized_samples]
+        ins["CustomizedProbabilities"] = [customized_probabilities]
+    helper.append_op(
+        type="sample_logits", inputs=ins,
+        outputs={"Samples": [samples], "Probabilities": [probs],
+                 "SampledLogits": [s_logits],
+                 "SampledLabels": [s_labels]},
+        attrs={"num_samples": num_samples, "seed": seed,
+               "use_customized_samples": use_customized_samples,
+               "remove_accidental_hits": remove_accidental_hits})
+    from . import nn as _nn
+    loss = _nn.softmax_with_cross_entropy(logits=s_logits,
+                                          label=s_labels)
+    return loss
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_len=None, name=None):
+    """Chunk-level precision/recall/F1 as an op (chunk_eval_op.h).
+    Returns (precision, recall, f1, n_infer, n_label, n_correct)."""
+    from ..core.lod import seq_len_name
+
+    helper = LayerHelper("chunk_eval", name=name)
+    outs = [helper.create_variable_for_type_inference("float32")
+            for _ in range(3)]
+    cnts = [helper.create_variable_for_type_inference("int64")
+            for _ in range(3)]
+    for v in outs + cnts:
+        v.shape = (1,)
+        v.stop_gradient = True
+    if seq_len is None:
+        ln = input.block.var(seq_len_name(input.name)) \
+            if input.block.has_var(seq_len_name(input.name)) else None
+    else:
+        ln = seq_len
+    ins = {"Inference": [input], "Label": [label]}
+    if ln is not None:
+        ins["SeqLen"] = [ln]
+    helper.append_op(
+        type="chunk_eval", inputs=ins,
+        outputs={"Precision": [outs[0]], "Recall": [outs[1]],
+                 "F1-Score": [outs[2]], "NumInferChunks": [cnts[0]],
+                 "NumLabelChunks": [cnts[1]],
+                 "NumCorrectChunks": [cnts[2]]},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return tuple(outs) + tuple(cnts)
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None, name=None):
+    """Levenshtein distance per (hypothesis, reference) pair
+    (edit_distance_op.cc; layer surface layers/nn.py edit_distance).
+    Returns (distances [B,1] float32, sequence_num scalar int64)."""
+    from ..core.lod import seq_len_name
+
+    if ignored_tokens:
+        raise NotImplementedError(
+            "ignored_tokens: erase them with sequence_erase first "
+            "(the reference inserts sequence_erase ops the same way)")
+    helper = LayerHelper("edit_distance", name=name)
+
+    def _len_of(v, given):
+        if given is not None:
+            return given
+        n = seq_len_name(v.name)
+        return v.block.var(n) if v.block.has_var(n) else None
+
+    hl = _len_of(input, input_length)
+    rl = _len_of(label, label_length)
+    if hl is None or rl is None:
+        raise ValueError("edit_distance needs sequence lengths: feed "
+                         "lod_level=1 vars or pass input_length/"
+                         "label_length")
+    out = helper.create_variable_for_type_inference("float32")
+    out.shape = (input.shape[0] if input.shape else -1, 1)
+    out.stop_gradient = True
+    seq_num = helper.create_variable_for_type_inference("int64")
+    seq_num.shape = ()
+    seq_num.stop_gradient = True
+    helper.append_op(
+        type="edit_distance",
+        inputs={"Hyps": [input], "Refs": [label], "HypsLen": [hl],
+                "RefsLen": [rl]},
+        outputs={"Out": [out], "SequenceNum": [seq_num]},
+        attrs={"normalized": normalized})
+    return out, seq_num
+
+
+def tree_conv(nodes_vector, edge_set, output_size, num_filters=1,
+              max_depth=2, act="tanh", param_attr=None, bias_attr=None,
+              name=None):
+    """Tree-based convolution (tree_conv_op.h, TBCNN)."""
+    helper = LayerHelper("tree_conv", name=name, act=act,
+                         param_attr=param_attr)
+    dtype = nodes_vector.dtype
+    feature_size = nodes_vector.shape[2]
+    w = helper.create_parameter(
+        attr=helper.param_attr, dtype=dtype,
+        shape=[feature_size, 3, output_size, num_filters])
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = (nodes_vector.shape[0], nodes_vector.shape[1],
+                 output_size, num_filters)
+    helper.append_op(type="tree_conv",
+                     inputs={"NodesVector": [nodes_vector],
+                             "EdgeSet": [edge_set], "Filter": [w]},
+                     outputs={"Out": [out]},
+                     attrs={"max_depth": max_depth})
+    if bias_attr:
+        b = helper.create_parameter(attr=bias_attr, dtype=dtype,
+                                    shape=[num_filters], is_bias=True)
+        from . import nn as _nn
+        out = _nn.elementwise_add(out, b, axis=-1)
+    return helper.append_activation(out)

@@ -1,0 +1,147 @@
+"""BERT encoder + pretraining heads (config #4 of BASELINE.md: BERT-base
+multi-host pretrain).
+
+Structure mirrors the canonical BERT-base: token/position/segment
+embeddings -> N transformer encoder layers (post-LN, GELU FFN) -> MLM head
+(tied decoder weight) + NSP head.  Built entirely from fluid-style layers,
+so the same graph runs single-chip, data-parallel (CompiledProgram),
+tensor-parallel (ParamAttr sharding), or sequence-parallel
+(layers.ring_attention drop-in).
+"""
+
+import paddle_tpu_torch as fluid
+from .transformer import encoder_layer, pre_post_process_layer
+
+
+class BertConfig:
+    def __init__(self, vocab_size=30522, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=3072, max_position=512,
+                 type_vocab_size=2, dropout=0.1):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size
+        self.max_position = max_position
+        self.type_vocab_size = type_vocab_size
+        self.dropout = dropout
+
+
+def bert_encoder(src_ids, pos_ids, sent_ids, attn_bias, cfg,
+                 param_sharding=None):
+    """-> [B, T, H] sequence output."""
+    emb = fluid.layers.embedding(
+        input=src_ids, size=[cfg.vocab_size, cfg.hidden_size],
+        param_attr=fluid.ParamAttr(name="word_embedding"))
+    pos = fluid.layers.embedding(
+        input=pos_ids, size=[cfg.max_position, cfg.hidden_size],
+        param_attr=fluid.ParamAttr(name="pos_embedding"))
+    sent = fluid.layers.embedding(
+        input=sent_ids, size=[cfg.type_vocab_size, cfg.hidden_size],
+        param_attr=fluid.ParamAttr(name="sent_embedding"))
+    x = fluid.layers.elementwise_add(
+        fluid.layers.elementwise_add(emb, pos), sent)
+    x = pre_post_process_layer(None, x, "nd", cfg.dropout)
+    d_key = cfg.hidden_size // cfg.num_heads
+    for _ in range(cfg.num_layers):
+        x = encoder_layer(x, attn_bias, cfg.num_heads, d_key, d_key,
+                          cfg.hidden_size, cfg.intermediate_size,
+                          cfg.dropout)
+    return pre_post_process_layer(None, x, "n")
+
+
+def bert_classifier(cfg, max_seq_len, num_labels=2):
+    """Serving graph: the encoder plus the NSP head of
+    :func:`bert_pretrain` ([CLS] -> fc tanh -> fc -> softmax).  Feeds
+    src_ids/pos_ids/sent_ids [B,T] int64 and attn_bias [B,1,1,T] (the
+    padding mask, 0 to attend and a large negative value to mask).
+    Returns (probs [B, num_labels], feed names)."""
+    feeds = ["src_ids", "pos_ids", "sent_ids", "attn_bias"]
+    src_ids, pos_ids, sent_ids = (
+        fluid.layers.data(name=n, shape=[max_seq_len], dtype="int64")
+        for n in feeds[:3])
+    attn_bias = fluid.layers.data(name="attn_bias",
+                                  shape=[1, 1, max_seq_len],
+                                  dtype="float32")
+    seq_out = bert_encoder(src_ids, pos_ids, sent_ids, attn_bias, cfg)
+    first_tok = fluid.layers.slice(seq_out, axes=[1], starts=[0], ends=[1])
+    pooled = fluid.layers.fc(
+        input=fluid.layers.reshape(first_tok, [-1, cfg.hidden_size]),
+        size=cfg.hidden_size, act="tanh")
+    logits = fluid.layers.fc(input=pooled, size=num_labels)
+    return fluid.layers.softmax(logits), feeds
+
+
+def bert_pretrain(cfg, max_seq_len):
+    """Full MLM+NSP pretrain graph.  Returns (total_loss, feed names).
+
+    Feeds: src_ids/pos_ids/sent_ids [B,T]; attn_bias broadcastable to
+    [B,H,T,T] (padding mask, usually [B,1,1,T]); mask_pos [B*M,1]
+    ABSOLUTE flattened indices of the masked positions (M static per
+    batch, pad slots index 0); mlm_label/mlm_weight [B*M,1]; nsp_label
+    [B,1].
+    """
+    src_ids = fluid.layers.data(name="src_ids", shape=[-1, max_seq_len],
+                                dtype="int64", append_batch_size=False)
+    pos_ids = fluid.layers.data(name="pos_ids", shape=[-1, max_seq_len],
+                                dtype="int64", append_batch_size=False)
+    sent_ids = fluid.layers.data(name="sent_ids", shape=[-1, max_seq_len],
+                                 dtype="int64", append_batch_size=False)
+    # broadcastable padding mask [B,1,1,T] — the TPU-idiomatic form: XLA
+    # broadcasts it into the score add for free, where a materialized
+    # [B,H,T,T] bias costs ~100 MB of HBM reads per layer (the reference
+    # stacks per-head copies, input_mask -> n_head; here any
+    # broadcast-compatible shape is accepted, so callers may still feed
+    # the full form)
+    attn_bias = fluid.layers.data(
+        name="attn_bias", shape=[-1, 1, 1, max_seq_len],
+        dtype="float32", append_batch_size=False)
+    mask_pos = fluid.layers.data(name="mask_pos", shape=[-1, 1],
+                                 dtype="int64", append_batch_size=False)
+    mlm_label = fluid.layers.data(name="mlm_label", shape=[-1, 1],
+                                  dtype="int64", append_batch_size=False)
+    mlm_weight = fluid.layers.data(name="mlm_weight", shape=[-1, 1],
+                                   dtype="float32",
+                                   append_batch_size=False)
+    nsp_label = fluid.layers.data(name="nsp_label", shape=[-1, 1],
+                                  dtype="int64", append_batch_size=False)
+
+    seq_out = bert_encoder(src_ids, pos_ids, sent_ids, attn_bias, cfg)
+
+    # MLM head over GATHERED masked positions only (BERT masks ~15% of
+    # tokens; projecting every position against the 30k vocab wastes
+    # ~6.7x the FLOPs and HBM of the whole head — ~20 ms/step at bench
+    # shapes, PERF.md round 4).  mask_pos carries ABSOLUTE flattened
+    # indices into [B*T] (host-computed, padded slots pointing at 0 with
+    # mlm_weight 0), the same contract as the reference-era BERT
+    # pretrain scripts.
+    flat = fluid.layers.reshape(seq_out, [-1, cfg.hidden_size])
+    picked = fluid.layers.gather(flat, mask_pos)       # [B*M, H]
+    mlm_trans = fluid.layers.fc(input=picked, size=cfg.hidden_size,
+                                act="gelu")
+    mlm_trans = fluid.layers.layer_norm(mlm_trans, begin_norm_axis=1)
+    mlm_logits = fluid.layers.fc(input=mlm_trans, size=cfg.vocab_size)
+    mlm_cost = fluid.layers.softmax_with_cross_entropy(
+        logits=mlm_logits, label=mlm_label)
+    mlm_weighted = fluid.layers.elementwise_mul(mlm_cost, mlm_weight)
+    mlm_loss = fluid.layers.elementwise_div(
+        fluid.layers.reduce_sum(mlm_weighted),
+        fluid.layers.elementwise_add(
+            fluid.layers.reduce_sum(mlm_weight),
+            fluid.layers.fill_constant(shape=[], dtype="float32",
+                                       value=1e-6)))
+
+    # NSP head on the [CLS] position
+    first_tok = fluid.layers.slice(seq_out, axes=[1], starts=[0], ends=[1])
+    pooled = fluid.layers.fc(
+        input=fluid.layers.reshape(first_tok, [-1, cfg.hidden_size]),
+        size=cfg.hidden_size, act="tanh")
+    nsp_logits = fluid.layers.fc(input=pooled, size=2)
+    nsp_cost = fluid.layers.softmax_with_cross_entropy(
+        logits=nsp_logits, label=nsp_label)
+    nsp_loss = fluid.layers.mean(nsp_cost)
+
+    total = fluid.layers.elementwise_add(mlm_loss, nsp_loss)
+    feeds = ["src_ids", "pos_ids", "sent_ids", "attn_bias", "mask_pos",
+             "mlm_label", "mlm_weight", "nsp_label"]
+    return total, feeds

@@ -1,0 +1,800 @@
+"""Distributed request tracing: causal spans across fleet, RPC, decode.
+
+PR 11's telemetry answers "how is the system doing"; this module
+answers "where did THIS request's 480 ms go" — the question every
+serving postmortem starts with (Clipper NSDI'17: per-request latency
+decomposes into queue/batch/compute stages that aggregate histograms
+cannot disentangle).
+
+Data model (one process, :data:`TRACER`):
+
+- :class:`TraceContext` — the (trace_id, span_id, sampled) triple that
+  travels: thread-local within a process (:func:`current` /
+  :func:`use_context` / :func:`bind`), and across hosts as an optional
+  trailer on every transport frame (``observability.propagate`` +
+  ``distributed.transport``; old peers ignore the trailing bytes, a
+  frame without the trailer parses as an unsampled context).
+- :class:`Span` — one timed phase with causal parentage: trace_id /
+  span_id / parent_id, attrs, point events, and *links* to sibling
+  spans in other traces (batch membership: one ``serving/batch`` span
+  links the N member request spans it coalesced).
+- :class:`Tracer` — HEAD sampling (``FLAGS_trace_sample_rate``; the
+  classes in ``FLAGS_trace_force_sla`` are always sampled while the
+  rate is nonzero, and a request that dies with every replica refusing
+  gets a *forced* error trace) feeding a bounded per-trace span store.
+  While a span is active on a thread, every ``profiler``
+  ``record_event``/``record_span`` firing there attaches to it as a
+  child event — the existing span-sink hook, so ``serving/execute``,
+  ``sparse/lookup`` etc. show up inside traces for free.
+
+Sampling contract: at ``FLAGS_trace_sample_rate=0`` (the default) the
+hot path is a no-op — one memoized float compare, **zero allocations**
+(asserted by the ``bench.py --telemetry`` tracing arm).  Tracing never
+touches programs or lowering flags, so jitcache hint fingerprints are
+byte-identical with tracing on or off (pinned by test).
+
+Export: ``recent_trace_doc()`` rides the ``metrics_pull`` payload so
+rank 0 stitches a cross-host trace by trace_id (:func:`stitch`);
+``export_chrome_tracing`` renders one trace for Perfetto;
+``tools/trace_inspect.py`` (stdlib-only — this module imports nothing
+from the package at module level, the ``postmortem.py`` loader
+discipline) prints the tree with :func:`critical_path` stage
+attribution: queue vs padding vs compute vs retry vs preemption.
+"""
+
+import collections
+import contextlib
+import json
+import random
+import threading
+import time
+
+TRACE_FLAG_SAMPLED = 1
+
+# Registered span names: the scope-name lint (tests/test_observability)
+# scans every span-name literal passed to start_span/add_span/
+# maybe_trace in paddle_tpu/ against this tuple.  Entries ending in
+# "/" are prefix families (the rpc spans carry the method name).
+SPAN_NAMES = (
+    "fleet/request",      # root: one routed request, dispatch -> done
+    "fleet/dispatch",     # candidate scan + failover under the root
+    "serving/queue",      # admission-queue wait (enqueue -> batch pop)
+    "serving/batch",      # ONE per device batch; links its members
+    "serving/compute",    # per-request view of the batch execute
+    "decode/sequence",    # root: one continuous-decode sequence
+    "decode/queue",       # wait-queue time before a slot admit
+    "decode/occupancy",   # one slot residency (preemption splits it)
+    "rpc/",               # client side of one RPC (rpc/sparse_lookup)
+    "rpc/serve/",         # server side of one RPC, parented remotely
+    "disagg/request",     # root: one disaggregated request, both legs
+    "disagg/prefill",     # prefill leg: prompt forward on the prefill tier
+    "disagg/kv_transfer", # kv_stream leg: paged blocks prefill -> decode
+)
+
+
+def registered_span_names():
+    return set(SPAN_NAMES)
+
+
+def _new_id():
+    # 63-bit so ids survive every JSON/i64 path; never 0 (0 = absent)
+    return random.getrandbits(63) | 1
+
+
+class TraceContext:
+    """The propagated triple.  ``sampled`` is the head decision — an
+    unsampled context never creates spans anywhere downstream."""
+
+    __slots__ = ("trace_id", "span_id", "sampled")
+
+    def __init__(self, trace_id, span_id, sampled=True):
+        self.trace_id = int(trace_id)
+        self.span_id = int(span_id)
+        self.sampled = bool(sampled)
+
+    def to_wire(self):
+        """(trace_id, span_id, flags) for the transport trailer."""
+        return (self.trace_id, self.span_id,
+                TRACE_FLAG_SAMPLED if self.sampled else 0)
+
+    @classmethod
+    def from_wire(cls, wire):
+        """Inverse of :meth:`to_wire`; None/absent -> None (an old peer
+        or an untraced request reads as an unsampled context)."""
+        if not wire:
+            return None
+        tid, sid, flags = wire
+        return cls(tid, sid, bool(flags & TRACE_FLAG_SAMPLED))
+
+    def __repr__(self):
+        return (f"TraceContext({self.trace_id:016x}, "
+                f"{self.span_id:016x}, sampled={self.sampled})")
+
+
+class Span:
+    """One timed phase.  Mutable until :meth:`Tracer.end_span` stamps
+    ``t1`` and commits it to the trace store."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "name", "t0",
+                 "t1", "attrs", "events", "links", "error")
+
+    def __init__(self, trace_id, span_id, parent_id, name, t0,
+                 attrs=None):
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.name = name
+        self.t0 = t0
+        self.t1 = None
+        self.attrs = dict(attrs) if attrs else {}
+        self.events = []             # (t, name, attrs|None)
+        self.links = []              # (trace_id, span_id)
+        self.error = None
+
+    def ctx(self):
+        """The context a child span (or a remote peer) parents under."""
+        return TraceContext(self.trace_id, self.span_id, True)
+
+    def as_dict(self):
+        t1 = self.t1 if self.t1 is not None else self.t0
+        return {
+            "trace_id": f"{self.trace_id:016x}",
+            "span_id": f"{self.span_id:016x}",
+            "parent_id": f"{self.parent_id:016x}"
+            if self.parent_id else None,
+            "name": self.name,
+            "t0": self.t0,
+            "dur_ms": round((t1 - self.t0) * 1e3, 3),
+            "attrs": dict(self.attrs),
+            "events": [{"name": n,
+                        "offset_ms": round((t - self.t0) * 1e3, 3),
+                        **(a or {})}
+                       for t, n, a in self.events],
+            "links": [[f"{t:016x}", f"{s:016x}"] for t, s in self.links],
+            "error": self.error,
+        }
+
+
+# -- thread-local context ----------------------------------------------------
+
+_tls = threading.local()
+
+
+def current():
+    """The ambient TraceContext on this thread (None = untraced)."""
+    return getattr(_tls, "ctx", None)
+
+
+def current_sampled():
+    """The ambient context iff sampled — the one-attribute-read fast
+    path instrumented seams guard on (no allocation when untraced)."""
+    ctx = getattr(_tls, "ctx", None)
+    if ctx is not None and ctx.sampled:
+        return ctx
+    return None
+
+
+@contextlib.contextmanager
+def use_context(ctx):
+    """Install ``ctx`` as the ambient context for the block (spans
+    started inside, and frames sent inside, parent under it)."""
+    prev = getattr(_tls, "ctx", None)
+    _tls.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _tls.ctx = prev
+
+
+def bind(fn, ctx=None):
+    """Capture ``ctx`` (default: the ambient context NOW) and return a
+    callable that reinstalls it on whatever thread runs it — the
+    cross-thread handoff for endpoint lanes and worker pools."""
+    if ctx is None:
+        ctx = current()
+    if ctx is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        with use_context(ctx):
+            return fn(*args, **kwargs)
+    return bound
+
+
+# -- the tracer ---------------------------------------------------------------
+
+class Tracer:
+    """Head-sampling span recorder; see module doc.  All span APIs are
+    None-tolerant: ``start_span`` with an unsampled/absent parent
+    returns None and every other method no-ops on a None span, so call
+    sites stay guard-free."""
+
+    def __init__(self, max_traces=None, max_spans_per_trace=None):
+        self._lock = threading.Lock()
+        self._traces = collections.OrderedDict()   # tid -> [span dict]
+        # constructor-pinned bounds (tests) survive flag refreshes;
+        # None = read FLAGS_trace_max_traces/_spans at first use
+        self._init_traces = max_traces
+        self._init_spans = max_spans_per_trace
+        self._max_traces = max_traces
+        self._max_spans = max_spans_per_trace
+        self._c = {"sampled": 0, "unsampled": 0, "forced": 0,
+                   "spans": 0, "dropped_traces": 0, "dropped_spans": 0,
+                   "propagated_out": 0, "propagated_in": 0,
+                   "exported": 0}
+        # flag memos: get_flag allocates (f-string env lookup), so the
+        # per-request fast path reads these plain attributes instead
+        self._rate = None
+        self._force_sla = frozenset()
+        self._hooked = False
+
+    # -- configuration ------------------------------------------------------
+
+    def _ensure_flags(self):
+        from ..flags import get_flag
+
+        self._force_sla = frozenset(
+            s for s in str(get_flag("trace_force_sla") or "").split(",")
+            if s)
+        if self._init_traces is None:
+            self._max_traces = int(get_flag("trace_max_traces") or 64)
+        if self._init_spans is None:
+            self._max_spans = int(get_flag("trace_max_spans") or 512)
+        self._rate = float(get_flag("trace_sample_rate") or 0.0)
+        return self._rate
+
+    def _refresh_flags(self):
+        """set_flags() hook: EVERY memoized flag (rate, force set,
+        store bounds) must follow a runtime flag flip (the jitcache
+        env-salt discipline) — the next fast-path call re-reads."""
+        self._rate = None
+
+    def enabled(self):
+        rate = self._rate
+        if rate is None:
+            rate = self._ensure_flags()
+        return rate > 0.0
+
+    def _ensure_hook(self):
+        """First sampled span: register as a profiler span sink (child
+        events).  A process that never samples never pays it.  This
+        package has no transport yet, so no frame trailer is installed:
+        contexts propagate in-process only."""
+        if self._hooked:
+            return
+        self._hooked = True
+        from .. import profiler
+
+        profiler.add_span_sink(self._profiler_sink)
+
+    def _profiler_sink(self, name, t0, t1):
+        sp = getattr(_tls, "span", None)
+        if sp is not None and sp.t1 is None:
+            sp.events.append((t0, name,
+                              {"dur_ms": round((t1 - t0) * 1e3, 3)}))
+
+    # -- sampling -----------------------------------------------------------
+
+    def should_sample(self, sla=None):
+        """The head decision.  Rate 0 (default) is the no-op fast path:
+        one float compare, no allocation.  While the rate is nonzero,
+        classes in FLAGS_trace_force_sla are ALWAYS sampled."""
+        rate = self._rate
+        if rate is None:
+            rate = self._ensure_flags()
+        if rate <= 0.0:
+            return False
+        if rate >= 1.0 or sla in self._force_sla:
+            return True
+        if random.random() < rate:
+            return True
+        self._c["unsampled"] += 1
+        return False
+
+    def maybe_trace(self, name, sla=None, attrs=None, parent=None):
+        """Head-sampling entry point: a new OPEN root span when the
+        request is sampled, else None.  ``parent`` (an ambient context)
+        chains this root under an enclosing trace instead of starting
+        a fresh one."""
+        if parent is not None and parent.sampled:
+            return self.start_span(name, parent, attrs=attrs)
+        if not self.should_sample(sla):
+            return None
+        self._ensure_hook()
+        self._c["sampled"] += 1
+        if sla is not None and sla in self._force_sla and \
+                self._rate < 1.0:
+            self._c["forced"] += 1
+        return Span(_new_id(), _new_id(), 0, name,
+                    time.perf_counter(), attrs)
+
+    # -- span lifecycle -----------------------------------------------------
+
+    @staticmethod
+    def _parent_ctx(parent):
+        if parent is None:
+            return None
+        if isinstance(parent, Span):
+            return parent.ctx()
+        return parent                    # TraceContext
+
+    def start_span(self, name, parent, t0=None, attrs=None):
+        """Open a child span under ``parent`` (Span or TraceContext);
+        None/unsampled parent -> None (the guard-free contract)."""
+        ctx = self._parent_ctx(parent)
+        if ctx is None or not ctx.sampled:
+            return None
+        self._ensure_hook()
+        return Span(ctx.trace_id, _new_id(), ctx.span_id, name,
+                    t0 if t0 is not None else time.perf_counter(),
+                    attrs)
+
+    def end_span(self, span, error=None, **attrs):
+        """Stamp t1, attach final attrs, commit to the trace store."""
+        if span is None or span.t1 is not None:
+            return
+        span.t1 = time.perf_counter()
+        if attrs:
+            span.attrs.update(attrs)
+        if error is not None:
+            span.error = f"{type(error).__name__}: {error}" \
+                if isinstance(error, BaseException) else str(error)
+        self._record(span)
+
+    def add_span(self, name, parent, t0, t1, attrs=None, links=None,
+                 error=None):
+        """One-shot: an already-timed phase (queue waits measured by
+        their enqueue timestamps).  Returns the committed span."""
+        span = self.start_span(name, parent, t0=t0, attrs=attrs)
+        if span is None:
+            return None
+        if links:
+            span.links.extend(links)
+        span.t1 = t1
+        if error is not None:
+            span.error = str(error)
+        self._record(span)
+        return span
+
+    def event(self, name, span=None, **attrs):
+        """Append a point event to ``span`` (or the thread's active
+        span); no-op without one."""
+        if span is None:
+            span = getattr(_tls, "span", None)
+        if span is None or span.t1 is not None:
+            return
+        span.events.append((time.perf_counter(), name, attrs or None))
+
+    @contextlib.contextmanager
+    def span(self, name, parent=None, attrs=None):
+        """Open span + install it as the thread's active span/context;
+        ends it on exit (exception -> error).  Unsampled -> plain
+        passthrough yielding None."""
+        sp = self.start_span(
+            name, parent if parent is not None else current(),
+            attrs=attrs)
+        if sp is None:
+            yield None
+            return
+        with self.use_span(sp):
+            try:
+                yield sp
+            except BaseException as e:
+                self.end_span(sp, error=e)
+                raise
+        self.end_span(sp)
+
+    @contextlib.contextmanager
+    def use_span(self, span):
+        """Install an OPEN span as the thread's active span + ambient
+        context WITHOUT ending it on exit (the engine worker holds its
+        batch span across helper calls this way)."""
+        if span is None:
+            yield None
+            return
+        prev_span = getattr(_tls, "span", None)
+        prev_ctx = getattr(_tls, "ctx", None)
+        _tls.span = span
+        _tls.ctx = span.ctx()
+        try:
+            yield span
+        finally:
+            _tls.span = prev_span
+            _tls.ctx = prev_ctx
+
+    def server_span(self, method, wire, **attrs):
+        """The receive side of a propagated frame: a context manager
+        recording ``rpc/serve/<method>`` parented to the REMOTE caller
+        span carried in the trailer.  Honors the origin's head decision
+        regardless of this process's local sample rate."""
+        ctx = TraceContext.from_wire(wire)
+        if ctx is None or not ctx.sampled:
+            return contextlib.nullcontext()
+        self._c["propagated_in"] += 1
+        self._ensure_hook()
+        return self.span(f"rpc/serve/{method}", parent=ctx, attrs=attrs)
+
+    def serve_framed(self, handler, msg, **attrs):
+        """Run a frame handler under the propagated server span when
+        ``msg`` carried a trace trailer — the ONE shared seam for
+        every FrameServer-backed handler (ParameterServer, sparse
+        shard servers).  A handler failure shaped into a
+        ``reply_error`` dict stamps the span's error, so a failing
+        hop never stitches as healthy; a handler that RAISES records
+        the error through the span context manager as usual."""
+        tr = msg.get("trace")
+        if tr is None:
+            return handler(msg)
+        with self.server_span(msg["method"], tr, **attrs) as sp:
+            reply = handler(msg)
+            if sp is not None and isinstance(reply, dict) and \
+                    reply.get("method") == "reply_error":
+                sp.error = str(reply.get("error"))
+            return reply
+
+    def error_trace(self, name, t0, errors, sla=None, attrs=None):
+        """Forced sampling on errors: a request that failed terminally
+        without being head-sampled still leaves a (small) trace naming
+        what refused it — postmortems care most about exactly these.
+        No-op when tracing is disabled."""
+        if not self.enabled():
+            return None
+        self._ensure_hook()
+        self._c["sampled"] += 1
+        self._c["forced"] += 1
+        root = Span(_new_id(), _new_id(), 0, name, t0, attrs)
+        if sla is not None:
+            root.attrs.setdefault("sla", sla)
+        for e in errors or ():
+            root.events.append((time.perf_counter(), "dispatch_failed",
+                                {"error": str(e)}))
+        self.end_span(root, error=errors[-1] if errors else "failed")
+        return root
+
+    # -- store / export -----------------------------------------------------
+
+    def _record(self, span):
+        if self._max_traces is None or self._max_spans is None:
+            # a process whose FIRST span arrives via server_span (a
+            # propagated frame on a never-sampling server) reaches
+            # here without ever passing through should_sample/enabled
+            self._ensure_flags()
+        doc = span.as_dict()
+        with self._lock:
+            self._c["spans"] += 1
+            spans = self._traces.get(span.trace_id)
+            if spans is None:
+                while len(self._traces) >= self._max_traces:
+                    self._traces.popitem(last=False)
+                    self._c["dropped_traces"] += 1
+                spans = self._traces[span.trace_id] = []
+            else:
+                self._traces.move_to_end(span.trace_id)
+            if len(spans) >= self._max_spans and \
+                    doc["parent_id"] is not None:
+                # the cap drops CHILD spans only: the root commits
+                # LAST (end_span at request completion), and dropping
+                # it would orphan the whole tree — trace_inspect
+                # --check would fail a request that completed fine
+                self._c["dropped_spans"] += 1
+                return
+            spans.append(doc)
+
+    def spans_for(self, trace_id):
+        """Committed span dicts of one trace (accepts int or hex str)."""
+        if isinstance(trace_id, str):
+            trace_id = int(trace_id, 16)
+        with self._lock:
+            return list(self._traces.get(trace_id, ()))
+
+    def trace_ids(self):
+        with self._lock:
+            return [f"{t:016x}" for t in self._traces]
+
+    def recent_trace_doc(self, limit=16):
+        """{hex trace_id: [span dicts]} for the newest ``limit`` traces
+        — the ``metrics_pull`` payload face (:func:`stitch` fuses the
+        per-rank docs by trace_id)."""
+        with self._lock:
+            tids = list(self._traces)[-int(limit):]
+            out = {f"{t:016x}": list(self._traces[t]) for t in tids}
+        self._c["exported"] += len(out)
+        return out
+
+    def snapshot(self):
+        """Registry-provider face (the ``trace`` silo): counters only —
+        span contents ride the pull doc, not the metrics tree."""
+        with self._lock:
+            n = len(self._traces)
+        out = dict(self._c)
+        out["traces_buffered"] = n
+        return out
+
+    def reset(self):
+        with self._lock:
+            self._traces.clear()
+            for k in self._c:
+                self._c[k] = 0
+
+    def export_json(self, path=None, trace_id=None, limit=16):
+        """Dump ``{"traces": {...}}`` (one trace when ``trace_id`` is
+        given) — the ``tools/trace_inspect.py`` input format."""
+        if trace_id is not None:
+            tid = trace_id if isinstance(trace_id, str) \
+                else f"{trace_id:016x}"
+            doc = {"traces": {tid: self.spans_for(trace_id)}}
+        else:
+            doc = {"traces": self.recent_trace_doc(limit)}
+        if path is None:
+            return doc
+        with open(path, "w") as f:
+            json.dump(doc, f, sort_keys=True)
+        return path
+
+    def chrome_events(self, trace_id):
+        """One trace as Chrome-trace event dicts (per-span slices on
+        per-name rows, events as instant marks)."""
+        events = []
+        tids = {}
+        for sp in self.spans_for(trace_id):
+            group = sp["name"].split("/", 1)[0]
+            tid = tids.setdefault(group, len(tids))
+            events.append({"name": sp["name"], "ph": "X", "cat": "trace",
+                           "ts": sp["t0"] * 1e6,
+                           "dur": sp["dur_ms"] * 1e3, "pid": 0,
+                           "tid": tid,
+                           "args": {"span_id": sp["span_id"],
+                                    "parent_id": sp["parent_id"],
+                                    **sp["attrs"]}})
+            for ev in sp["events"]:
+                events.append({"name": ev["name"], "ph": "i",
+                               "cat": "trace", "s": "t",
+                               "ts": (sp["t0"] + ev["offset_ms"] / 1e3)
+                               * 1e6,
+                               "pid": 0, "tid": tid})
+        return events
+
+    def export_chrome_tracing(self, path, trace_id):
+        from .. import profiler
+
+        return profiler.export_chrome_tracing(
+            path, events=self.chrome_events(trace_id))
+
+
+# -- pure trace-analysis helpers (stdlib; trace_inspect loads these) ---------
+
+def build_tree(spans):
+    """(roots, children-by-span_id, problems) over span DICTS.  A
+    problem is a human-readable parentage defect: an orphan span whose
+    parent_id is absent from the trace, a duplicate span id, or zero/
+    multiple roots — ``trace_inspect --check`` gates on the list being
+    empty."""
+    by_id = {}
+    problems = []
+    for sp in spans:
+        if sp["span_id"] in by_id:
+            problems.append(f"duplicate span id {sp['span_id']} "
+                            f"({sp['name']})")
+        by_id[sp["span_id"]] = sp
+    children = {}
+    roots = []
+    for sp in spans:
+        pid = sp.get("parent_id")
+        if not pid:
+            roots.append(sp)
+        elif pid in by_id:
+            children.setdefault(pid, []).append(sp)
+        else:
+            problems.append(
+                f"orphan span {sp['name']} ({sp['span_id']}): parent "
+                f"{pid} not in trace")
+    if not roots and spans:
+        problems.append("no root span (every span has a parent)")
+    if len(roots) > 1:
+        problems.append(
+            f"{len(roots)} root spans: "
+            f"{[r['name'] for r in roots]}")
+    for kids in children.values():
+        kids.sort(key=lambda s: s["t0"])
+    return roots, children, problems
+
+
+def _merge_intervals(ivals):
+    """Sorted, overlap-merged (start, end) list — so overlapping rpc
+    client spans never subtract the same compute time twice."""
+    out = []
+    for s, e in sorted(ivals):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def _overlap_ms(t0, t1, merged):
+    """Milliseconds of [t0, t1] covered by the merged interval list."""
+    total = 0.0
+    for s, e in merged:
+        lo, hi = max(t0, s), min(t1, e)
+        if hi > lo:
+            total += hi - lo
+    return total * 1e3
+
+
+# span name (exact or prefix family) -> critical-path stage
+_STAGE_EXACT = {
+    "serving/queue": "queue",
+    "decode/queue": "queue",
+    "serving/compute": "compute",
+    "decode/occupancy": "compute",
+    # disaggregated serving: the whole KV-transfer leg — local
+    # chunking/crc, the kv_stream RPCs (client and remote ingest side
+    # both), everything — bills kv_transfer, never compute/rpc
+    "disagg/prefill": "compute",
+    "disagg/kv_transfer": "kv_transfer",
+    "rpc/kv_stream": "kv_transfer",
+    "rpc/serve/kv_stream": "kv_transfer",
+}
+_STAGE_PREFIX = (("rpc/serve/", "compute"), ("rpc/", "rpc"))
+
+
+def critical_path(spans):
+    """Per-request stage attribution over one trace's span dicts:
+    wall-clock sums for queue / compute / rpc / padding / retry /
+    preemption / kv_transfer (+ dispatch bookkeeping), and the
+    dominant stage.
+
+    - queue / compute / rpc come from span durations by name, with
+      nested overlaps UN-double-billed: a compute span's time spent
+      inside an rpc client span counts as rpc (not compute), and an
+      rpc client span's time covered by its remote ``rpc/serve``
+      child counts as compute on the far host (the remainder — wire
+      + remote queueing — stays rpc);
+    - padding is the slice of compute paid for bucket pad rows
+      (``serving/compute`` attrs carry batch_rows/padded);
+    - retry sums failed-dispatch and execute-retry events;
+    - preemption is the gap between a decode sequence's occupancy
+      segments (slot residencies) — the time a preempted sequence
+      spent re-queued.
+    """
+    stages = {"queue": 0.0, "compute": 0.0, "rpc": 0.0, "padding": 0.0,
+              "retry": 0.0, "preemption": 0.0, "kv_transfer": 0.0}
+    occupancy = []
+    # nested-overlap bookkeeping: rpc CLIENT intervals (this process's
+    # clock — never compared against remote t0s) and per-client-span
+    # remote-server time (durations only: cross-host clocks don't
+    # share an epoch)
+    rpc_ivals = []
+    serve_child_ms = {}
+    for sp in spans:
+        name = sp["name"]
+        if name.startswith("rpc/serve/"):
+            pid = sp.get("parent_id")
+            if pid:
+                serve_child_ms[pid] = serve_child_ms.get(pid, 0.0) + \
+                    (sp.get("dur_ms") or 0.0)
+        elif name.startswith("rpc/"):
+            t0 = sp.get("t0") or 0.0
+            rpc_ivals.append((t0, t0 + (sp.get("dur_ms") or 0.0) / 1e3))
+    rpc_ivals = _merge_intervals(rpc_ivals)
+    for sp in spans:
+        name = sp["name"]
+        dur = sp.get("dur_ms") or 0.0
+        stage = _STAGE_EXACT.get(name)
+        if stage is None:
+            for pref, st in _STAGE_PREFIX:
+                if name.startswith(pref):
+                    stage = st
+                    break
+        if name == "decode/queue" and sp.get("attrs", {}).get(
+                "readmit"):
+            # a preempted sequence's RE-queue wait is already counted
+            # as the gap between its occupancy segments (preemption);
+            # counting the span too would double-bill the interval
+            stage = None
+        if stage in ("compute", "kv_transfer") \
+                and not name.startswith("rpc/") and rpc_ivals:
+            # compute (or transfer-wrapper) time spent INSIDE an rpc
+            # client span is billed by that client span
+            t0 = sp.get("t0") or 0.0
+            dur = max(0.0, dur - _overlap_ms(
+                t0, t0 + dur / 1e3, rpc_ivals))
+        elif name.startswith("rpc/") and \
+                not name.startswith("rpc/serve/"):
+            # the remote rpc/serve child bills its share as far-host
+            # compute (kv_transfer for kv_stream); only the remainder
+            # (wire + remote queue) stays with the client span's stage
+            dur = max(0.0, dur - serve_child_ms.get(sp["span_id"],
+                                                    0.0))
+        if stage is not None:
+            stages[stage] += dur
+        if name == "decode/occupancy":
+            occupancy.append((sp["t0"], sp["t0"] + dur / 1e3))
+        if name == "serving/compute":
+            rows = sp["attrs"].get("batch_rows")
+            padded = sp["attrs"].get("padded")
+            if rows and padded and padded > rows:
+                stages["padding"] += dur * (1.0 - rows / padded)
+        for ev in sp.get("events", ()):
+            if ev["name"] in ("dispatch_failed", "serving/retry",
+                              "breaker_open"):
+                stages["retry"] += ev.get("dur_ms", 0.0)
+    occupancy.sort()
+    for (_, prev_end), (nxt_start, _) in zip(occupancy, occupancy[1:]):
+        if nxt_start > prev_end:
+            stages["preemption"] += (nxt_start - prev_end) * 1e3
+    roots = [sp for sp in spans if not sp.get("parent_id")]
+    total = roots[0]["dur_ms"] if roots else \
+        sum(sp.get("dur_ms") or 0.0 for sp in spans)
+    stages = {k: round(v, 3) for k, v in stages.items()}
+    dominant = max(stages, key=lambda k: stages[k]) \
+        if any(stages.values()) else None
+    return {"total_ms": round(total, 3), "stages": stages,
+            "dominant": dominant}
+
+
+def stitch(docs):
+    """Fuse trace spans across pulled rank docs by trace_id.  Accepts
+    ``pull_endpoints`` output ({endpoint: doc}), a ``merge_snapshots``
+    result ({"ranks": {...}}), or a bare ``{"traces": {...}}`` export
+    — returns {hex trace_id: [span dicts]} with each trace's spans
+    deduped by span id (one process answering under two endpoint keys
+    must not double its spans) and time-ordered."""
+    if isinstance(docs, dict) and "ranks" in docs:
+        docs = docs["ranks"]
+    if isinstance(docs, dict) and "traces" in docs and \
+            "ranks" not in docs:
+        docs = {"local": docs}
+    out = {}
+    seen = set()
+    for doc in docs.values():
+        traces = (doc or {}).get("traces")
+        if not isinstance(traces, dict):
+            continue
+        for tid, spans in traces.items():
+            for sp in spans:
+                key = (tid, sp.get("span_id"))
+                if key in seen:
+                    continue
+                seen.add(key)
+                out.setdefault(tid, []).append(sp)
+    for spans in out.values():
+        spans.sort(key=lambda s: s.get("t0") or 0.0)
+    return out
+
+
+def format_trace(spans, out_lines=None):
+    """Render one trace's span tree as indented text lines (the
+    ``trace_inspect`` face): name, duration, attrs, error, events."""
+    lines = out_lines if out_lines is not None else []
+    roots, children, problems = build_tree(spans)
+
+    def walk(sp, depth):
+        ind = "  " * depth
+        attrs = " ".join(f"{k}={v}" for k, v in
+                         sorted(sp.get("attrs", {}).items()))
+        err = f"  ERROR: {sp['error']}" if sp.get("error") else ""
+        lines.append(f"{ind}{sp['name']:<24} {sp['dur_ms']:>10.3f}ms  "
+                     f"[{sp['span_id'][:8]}<-"
+                     f"{(sp.get('parent_id') or '-')[:8]}]  "
+                     f"{attrs}{err}")
+        for ev in sp.get("events", ()):
+            extra = " ".join(f"{k}={v}" for k, v in sorted(ev.items())
+                             if k not in ("name", "offset_ms"))
+            lines.append(f"{ind}  . {ev['name']} "
+                         f"@{ev['offset_ms']:.3f}ms {extra}")
+        for kid in children.get(sp["span_id"], ()):
+            walk(kid, depth + 1)
+
+    for root in sorted(roots, key=lambda s: s["t0"]):
+        walk(root, 0)
+    cp = critical_path(spans)
+    lines.append(f"critical path: dominant={cp['dominant']} "
+                 + " ".join(f"{k}={v}ms" for k, v in
+                            sorted(cp["stages"].items()) if v))
+    for p in problems:
+        lines.append(f"PROBLEM: {p}")
+    return lines
+
+
+TRACER = Tracer()

@@ -1,0 +1,7 @@
+"""Op kernel library — importing registers all kernels."""
+
+from . import registry      # noqa: F401
+from . import math_ops      # noqa: F401
+from . import nn_ops        # noqa: F401
+from . import tensor_ops    # noqa: F401
+from . import attention_ops  # noqa: F401

@@ -1,0 +1,122 @@
+"""Dense math kernels (port of ``paddle_tpu/ops/math_ops.py``):
+elementwise ops with fluid's ``axis`` broadcast, mul/matmul, the
+activations and reductions on the BERT serving path.
+
+Reference op semantics: ``paddle/fluid/operators/elementwise/``,
+``mul_op.cc``, ``matmul_op.cc``, ``activation_op.cc``, ``scale_op.cc``,
+``mean_op.cc``, ``reduce_ops/``.  The matrix products go to torch.matmul
+(cuBLAS on the card), as the JAX package left them to XLA.
+"""
+
+import torch
+
+from .registry import register, first, as_out
+
+
+def _bcast_y(x, y, axis):
+    """Fluid broadcast: y's dims align to x starting at `axis`
+    (elementwise_op_function.h); axis=-1 aligns trailing dims."""
+    if x.ndim == y.ndim:
+        return y
+    if axis == -1 or axis is None:
+        axis = x.ndim - y.ndim
+    return y.reshape((1,) * axis + tuple(y.shape)
+                     + (1,) * (x.ndim - axis - y.ndim))
+
+
+def _ew(fn):
+    def kernel(ins, attrs):
+        x, y = first(ins, "X"), first(ins, "Y")
+        return as_out(fn(x, _bcast_y(x, y, attrs.get("axis", -1))))
+    return kernel
+
+
+register("elementwise_add")(_ew(torch.add))
+register("elementwise_sub")(_ew(torch.sub))
+register("elementwise_mul")(_ew(torch.mul))
+register("elementwise_div")(_ew(torch.div))
+register("elementwise_max")(_ew(torch.maximum))
+register("elementwise_min")(_ew(torch.minimum))
+register("elementwise_pow")(_ew(torch.pow))
+
+
+@register("scale")
+def scale(ins, attrs):
+    x = first(ins, "X")
+    s = attrs.get("scale", 1.0)
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return as_out(x * s + b)
+    return as_out((x + b) * s)
+
+
+def _prod(t):
+    r = 1
+    for v in t:
+        r *= v
+    return r
+
+
+@register("mul")
+def mul(ins, attrs):
+    """out = flatten2d(X) @ flatten2d(Y)  (mul_op.cc)."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    xnc = attrs.get("x_num_col_dims", 1)
+    ync = attrs.get("y_num_col_dims", 1)
+    xs, ys = tuple(x.shape), tuple(y.shape)
+    xm = x.reshape(_prod(xs[:xnc]), _prod(xs[xnc:]))
+    ym = y.reshape(_prod(ys[:ync]), _prod(ys[ync:]))
+    return as_out((xm @ ym).reshape(xs[:xnc] + ys[ync:]))
+
+
+@register("matmul")
+def matmul(ins, attrs):
+    x, y = first(ins, "X"), first(ins, "Y")
+    if attrs.get("transpose_X", False) and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return as_out(out)
+
+
+def _unary(fn):
+    def kernel(ins, attrs):
+        return as_out(fn(first(ins, "X")))
+    return kernel
+
+
+register("relu")(_unary(torch.relu))
+register("tanh")(_unary(torch.tanh))
+# exact erf form, as jax.nn.gelu(approximate=False) in the reference
+register("gelu")(_unary(
+    lambda x: torch.nn.functional.gelu(x, approximate="none")))
+
+
+@register("mean")
+def mean(ins, attrs):
+    if first(ins, "SeqLen") is not None:
+        raise NotImplementedError(
+            "mean over a lod input (SeqLen) runs in the sequence slice "
+            "of the port, which has not landed yet")
+    return as_out(torch.mean(first(ins, "X")))
+
+
+def _reduce(fn):
+    def kernel(ins, attrs):
+        x = first(ins, "X")
+        dims = attrs.get("dim", [0])
+        if isinstance(dims, int):
+            dims = [dims]
+        keep = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", False) or dims is None:
+            dims = list(range(x.ndim))    # dim=None reduces everything
+        axis = tuple(d % x.ndim for d in dims)
+        return as_out(fn(x, dim=axis, keepdim=keep))
+    return kernel
+
+
+register("reduce_sum")(_reduce(torch.sum))

@@ -1,0 +1,233 @@
+"""The port's serving slice against the JAX package at small size (BERT
+with 2 layers, hidden 64, 4 heads, intermediate 128, vocab 128, seq 16):
+the same program op for op, model dirs that load in both directions, the
+same answers from the same parameters, and a ServingEngine that answers
+row for row what Predictor.run answers.  Tolerance: atol 1e-4 on the
+softmax outputs (float32 through two encoder layers in two frameworks)."""
+
+import numpy as np
+import pytest
+
+import paddle_tpu as jfluid
+import paddle_tpu_torch as pfluid
+from paddle_tpu import flags as jax_flags
+from paddle_tpu import initializer as jax_init
+from paddle_tpu.core import unique_name as jax_unique_name
+from paddle_tpu.models import bert as jax_bert
+from paddle_tpu_torch import initializer as port_init
+from paddle_tpu_torch.core import unique_name as port_unique_name
+from paddle_tpu_torch.models import bert as port_bert
+
+ATOL = 1e-4
+T, B = 16, 6
+CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+           intermediate_size=128, max_position=32, type_vocab_size=2,
+           dropout=0.1)
+
+
+@pytest.fixture(autouse=True)
+def composed_jax_attention(monkeypatch):
+    # the JAX side's attention runs its composed form, not the measured
+    # kernel selection (which would time candidates on the CPU)
+    monkeypatch.setitem(jax_flags._overrides, "force_attention_impl",
+                        "composed")
+
+
+def _jax_bert_classifier(cfg):
+    """The JAX package's counterpart of the port's bert_classifier:
+    bert_encoder plus the NSP head of bert_pretrain (bert.py:112-117)."""
+    fl = jfluid.layers
+    src, pos, sent = (fl.data(name=n, shape=[T], dtype="int64")
+                      for n in ("src_ids", "pos_ids", "sent_ids"))
+    bias = fl.data(name="attn_bias", shape=[1, 1, T], dtype="float32")
+    seq_out = jax_bert.bert_encoder(src, pos, sent, bias, cfg)
+    first = fl.slice(seq_out, axes=[1], starts=[0], ends=[1])
+    pooled = fl.fc(input=fl.reshape(first, [-1, cfg.hidden_size]),
+                   size=cfg.hidden_size, act="tanh")
+    return fl.softmax(fl.fc(input=pooled, size=2)), \
+        ["src_ids", "pos_ids", "sent_ids", "attn_bias"]
+
+
+def build_jax():
+    jax_init._auto_seed_counter[0] = 1
+    main, startup = jfluid.Program(), jfluid.Program()
+    with jax_unique_name.guard(), jfluid.program_guard(main, startup):
+        probs, feeds = _jax_bert_classifier(jax_bert.BertConfig(**CFG))
+    return main, startup, probs, feeds
+
+
+def build_port():
+    port_init._auto_seed_counter[0] = 1
+    main, startup = pfluid.Program(), pfluid.Program()
+    with port_unique_name.guard(), pfluid.program_guard(main, startup):
+        probs, feeds = port_bert.bert_classifier(
+            port_bert.BertConfig(**CFG), T)
+    return main, startup, probs, feeds
+
+
+def feeds_np(n=B, seed=0):
+    rng = np.random.RandomState(seed)
+    bias = np.zeros((n, 1, 1, T), np.float32)
+    for i, length in enumerate(rng.randint(T // 4, T + 1, n)):
+        bias[i, ..., length:] = -10000.0
+    return {"src_ids": rng.randint(0, CFG["vocab_size"], (n, T)),
+            "pos_ids": np.tile(np.arange(T), (n, 1)),
+            "sent_ids": rng.randint(0, 2, (n, T)),
+            "attn_bias": bias}
+
+
+def _program_signature(prog):
+    blocks = []
+    for blk in prog.blocks:
+        ops = [(op.type, {k: list(v) for k, v in op.inputs.items()},
+                {k: list(v) for k, v in op.outputs.items()}, op.attrs)
+               for op in blk.ops]
+        vs = {n: (v.shape, v.dtype, v.persistable)
+              for n, v in blk.vars.items()}
+        blocks.append((ops, vs))
+    return blocks
+
+
+def test_port_bert_program_equals_jax_program():
+    jmain, jstart, _, jfeeds = build_jax()
+    pmain, pstart, _, pfeeds = build_port()
+    assert pfeeds == jfeeds
+    for jp, pp in ((jmain, pmain), (jstart, pstart),
+                   (jmain.clone(for_test=True), pmain.clone(for_test=True))):
+        js, ps = _program_signature(jp), _program_signature(pp)
+        assert len(js) == len(ps)
+        for (jops, jvars), (pops, pvars) in zip(js, ps):
+            assert pvars == jvars
+            assert len(pops) == len(jops)
+            for jo, po in zip(jops, pops):
+                assert po == jo
+
+
+def _jax_save(d):
+    main, startup, probs, feeds = build_jax()
+    exe = jfluid.Executor()
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe.run(startup)
+        jfluid.io.save_inference_model(d, feeds, [probs], exe,
+                                       main_program=main)
+    return {n: np.array(np.asarray(v)) for n, v in scope.vars.items()
+            if v is not None}
+
+
+def _port_predictor(d):
+    cfg = pfluid.AnalysisConfig(d)
+    cfg.disable_gpu()
+    return pfluid.create_paddle_predictor(cfg)
+
+
+def test_jax_saved_model_serves_in_port(tmp_path):
+    _jax_save(str(tmp_path))
+    feed = feeds_np()
+    (want,) = jfluid.create_paddle_predictor(
+        jfluid.AnalysisConfig(str(tmp_path))).run(feed)
+    (got,) = _port_predictor(str(tmp_path)).run(feed)
+    assert got.shape == want.shape == (B, 2)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_state_from_numpy_gives_jax_outputs(tmp_path):
+    """snapshot_startup-style host state from the JAX package's startup
+    run, put into the port's scope, drives the port's own inference
+    program to the JAX predictor's answers."""
+    state = _jax_save(str(tmp_path))
+    feed = feeds_np(seed=1)
+    (want,) = jfluid.create_paddle_predictor(
+        jfluid.AnalysisConfig(str(tmp_path))).run(feed)
+    pmain, _, probs, _ = build_port()
+    scope = pfluid.io.state_from_numpy(state, scope=pfluid.Scope(),
+                                       place=pfluid.CPUPlace(),
+                                       main_program=pmain)
+    for v in pmain.list_vars():
+        if v.persistable and not v.is_data:
+            t = scope.find_var(v.name)
+            assert str(t.dtype) == f"torch.{v.dtype}", v.name
+    (got,) = pfluid.Executor(pfluid.CPUPlace()).run(
+        pmain.clone(for_test=True), feed=feed, fetch_list=[probs],
+        scope=scope)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_port_saved_model_serves_in_jax(tmp_path):
+    pmain, pstart, probs, feeds = build_port()
+    exe = pfluid.Executor(pfluid.CPUPlace())
+    with pfluid.scope_guard(pfluid.Scope()):
+        exe.run(pstart)
+        pfluid.io.save_inference_model(str(tmp_path), feeds, [probs], exe,
+                                       main_program=pmain)
+    feed = feeds_np(seed=2)
+    (got,) = _port_predictor(str(tmp_path)).run(feed)
+    (want,) = jfluid.create_paddle_predictor(
+        jfluid.AnalysisConfig(str(tmp_path))).run(feed)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_port_serving_engine_matches_predictor_run(tmp_path):
+    _jax_save(str(tmp_path))
+    pred = _port_predictor(str(tmp_path))
+    feed = feeds_np(n=8, seed=3)
+    (want,) = pred.run(feed)
+    engine = pfluid.serving.ServingEngine(
+        pred, pfluid.serving.ServingConfig(max_batch_size=4,
+                                           max_wait_ms=20.0))
+    try:
+        assert engine.warmup() == 3          # batch buckets 1, 2, 4
+        futures = [engine.submit({n: a[i:i + 1] for n, a in feed.items()})
+                   for i in range(8)]
+        rows = [f.result(60)[0] for f in futures]
+        stats = engine.stats()
+        signatures = list(engine._handle.signatures)
+    finally:
+        engine.stop()
+    np.testing.assert_allclose(np.concatenate(rows), want, atol=1e-6,
+                               rtol=0)
+    c = stats["counters"]
+    assert c["completed"] == 8 and c["failed"] == 0
+    assert c["rows_real"] == 8
+    assert c["cache_misses"] == 3            # one per signature, at warmup
+    assert [sig[0][1][0] for sig in signatures] == [1, 2, 4]
+
+
+def test_state_from_numpy_widens_narrowed_int64():
+    """The JAX package runs int64 IR vars as int32 (FLAGS_enable_64bit
+    off); the port gives each tensor its IR dtype back."""
+    main, startup = pfluid.Program(), pfluid.Program()
+    with port_unique_name.guard(), pfluid.program_guard(main, startup):
+        counter = pfluid.layers.create_global_var(
+            shape=[3], value=0, dtype="int64", persistable=True,
+            name="step_counter")
+    scope = pfluid.io.state_from_numpy(
+        {"step_counter": np.array([1, 2, 3], np.int32),
+         "extra": np.ones(2, np.float32)},
+        scope=pfluid.Scope(), place=pfluid.CPUPlace(), main_program=main)
+    t = scope.find_var(counter.name)
+    assert str(t.dtype) == "torch.int64" and t.tolist() == [1, 2, 3]
+    assert str(scope.find_var("extra").dtype) == "torch.float32"
+
+
+def test_executor_dead_after_and_error_note():
+    """The interpreter drops vars a pass marked `__dead_after__` (so a
+    later read of one fails like the reference's), and an op failure
+    carries the reference's note naming the op and its variables."""
+    main, startup = pfluid.Program(), pfluid.Program()
+    with port_unique_name.guard(), pfluid.program_guard(main, startup):
+        x = pfluid.layers.data(name="x", shape=[3], dtype="float32")
+        h = pfluid.layers.scale(x, scale=2.0)
+        y = pfluid.layers.relu(h)
+    main.global_block().ops[0].attrs["__dead_after__"] = [x.name]
+    exe = pfluid.Executor(pfluid.CPUPlace())
+    feed = {"x": np.array([[-1.0, 0.5, 2.0]], np.float32)}
+    (got,) = exe.run(main, feed=feed, fetch_list=[y], scope=pfluid.Scope())
+    np.testing.assert_array_equal(got, [[0.0, 1.0, 4.0]])
+    with pytest.raises(RuntimeError, match="has no value in scope"):
+        exe.run(main, feed=feed, fetch_list=[x], scope=pfluid.Scope())
+    bad = {"x": np.zeros((1, 3), np.float32)}
+    main.global_block().ops[1].type = "no_such_op"
+    with pytest.raises(NotImplementedError) as err:
+        exe.run(main, feed=bad, fetch_list=[y], scope=pfluid.Scope())
+    assert "while running op 'no_such_op'" in str(err.value.__notes__)

@@ -15,13 +15,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    PyTorch version on the same tensors, and time the kernel, the plain
    version and the PyTorch library call that computes the same function
    (a yardstick only; the port never calls it) with CUDA events.
-4. serving: build BERT-base (12 layers, hidden 768, 12 heads, seq 128,
+4. training kernels vs plain: the same for the training arms at the
+   BERT-base training shape (B=32, H=12, T=128, D=64) and edge cases:
+   K1 with its lse and dropout, K2a (dK, dV) and K2b (dQ, dBias), with
+   dropout on and off, against the plain forward and the plain
+   FlashAttention-2 backward on the same tensors (the same Philox mask);
+   the dropout keep rate and the bits' determinism per seed.
+5. serving: build BERT-base (12 layers, hidden 768, 12 heads, seq 128,
    random weights from a seed) with the port's fluid API, save it as an
    inference model, serve 32 single-row requests through
    create_paddle_predictor -> ServingEngine on the card, check that the
    flash-attention kernel ran 12 times per executed batch, and hold the
    served probabilities against a CPU Predictor on the same model dir.
-5. report: a "kernels" JSON line, then the result line
+6. training parity: BERT-base width with 2 layers, batch 8, seq 128,
+   Adam, from one startup state, 3 steps on the card against 3 steps on
+   the CPU, with dropout 0 and with dropout 0.1 (the same Philox masks
+   on both devices).
+7. training: BERT-base pretraining (12 layers, dropout 0.1, batch 32,
+   seq 128, 20 masked positions per sequence, Adam 1e-4, random weights
+   from a seed) for 6 steps on the card through Executor.run: finite
+   losses with the last below the first, the kernels' launch counts per
+   step, step time, tokens/s, peak memory, and a profile of one step.
+8. report: a "kernels" JSON line, then the result line
    {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
@@ -45,15 +60,40 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # fp32: the kernel and the plain version sum exps in another order; bf16:
 # the plain version rounds its output to bf16 from a different fp32 value
 ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# training arms against the plain versions on the same tensors: fp32 out
+# and lse as above; fp32 grads at the JAX package's own bar for its
+# backward kernels (tests/test_pallas_kernels.py:92), since dS sums
+# products over a row and the kernels sum in another order; bf16 outputs
+# round to bf16 from fp32 values that differ in the last bits; the row
+# dBias is summed by fp32 atomics, in another order on every run
+TRAIN_ATOL = {"out": {"float32": 2e-4, "bfloat16": 5e-2}, "lse": 2e-4,
+              "grad": {"float32": 2e-3, "bfloat16": 5e-2}, "dbias": 2e-3}
+# keep rate of p=0.1 over the B*H*T*T draws of the BERT training shape
+# (6.3 M draws: one standard deviation is 1.2e-4)
+KEEP_RATE_TOL = 0.002
+# training losses, card against CPU from one state: cuBLAS and the CPU sum
+# in other orders; Adam's normalised steps carry the difference on
+PARITY_RTOL = {1: 1e-4, 3: 1e-3}
 # served probabilities against the CPU Predictor: cuBLAS vs CPU matmul
 # summation order through 12 fp32 layers
 SERVE_ATOL = 1e-4
-KERNELS = [{
-    "name": "flash_attention_fwd",
-    "route": "cuda",
-    "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-    "replaces": "paddle_tpu/ops/pallas_kernels.py:74",
-}]
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_heads=12,
+                 intermediate_size=3072, max_position=512,
+                 type_vocab_size=2)
+# BERT pretraining at seq 128: 20 masked positions per sequence
+# (max_predictions_per_seq of the published pretraining data)
+TRAIN_B, TRAIN_T, TRAIN_M, TRAIN_STEPS = 32, 128, 20, 6
+KERNELS = {
+    "fwd": {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels.py:74"},
+    "dkv": {"name": "flash_attention_bwd_dkv", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels.py:558"},
+    "dq": {"name": "flash_attention_bwd_dq", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "paddle_tpu/ops/pallas_kernels.py:625"},
+}
 
 
 def phase(name):
@@ -89,13 +129,19 @@ def build_phase():
 def time_ms(torch, fn, reps=50):
     """Median of `reps` CUDA-event timings of fn() after a warm-up.  A
     spin kernel keeps the card busy while the host enqueues every call,
-    so each event pair brackets device time, not Python launch time."""
+    so each event pair brackets device time, not Python launch time; the
+    spin lasts at least twice the measured enqueue time of all the calls
+    (at a 2 GHz clock, more than the card's)."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    torch.cuda._sleep(100_000_000)
+    torch.cuda._sleep(int(max(1e8, 2e9 * 2 * reps * enqueue_s)))
     for a, b in events:
         a.record()
         fn()
@@ -210,6 +256,207 @@ def kernel_phase(torch):
             raise SystemExit(f"flash_attention_fwd disagrees with its plain "
                              f"version on {name}: {err} > {ATOL[dtype]}")
     return rows
+
+
+def train_attention_cases(torch):
+    """(name, q, k, v, bias, causal, dropout_p, dbias) on the card, made
+    from SEED: the BERT-base training shape and its edge cases."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    b, h, t, d = TRAIN_B, 12, TRAIN_T, 64
+
+    def qkv(dtype, t=t, d=d):
+        return [torch.randn(b, h, t, d, generator=g, device="cuda")
+                .to(dtype) for _ in range(3)]
+
+    def pad_mask(t=t):
+        lens = torch.randint(t // 4, t + 1, (b,), generator=g,
+                             device="cuda")
+        pad = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+        return (pad.float() * -10000.0).reshape(b, 1, 1, t)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") * 0.5
+
+    masked = torch.randn(b, h, t, t, generator=g, device="cuda")
+    masked[0, 0, 5, :] = float("-inf")
+    return [
+        ("bert_row_f32", *qkv(f32), pad_mask(), False, 0.0, False),
+        # the main path's case: BERT-base training, attention dropout 0.1
+        ("bert_row_f32_drop", *qkv(f32), pad_mask(), False, 0.1, False),
+        ("bert_row_bf16", *qkv(bf16), pad_mask(), False, 0.0, False),
+        ("bert_row_bf16_drop", *qkv(bf16), pad_mask(), False, 0.1, False),
+        ("causal_f32", *qkv(f32), None, True, 0.0, False),
+        ("full_bias_dbias_f32", *qkv(f32), randn(b, h, t, t), False, 0.0,
+         True),
+        ("row_bias_dbias_f32", *qkv(f32), randn(b, 1, 1, t), False, 0.1,
+         True),
+        ("shared_row_dbias_f32", *qkv(f32), randn(1, 1, 1, t), False, 0.0,
+         True),
+        ("ragged_t100_f32_drop", *qkv(f32, t=100), pad_mask(100), False,
+         0.1, False),
+        ("d128_f32_drop", *qkv(f32, d=128), pad_mask(), False, 0.1, False),
+        ("masked_row_dbias_f32", *qkv(f32), masked, False, 0.0, True),
+    ]
+
+
+def train_bounds_ms(q, k, bias, causal, dbias):
+    """Least time on an H100 SXM of K1 (with lse), K2a and K2b: each
+    input read once and each output written once over the memory rate,
+    against the products the unmasked (q, k) pairs need (4, 8 and 6
+    FLOP per pair and head dim) over the peak rate of the input type."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    es = q.element_size()
+    nq, nk = es * q.numel(), es * k.numel()
+    rows = 4 * b * h * tq                       # one fp32 lse or delta
+    nbias = 0 if bias is None else 4 * bias.numel()
+    ndbias = 0 if not dbias else 4 * (
+        b * tk if bias.shape[1] == bias.shape[2] == 1 else b * h * tq * tk)
+    pairs = sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
+    peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
+    work = {"fwd": (2 * nq + 2 * nk + nbias + rows, 4),
+            "dkv": (2 * nq + 4 * nk + nbias + 2 * rows, 8),
+            "dq": (3 * nq + 2 * nk + nbias + 2 * rows + ndbias, 6)}
+    out = {}
+    for kern, (nbytes, per_pair) in work.items():
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = per_pair * b * h * d * pairs / peak * 1e3
+        out[kern] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes > t_ops else "operations")
+    return out
+
+
+def max_err(torch, got, want):
+    """Max |got - want|; -inf entries (lse of a fully masked row) must sit
+    at the same places in both."""
+    got, want = got.float(), want.float()
+    inf = torch.isinf(want)
+    if not torch.equal(inf, torch.isinf(got)):
+        return float("inf")
+    return (got - want).abs()[~inf].max().item()
+
+
+def train_kernel_phase(torch):
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    phase("training kernels vs plain (K1 with lse and dropout, K2a, K2b)")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"fwd": {}, "dkv": {}, "dq": {}}
+    for i, (name, q, k, v, bias, causal, p, dbias) in enumerate(
+            train_attention_cases(torch)):
+        scale = q.shape[-1] ** -0.5
+        seed = SEED + i
+        dtype = str(q.dtype).replace("torch.", "")
+        dout = torch.randn_like(q)
+        args = (q, k, v, bias, causal, scale, p, seed)
+        out, lse = ak.flash_attention_fwd(*args, with_lse=True)
+        delta = ak.attention_delta(dout, out)
+        bwd = (q, k, v, bias, dout, lse, delta, causal, scale, p, seed)
+        dk, dv = ak.flash_attention_bwd_dkv(*bwd)
+        dq, db = ak.flash_attention_bwd_dq(*bwd, dbias=dbias)
+        out_r, lse_r = ak.flash_attention_reference(*args, return_lse=True)
+        # the backward's plain version on the backward kernels' inputs
+        dq_r, dk_r, dv_r, db_r = ak.flash_attention_backward_reference(
+            q, k, v, bias, out, lse, dout, causal, scale, p, seed)
+        torch.cuda.synchronize()
+        errs = {"out": max_err(torch, out, out_r),
+                "lse": max_err(torch, lse, lse_r),
+                "dq": max_err(torch, dq, dq_r),
+                "dk": max_err(torch, dk, dk_r),
+                "dv": max_err(torch, dv, dv_r)}
+        tols = {"out": TRAIN_ATOL["out"][dtype], "lse": TRAIN_ATOL["lse"],
+                "dq": TRAIN_ATOL["grad"][dtype],
+                "dk": TRAIN_ATOL["grad"][dtype],
+                "dv": TRAIN_ATOL["grad"][dtype]}
+        if dbias:
+            errs["dbias"] = max_err(torch, db, db_r)
+            tols["dbias"] = TRAIN_ATOL["dbias"]
+
+        # the library yardstick: SDPA forward, and its backward under
+        # torch.autograd.grad (math/efficient backends; the port never
+        # calls it)
+        fwd_mask = None if bias is None else bias.to(q.dtype)
+        mask, is_causal = fwd_mask, causal
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        if dbias:
+            mask = mask.detach().requires_grad_()
+            leaves.append(mask)
+        lib_out = sdpa(*leaves[:3], attn_mask=mask, is_causal=is_causal,
+                       dropout_p=p, scale=scale)
+        bounds = train_bounds_ms(q, k, bias, causal, dbias)
+        plain_bwd_ms = time_ms(torch, lambda: (
+            ak.flash_attention_backward_reference(
+                q, k, v, bias, out, lse, dout, causal, scale, p, seed)))
+        lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True))
+        timed = {
+            "fwd": (lambda: ak.flash_attention_fwd(*args, with_lse=True),
+                    lambda: ak.flash_attention_reference(
+                        *args, return_lse=True),
+                    lambda: sdpa(q, k, v, attn_mask=fwd_mask,
+                                 is_causal=causal, dropout_p=p,
+                                 scale=scale)),
+            "dkv": (lambda: ak.flash_attention_bwd_dkv(*bwd), None, None),
+            "dq": (lambda: ak.flash_attention_bwd_dq(*bwd, dbias=dbias),
+                   None, None),
+        }
+        errs_of = {"fwd": ("out", "lse"), "dkv": ("dk", "dv"),
+                   "dq": ("dq", "dbias")}
+        for kern, (fn, plain, lib) in timed.items():
+            rows[kern][name] = {
+                "max_abs_err": max(errs[e] for e in errs_of[kern]
+                                   if e in errs),
+                "ms": time_ms(torch, fn),
+                "plain_ms": time_ms(torch, plain) if plain else
+                plain_bwd_ms,
+                "library_ms": time_ms(torch, lib) if lib else lib_bwd_ms,
+                "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1]}
+        print(f"{name}: q {tuple(q.shape)} {dtype} dropout {p} causal "
+              f"{causal} bias {None if bias is None else tuple(bias.shape)}"
+              f" dbias {dbias}", flush=True)
+        print("  max_abs_err " + " ".join(
+            f"{e} {errs[e]:.3e} (atol {tols[e]:g})" for e in errs))
+        # the plain versions repeat the kernels' products in the same
+        # order, so fp32 errors may be exactly 0: the sizes show the
+        # comparison is not of zeros
+        print("  max |kernel| " + " ".join(
+            f"{e} {t.float().abs().max().item():.3e}" for e, t in
+            (("dq", dq), ("dk", dk), ("dv", dv), ("dbias", db))
+            if t is not None))
+        for kern, r in rows.items():
+            r = r[name]
+            print(f"  {KERNELS[kern]['name']}: kernel {r['ms']:.6f} ms "
+                  f"plain {r['plain_ms']:.6f} ms sdpa {r['library_ms']:.6f}"
+                  f" ms bound {r['bound_ms']:.6f} ms ({r['bound_by']})",
+                  flush=True)
+        bad = [e for e in errs if not errs[e] <= tols[e]]
+        if bad:
+            raise SystemExit(f"training kernels disagree with their plain "
+                             f"versions on {name}: "
+                             f"{ {e: errs[e] for e in bad} }")
+        if name == "bert_row_f32_drop":
+            dropout_checks(torch, ak, args, seed)
+    return rows
+
+
+def dropout_checks(torch, ak, args, seed):
+    """The p=0.1 mask of the BERT training shape: keep rate over its
+    B*H*T*T draws, and the kernel's bits fixed by the seed."""
+    q, k = args[0], args[1]
+    b, h, t, _ = q.shape
+    keep = ak.philox_keep_mask(seed, b * h, t, k.shape[2], 0.1,
+                               device=q.device)
+    rate = keep.float().mean().item()
+    again = ak.flash_attention_fwd(*args)
+    same = torch.equal(again, ak.flash_attention_fwd(*args))
+    other = ak.flash_attention_fwd(*args[:-1], seed + 1)
+    differs = not torch.equal(again, other)
+    print(f"  dropout 0.1: keep rate {rate:.6f} over {keep.numel()} draws "
+          f"(tolerance {KEEP_RATE_TOL:g}); same seed identical {same}, "
+          f"next seed differs {differs}")
+    if abs(rate - 0.9) > KEEP_RATE_TOL or not same or not differs:
+        raise SystemExit("attention dropout bits fail their checks")
 
 
 def bert_requests(cfg, t, n):
@@ -327,19 +574,29 @@ def profile_batch(torch, pred, feed, smi):
     """Where one batch's time goes: host wall time of Predictor.run
     (median of 5, unprofiled), then one run under torch.profiler for the
     device's busy time, its idle share and the kernels that fill it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    phase("profile one batch (Predictor.run)")
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
         pred.run(feed)
         walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"batch of {len(next(iter(feed.values())))}: wall "
+          f"{statistics.median(walls):.6f} ms unprofiled (median of 5)")
+    profile_run(torch, lambda: pred.run(feed), "one batch (Predictor.run)",
+                smi)
+
+
+def profile_run(torch, run, label, smi):
+    """One run() under torch.profiler: its wall time, the device's busy
+    time and idle share, and the kernels that fill it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    phase(f"profile {label}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.run(feed)
+        run()
+        torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
     # device-side events only: a CPU op's row repeats its kernels' time
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -347,12 +604,136 @@ def profile_batch(torch, pred, feed, smi):
                    if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"[{smi}] batch of {len(next(iter(feed.values())))}: wall "
-          f"{statistics.median(walls):.6f} ms unprofiled (median of 5), "
-          f"{prof_wall:.6f} ms profiled; device busy {busy:.6f} ms, idle "
-          f"share {1.0 - busy / prof_wall:.4f} of the profiled wall")
-    for name, ms, count in rows[:10]:
-        print(f"  {ms:10.6f} ms  x{count:<4d} {name[:90]}")
+    print(f"[{smi}] {label}: {prof_wall:.6f} ms profiled; device busy "
+          f"{busy:.6f} ms, idle share {1.0 - busy / prof_wall:.4f} of the "
+          f"profiled wall")
+    for name, ms, count in rows[:12]:
+        print(f"  {ms:10.6f} ms  x{count:<5d} {name[:90]}")
+
+
+def pretrain_program(fluid, num_layers, dropout):
+    """BERT-base-width pretraining (MLM + NSP heads) with Adam(1e-4):
+    (main, startup, loss), random seeds fixed to SEED."""
+    from paddle_tpu_torch.models.bert import BertConfig, bert_pretrain
+
+    cfg = BertConfig(num_layers=num_layers, dropout=dropout, **BERT_BASE)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        loss, _ = bert_pretrain(cfg, TRAIN_T)
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+    return main, startup, loss
+
+
+def pretrain_feed(b, t, m, seed):
+    """A pretraining batch from a numpy seed: token ids, padding masks,
+    two segments, `m` masked positions per sequence (absolute flattened
+    indices inside each sequence's length) with their labels, NSP
+    labels."""
+    rng = np.random.RandomState(seed)
+    vocab = BERT_BASE["vocab_size"]
+    lens = rng.randint(t // 2, t + 1, b)
+    bias = np.zeros((b, 1, 1, t), np.float32)
+    sent = np.zeros((b, t), np.int64)
+    pos = np.zeros((b * m, 1), np.int64)
+    for i, n in enumerate(lens):
+        bias[i, ..., n:] = -10000.0
+        sent[i, n // 2:n] = 1
+        pos[i * m:(i + 1) * m, 0] = i * t + rng.choice(n, m, replace=False)
+    return {"src_ids": rng.randint(0, vocab, (b, t)).astype(np.int64),
+            "pos_ids": np.tile(np.arange(t, dtype=np.int64), (b, 1)),
+            "sent_ids": sent, "attn_bias": bias, "mask_pos": pos,
+            "mlm_label": rng.randint(0, vocab, (b * m, 1)).astype(np.int64),
+            "mlm_weight": np.ones((b * m, 1), np.float32),
+            "nsp_label": rng.randint(0, 2, (b, 1)).astype(np.int64)}
+
+
+def training_parity_phase(torch):
+    """2-layer BERT-base width, batch 8: the card's first three losses
+    against the CPU's, from one startup state and the same feeds."""
+    import paddle_tpu_torch as fluid
+
+    phase("training parity: 2-layer BERT-base width, card vs CPU")
+    feed = pretrain_feed(8, TRAIN_T, TRAIN_M, SEED)
+    for dropout in (0.0, 0.1):
+        main, startup, loss = pretrain_program(fluid, 2, dropout)
+        init = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+        state = {n: t.numpy() for n, t in init.vars.items()
+                 if t is not None}
+        losses = {}
+        for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+            scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                              place=place,
+                                              main_program=main)
+            exe = fluid.Executor(place)
+            losses[type(place).__name__] = [
+                float(exe.run(main, feed=feed, fetch_list=[loss],
+                              scope=scope)[0]) for _ in range(3)]
+        card, cpu = losses["CUDAPlace"], losses["CPUPlace"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+        print(f"dropout {dropout}: card {card} cpu {cpu} relative "
+              f"differences {rel} (bounds {PARITY_RTOL[1]:g} at step 1, "
+              f"{PARITY_RTOL[3]:g} at step 3)", flush=True)
+        if not np.isfinite(card + cpu).all() or rel[0] > PARITY_RTOL[1] \
+                or max(rel) > PARITY_RTOL[3]:
+            raise SystemExit(f"training on the card departs from the CPU "
+                             f"at dropout {dropout}: {rel}")
+    torch.cuda.empty_cache()
+
+
+def training_phase(torch, smi):
+    """BERT-base pretraining on the card: the main path of this slice."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    phase(f"training BERT-base: 12 layers, batch {TRAIN_B}, seq {TRAIN_T}, "
+          f"dropout 0.1, Adam, {TRAIN_STEPS} steps")
+    layers = 12
+    main, startup, loss = pretrain_program(fluid, layers, 0.1)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    print(f"BERT-base pretraining: {n_params} parameters, "
+          f"{len(main.global_block().ops)} ops, startup on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    feed = pretrain_feed(TRAIN_B, TRAIN_T, TRAIN_M, SEED + 7)
+    counters = {"fwd": ak.flash_attention, "dkv": ak.flash_attention_bwd_dkv,
+                "dq": ak.flash_attention_bwd_dq}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        (value,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(value))
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # per step: K1 once in the forward op and once in the generic grad's
+    # recompute (with lse) per layer; K2a and K2b once per layer
+    want = {"fwd": 2 * layers * TRAIN_STEPS, "dkv": layers * TRAIN_STEPS,
+            "dq": layers * TRAIN_STEPS}
+    step_s = statistics.median(walls[1:])
+    print(f"losses {losses}")
+    print(f"launches {launches} (expected {want})")
+    print(f"[{smi}] step {step_s * 1e3:.6f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; first step {walls[0] * 1e3:.6f} ms), "
+          f"{TRAIN_B * TRAIN_T / step_s:.3f} tokens/s, peak memory "
+          f"{peak} bytes ({peak / 2**30:.3f} GiB)", flush=True)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"training losses are not finite and falling: "
+                         f"{losses}")
+    if launches != want:
+        raise SystemExit(f"kernel launches {launches}, expected {want}")
+    profile_run(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                       scope=scope),
+                f"one training step (batch {TRAIN_B}, seq {TRAIN_T})", smi)
+    return launches
 
 
 def main():
@@ -370,17 +751,19 @@ def main():
     t_start = time.perf_counter()
     smi = device_phase(torch)
     build_phase()
-    rows = kernel_phase(torch)
-    launches = serving_phase(torch, smi)
+    kernel_phase(torch)
+    train_rows = train_kernel_phase(torch)
+    serving_launches = serving_phase(torch, smi)
+    training_parity_phase(torch)
+    launches = training_phase(torch, smi)
 
     phase("report")
-    main_row = rows["bert_row_f32"]
-    kernels = [dict(KERNELS[0], launches=launches,
-                    max_abs_err=main_row["max_abs_err"],
-                    ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-                    bound_ms=main_row["bound_ms"],
-                    bound_by=main_row["bound_by"],
-                    library_ms=main_row["library_ms"])]
+    print(f"flash_attention_fwd launches: serving {serving_launches}, "
+          f"training {launches['fwd']}")
+    # the main path's shape: BERT-base training, fp32, dropout 0.1
+    kernels = [dict(KERNELS[k], launches=launches[k],
+                    **train_rows[k]["bert_row_f32_drop"])
+               for k in ("fwd", "dkv", "dq")]
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

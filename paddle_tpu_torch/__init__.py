@@ -12,9 +12,12 @@ Entry points run on the card unless the caller asks for the CPU:
 ``Executor()`` is ``Executor(CUDAPlace(0))`` and ``AnalysisConfig`` runs
 on the GPU until ``disable_gpu()``; with no CUDA device both raise.
 
-This first slice serves: fluid layers -> ``io.save_inference_model`` ->
+It serves: fluid layers -> ``io.save_inference_model`` ->
 ``create_paddle_predictor(AnalysisConfig(dir))`` -> ``serving.
-ServingEngine``, with the BERT encoder of ``models/bert.py``.
+ServingEngine``, with the BERT encoder of ``models/bert.py``.  And it
+trains: fluid layers -> ``optimizer.Adam(...).minimize(loss)``
+(``append_backward`` plus update ops) -> ``Executor.run(startup)`` ->
+``Executor.run(main, feed, fetch_list=[loss])`` step after step.
 """
 
 from .core import framework, unique_name  # noqa: F401
@@ -25,9 +28,14 @@ from .core.framework import (Program, Block, Operator,  # noqa: F401
 from .core.executor import (Executor, Scope, global_scope,  # noqa: F401
                             scope_guard)
 from .core.lod import LoDTensor, create_lod_tensor  # noqa: F401
+from .core import backward  # noqa: F401
+from .core.backward import append_backward, calc_gradient  # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from . import initializer  # noqa: F401
 from . import layers       # noqa: F401
+from . import optimizer    # noqa: F401
+from . import regularizer  # noqa: F401
+from . import clip         # noqa: F401
 from . import io           # noqa: F401
 from .io import (save_vars, save_params, save_persistables,  # noqa: F401
                  load_vars, load_params, load_persistables,

@@ -6,7 +6,10 @@ reference framework's own shape (``Executor::Run``, ``executor.cc:185``):
 an interpreter loop that calls one registered kernel per op
 (``ops/registry.py``) on tensors that live on the executor's device.
 There is no jit and no buffer donation: persistable state the block
-writes is stored back into the Scope after the run.
+writes (an optimizer's ``ParamOut`` under the parameter's own name) is
+stored back into the Scope after the run, so the next run reads it.
+Kernels never update a tensor in place, because a grad op reads forward
+inputs from the run's environment after later ops have run.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``Executor()`` means ``CUDAPlace(0)``, and with no CUDA device it raises
@@ -16,7 +19,8 @@ instead of carrying on on the CPU.  Pass ``CPUPlace()`` to run on the CPU.
 import numpy as np
 import torch
 
-from .framework import CPUPlace, CUDAPlace, Variable, default_main_program
+from .framework import (Block, CPUPlace, CUDAPlace, Variable,
+                        default_main_program)
 from .. import ops as _ops  # noqa: F401  (importing registers the kernels)
 from ..ops import registry
 
@@ -139,6 +143,32 @@ def _normalize_feed(program, feed):
 
 
 _SUB_BLOCK_OPS = ("while", "conditional_block")
+SELF_CONTAINED_BLOCK_OPS = {"dynamic_rnn", "gpipe"}
+
+
+def _recurse_into_blocks(op):
+    """Whether dataflow analysis should descend into this op's Block attrs
+    (grad ops carry the fw op's block but bind all reads as inputs too)."""
+    return op.type not in SELF_CONTAINED_BLOCK_OPS and \
+        not op.type.endswith("_grad") and op.type != "generic_grad"
+
+
+def _block_io(block):
+    """All var names read / written by a block, recursing into sub-blocks
+    (the reference's ``_block_io``; ``append_backward`` uses it to refuse
+    backward through a while loop)."""
+    reads, writes = set(), set()
+    for op in block.ops:
+        reads.update(op.input_arg_names)
+        writes.update(op.output_arg_names)
+        if not _recurse_into_blocks(op):
+            continue
+        for v in op.attrs.values():
+            if isinstance(v, Block):
+                r, w = _block_io(v)
+                reads |= r
+                writes |= w
+    return reads, writes
 
 
 def _run_block(block, env, read):
@@ -223,7 +253,7 @@ class Executor:
         ctx = registry.ExecContext(
             device=self.device, generator=self.generator,
             seed=program.random_seed, step=self._step,
-            is_test=program._is_test or registry.in_test_mode())
+            is_test=program._is_test or registry.in_test_mode(), masks={})
         with torch.no_grad(), registry.exec_context(ctx):
             _run_block(block, env, read)
             fetches = [env[n] if n in env else read(n) for n in fetch_names]

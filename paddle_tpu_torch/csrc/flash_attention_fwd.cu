@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py::_flash_kernel
 // (:74), reached through _flash_call -> pl.pallas_call (:481) from
-// flash_attention (:188), the forward arm without dropout and without lse.
+// flash_attention (:188) and from the custom_vjp forward _flash_fwd (:539).
 // It computes
 //
 //     out = softmax(q . k^T * scale + bias [+ causal mask]) . v
@@ -10,7 +10,10 @@
 // over q [B,H,Tq,D], k and v [B,H,Tk,D] (dense, fp32 or bf16), with the
 // running max, the denominator and the accumulator in fp32 registers
 // (online softmax over 64-row K/V tiles), and writes out [B,H,Tq,D] in the
-// input dtype.
+// input dtype, and, when asked (the training forward), the per-row
+// log-sum-exp lse [B*H,Tq] in fp32 that the backward kernels recompute P
+// from: lse = m + log(max(l, 1e-20)), -inf for a row with every score at
+// -inf (:135-142).
 //
 // Design.  One CTA of 256 threads per (b*h, 64-row Q tile); the TPU ran the
 // grid (B*H, Tq/block_q) in order and held a whole row's K and V in VMEM,
@@ -33,39 +36,30 @@
 //     kernel fell back to the composed form for shapes that did not tile.
 //   * rows whose every score is -inf give 0, as the TPU kernel's isfinite
 //     guards and max(l, 1e-20) give (pallas_kernels.py:107-113, :134).
+//   * dropout (:114-124): the denominator l sums the undropped weights;
+//     only the weights that enter the accumulator are dropped and scaled
+//     by 1/(1-p).  The TPU drew a tile's bits from its hardware generator
+//     seeded by (seed, bh, q-tile, k-tile); here each element's bit is
+//     Philox at counter (k, q, bh, 0) (flash_attention_common.cuh), so the
+//     backward kernels, which tile differently, regenerate it exactly.
 //
-// What bounds it.  At BERT-base serving shape (B=8, H=12, T=128, D=64,
-// fp32) one call does 4*B*H*T^2*D = 0.40 GFLOP and must move 12.6 MB
-// (q, k, v read once, out written once).  On an H100 SXM that is ~6.0 us
-// of fp32 CUDA-core work at 67 TFLOP/s against ~3.8 us of memory traffic
-// at 3.35 TB/s: compute-bound on the fp32 CUDA cores.
+// What bounds it.  One call does 4*B*H*Tq*Tk*D FLOP and must move q, k, v
+// (read once) and out (written once).  At the BERT-base training shape
+// (B=32, H=12, T=128, D=64, fp32) that is 1.61 GFLOP against 50 MB: ~24 us
+// of fp32 CUDA-core work at 67 TFLOP/s against ~15 us of memory traffic at
+// 3.35 TB/s on an H100 SXM, so compute-bound on the fp32 CUDA cores.  With
+// dropout each element also costs one Philox4x32-10 (20 32-bit multiplies).
 //
 // What this simple design leaves on the table: it uses no tensor cores
 // (the products are fp32 FMAs on CUDA cores, even for bf16 inputs), no
 // asynchronous copies (cp.async / TMA) to overlap the next tile's load with
 // this tile's math, and no warp specialisation.  Those are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per CTA
-constexpr int BK = 64;          // key rows per K/V tile
-constexpr int THREADS = 256;    // 16 x 16 threads
-constexpr int ROWS = 4;         // query rows per thread (BQ / 16)
-constexpr int KCOLS = BK / 16;  // score columns per thread
-constexpr int PP = BK + 1;      // padded row of the probability tile
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+using namespace flash;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -77,10 +71,9 @@ constexpr size_t smem_bytes() {
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, int H, int Tq, int Tk, long long sb,
-                 long long sh, long long sq, long long sk, float scale,
-                 int causal) {
+                 const T* __restrict__ v, Bias bias, T* __restrict__ out,
+                 float* __restrict__ lse, int H, int Tq, int Tk, float scale,
+                 int causal, Dropout drop) {
   constexpr int DP = D + 1;       // padded: column reads hit distinct banks
   constexpr int OCOLS = D / 16;   // output columns per thread
   extern __shared__ float smem[];
@@ -98,7 +91,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.y * BQ;
   const size_t q_base = (size_t)bh * Tq * D;
   const size_t kv_base = (size_t)bh * Tk * D;
-  const float* brow = bias ? bias + b * sb + h * sh : nullptr;
+  const float* brow = bias.ptr ? bias.ptr + b * bias.sb + h * bias.sh
+                               : nullptr;
 
   // stage the Q tile; rows past Tq read as zeros and are never written
   for (int i = tid; i < BQ * D; i += THREADS) {
@@ -164,7 +158,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (kj >= Tk || (causal && kj > qi)) {
           x = -INFINITY;
         } else if (brow != nullptr && qi < Tq) {
-          x += brow[qi * sq + kj * sk];
+          x += brow[qi * bias.sq + kj * bias.sk];
         }
         s[i][j] = x;
         mt = fmaxf(mt, x);
@@ -179,9 +173,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float ls = 0.f;
 #pragma unroll
       for (int j = 0; j < KCOLS; ++j) {
+        const int kj = k0 + tx + 16 * j;
         const float p = isfinite(s[i][j]) ? expf(s[i][j] - m_safe) : 0.f;
-        Ps[r * PP + tx + 16 * j] = p;
-        ls += p;
+        ls += p;    // the denominator sums the undropped weights
+        float pa = p;
+        if (drop.on) pa = drop.keep(kj, qi, bh) ? p * drop.inv_keep : 0.f;
+        Ps[r * PP + tx + 16 * j] = pa;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -212,18 +209,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < ROWS; ++i) {
     const int qi = q0 + ty * ROWS + i;
     if (qi >= Tq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-20f);
+    const float lc = fmaxf(l[i], 1e-20f);
+    const float inv = 1.f / lc;
     T* o = out + q_base + (size_t)qi * D;
 #pragma unroll
     for (int c = 0; c < OCOLS; ++c) store(o + tx + 16 * c, acc[i][c] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * Tq + qi] = isfinite(m[i]) ? m[i] + logf(lc)
+                                                 : -INFINITY;
   }
 }
 
 template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* bias, void* out, int B, int H, int Tq,
-                   int Tk, long long sb, long long sh, long long sq,
-                   long long sk, float scale, int causal,
+cudaError_t launch(const void* q, const void* k, const void* v, Bias bias,
+                   void* out, float* lse, int B, int H, int Tq, int Tk,
+                   float scale, int causal, Dropout drop,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // above 48 KB of shared memory a kernel must opt in
@@ -236,36 +236,40 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const dim3 grid(B * H, q_tiles);
   flash_fwd_kernel<D, T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), H, Tq, Tk, sb,
-      sh, sq, sk, scale, causal);
+      static_cast<const T*>(v), bias, static_cast<T*>(out), lse, H, Tq, Tk,
+      scale, causal, drop);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  bias may be null.  Returns a
-// cudaError_t (0 on success); the launch is asynchronous on `stream`.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, const void* bias,
-                                   void* out, int B, int H, int Tq, int Tk,
-                                   int D, int dtype, long long sb,
-                                   long long sh, long long sq, long long sk,
-                                   float scale, int causal, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16.  bias and lse may be null.  The
+// dropout arm is on when `dropout` is non-zero: keep when Philox word 0 <
+// threshold, kept weights times inv_keep.  Returns a cudaError_t (0 on
+// success); the launch is asynchronous on `stream`.
+extern "C" int flash_attention_fwd(
+    const void* q, const void* k, const void* v, const void* bias,
+    void* out, void* lse, int B, int H, int Tq, int Tk, int D, int dtype,
+    long long sb, long long sh, long long sq, long long sk, float scale,
+    int causal, int dropout, unsigned threshold, unsigned key0,
+    unsigned key1, float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return cudaErrorInvalidValue;
-  const float* bp = static_cast<const float*>(bias);
+  const Bias bb{static_cast<const float*>(bias), sb, sh, sq, sk};
+  const Dropout dr{dropout, threshold, key0, key1, inv_keep};
+  float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch<64, float>(q, k, v, bp, out, B, H, Tq, Tk, sb, sh, sq, sk,
-                             scale, causal, st);
+    return launch<64, float>(q, k, v, bb, out, lp, B, H, Tq, Tk, scale,
+                             causal, dr, st);
   if (dtype == 0 && D == 128)
-    return launch<128, float>(q, k, v, bp, out, B, H, Tq, Tk, sb, sh, sq,
-                              sk, scale, causal, st);
+    return launch<128, float>(q, k, v, bb, out, lp, B, H, Tq, Tk, scale,
+                              causal, dr, st);
   if (dtype == 1 && D == 64)
-    return launch<64, __nv_bfloat16>(q, k, v, bp, out, B, H, Tq, Tk, sb, sh,
-                                     sq, sk, scale, causal, st);
+    return launch<64, __nv_bfloat16>(q, k, v, bb, out, lp, B, H, Tq, Tk,
+                                     scale, causal, dr, st);
   if (dtype == 1 && D == 128)
-    return launch<128, __nv_bfloat16>(q, k, v, bp, out, B, H, Tq, Tk, sb,
-                                      sh, sq, sk, scale, causal, st);
+    return launch<128, __nv_bfloat16>(q, k, v, bb, out, lp, B, H, Tq, Tk,
+                                      scale, causal, dr, st);
   return cudaErrorInvalidValue;
 }
 

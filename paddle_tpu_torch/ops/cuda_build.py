@@ -4,9 +4,10 @@ Each source ``paddle_tpu_torch/csrc/<name>.cu`` exposes a plain C interface
 and is compiled by ``nvcc`` for ``sm_90a`` into a shared library, at first
 use, under ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``), then
 loaded with ``ctypes``.  The library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded.  Nothing here runs at import time: the CPU tests import
-every module on a machine with no ``nvcc``.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: the CPU tests import every module on
+a machine with no ``nvcc``.
 """
 
 import ctypes
@@ -21,7 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention_fwd",)
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -38,8 +39,11 @@ def nvcc():
 
 
 def lib_path(name):
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha1(" ".join(FLAGS).encode())
+    for f in [name + ".cu"] + sorted(
+            f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,16 +1,18 @@
 """Dense math kernels (port of ``paddle_tpu/ops/math_ops.py``):
-elementwise ops with fluid's ``axis`` broadcast, mul/matmul, the
-activations and reductions on the BERT serving path.
+elementwise ops with fluid's ``axis`` broadcast and the custom
+``elementwise_add`` grad, mul/matmul, sum, the activations and reductions
+on the BERT serving and training paths.
 
 Reference op semantics: ``paddle/fluid/operators/elementwise/``,
 ``mul_op.cc``, ``matmul_op.cc``, ``activation_op.cc``, ``scale_op.cc``,
-``mean_op.cc``, ``reduce_ops/``.  The matrix products go to torch.matmul
-(cuBLAS on the card), as the JAX package left them to XLA.
+``mean_op.cc``, ``reduce_ops/``, ``sum_op.cc``.  The matrix products go
+to torch.matmul (cuBLAS on the card), as the JAX package left them to
+XLA.
 """
 
 import torch
 
-from .registry import register, first, as_out
+from .registry import register, register_grad, first, as_out
 
 
 def _bcast_y(x, y, axis):
@@ -32,6 +34,34 @@ def _ew(fn):
 
 
 register("elementwise_add")(_ew(torch.add))
+
+
+@register_grad("elementwise_add")
+def elementwise_add_grad(ins, attrs):
+    """dX = og (X never broadcasts in fluid's rule,
+    elementwise_op_function.h); dY = og summed in fp32 over Y's broadcast
+    dims (the reference's custom grad, math_ops.py:41)."""
+    fw_attrs = attrs["fw_attrs"]
+    x, y = first(ins, "X"), first(ins, "Y")
+    og = first(ins, "Out@GRAD_OUT")
+    axis = fw_attrs.get("axis", -1)
+    needs = {s for s, _ in attrs["needs_input_grad"]}
+    outs = {}
+    if "X" in needs:
+        outs["X@GRAD"] = [og.to(x.dtype)]
+    if "Y" in needs:
+        if y.shape == og.shape:
+            outs["Y@GRAD"] = [og.to(y.dtype)]
+        else:
+            ax = og.ndim - y.ndim if axis in (-1, None) else axis
+            # dims outside Y's span, plus size-1 dims INSIDE the span
+            # that the forward broadcast (e.g. a (2,1) Y against (2,3))
+            red = tuple(range(ax)) + tuple(range(ax + y.ndim, og.ndim)) \
+                + tuple(ax + i for i, d in enumerate(y.shape)
+                        if d == 1 and og.shape[ax + i] != 1)
+            dy = og.float().sum(dim=red) if red else og.float()
+            outs["Y@GRAD"] = [dy.to(y.dtype).reshape(y.shape)]
+    return outs
 register("elementwise_sub")(_ew(torch.sub))
 register("elementwise_mul")(_ew(torch.mul))
 register("elementwise_div")(_ew(torch.div))
@@ -48,6 +78,15 @@ def scale(ins, attrs):
     if attrs.get("bias_after_scale", True):
         return as_out(x * s + b)
     return as_out((x + b) * s)
+
+
+@register("sum")
+def sum_op(ins, attrs):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return as_out(out)
 
 
 def _prod(t):

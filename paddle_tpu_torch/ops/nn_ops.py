@@ -1,15 +1,26 @@
-"""NN kernels on the BERT serving path (port of
-``paddle_tpu/ops/nn_ops.py``): softmax, dropout at inference, layer_norm,
-lookup_table.
+"""NN kernels on the BERT serving and training paths (port of
+``paddle_tpu/ops/nn_ops.py``): softmax, softmax_with_cross_entropy with
+its fused grad, dropout, layer_norm with its analytic grad, lookup_table
+with its dense grad, square_error_cost.
 
-Reference semantics: ``softmax_op.cc``, ``dropout_op.cc`` (two
+Reference semantics: ``softmax_op.cc``,
+``softmax_with_cross_entropy_op.cc``, ``dropout_op.cc`` (two
 implementations), ``layer_norm_op.cc``, ``lookup_table_op.cc:71``
 (padding_idx).
+
+Training-mode dropout keys its mask by the reference's per-op seed
+recipe (``registry.op_seed``: program seed, op seed, step) and draws it
+from counter-based Philox (``registry.dropout_keep``), so the generic
+grad's recompute in the same step draws the same mask (an Executor run
+reuses it), and the CPU and the card draw the same mask for the same op
+and step.
 """
 
 import torch
 
-from .registry import register, first, as_out, current
+from .registry import (register, register_grad, first, as_out, current,
+                       dropout_keep, generic_grad_kernel, has_out_grad,
+                       op_seed)
 from .tensor_ops import take_rows
 
 
@@ -28,11 +39,78 @@ def dropout(ins, attrs):
         # upscale_in_train already scaled in training and is the identity
         out = x * (1.0 - p) if impl == "downgrade_in_infer" else x
         return {"Out": [out], "Mask": [torch.ones_like(x)]}
-    if p:
-        raise NotImplementedError(
-            "dropout in training mode runs in the training slice of the "
-            "port, which has not landed yet")
-    return {"Out": [x], "Mask": [torch.ones_like(x)]}
+    if p >= 1.0:
+        mask = torch.zeros_like(x)
+    elif p > 0.0:
+        masks = current().masks
+        key = (op_seed(attrs), tuple(x.shape), p, x.device, x.dtype)
+        mask = None if masks is None else masks.get(key)
+        if mask is None:
+            mask = dropout_keep(key[0], key[1], p, x.device).to(x.dtype)
+            if masks is not None:
+                masks[key] = mask
+    else:
+        mask = torch.ones_like(x)
+    if impl == "upscale_in_train":
+        out = torch.zeros_like(x) if p >= 1.0 else x * mask / (1.0 - p)
+    else:
+        out = x * mask
+    return {"Out": [out], "Mask": [mask]}
+
+
+def _labels(label):
+    """Hard labels [..., 1] -> [...]."""
+    return label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
+        else label
+
+
+@register("softmax_with_cross_entropy")
+def softmax_with_cross_entropy(ins, attrs):
+    logits = first(ins, "Logits")
+    label = first(ins, "Label")
+    logits_f = logits.float()
+    lse = torch.logsumexp(logits_f, dim=-1, keepdim=True)
+    if attrs.get("soft_label", False):
+        loss = (label.float() * (lse - logits_f)).sum(dim=-1, keepdim=True)
+    else:
+        lbl = _labels(label).long()
+        c = logits.shape[-1]
+        idx = torch.where(lbl < 0, lbl + c, lbl).clamp(0, c - 1)
+        picked = torch.gather(logits, -1, idx.unsqueeze(-1))
+        loss = lse - picked.float()
+        ignore = attrs.get("ignore_index", -100)
+        loss = loss.masked_fill((lbl == ignore).unsqueeze(-1), 0.0)
+    softmax = torch.exp(logits_f - lse).to(logits.dtype)
+    return {"Softmax": [softmax], "Loss": [loss]}
+
+
+@register_grad("softmax_with_cross_entropy")
+def softmax_with_cross_entropy_grad(ins, attrs):
+    """Fused xent backward: dLogits = g * (softmax - onehot) in fp32,
+    written in the logits dtype (the reference's custom grad,
+    nn_ops.py:266)."""
+    needs_label = any(s == "Label" for s, _ in attrs["needs_input_grad"])
+    if needs_label or has_out_grad(ins, "Softmax"):
+        # someone differentiates through the Softmax output or a soft
+        # Label too: the generic recompute path is exact there
+        return generic_grad_kernel(ins, attrs)
+    fw_attrs = attrs["fw_attrs"]
+    logits = first(ins, "Logits")
+    label = first(ins, "Label")
+    g = first(ins, "Loss@GRAD_OUT").float()
+    logits_f = logits.float()
+    sm = torch.softmax(logits_f, dim=-1)
+    if fw_attrs.get("soft_label", False):
+        lab = label.float()
+        d = g * (sm * lab.sum(dim=-1, keepdim=True) - lab)
+    else:
+        lbl = _labels(label).long()
+        onehot = torch.arange(logits.shape[-1], device=logits.device) \
+            == lbl.unsqueeze(-1)
+        d = g * (sm - onehot.float())
+        ignore = fw_attrs.get("ignore_index", -100)
+        d = d.masked_fill((lbl == ignore).unsqueeze(-1), 0.0)
+    return {"Logits@GRAD": [d.to(logits.dtype)]}
 
 
 @register("layer_norm")
@@ -64,6 +142,50 @@ def layer_norm(ins, attrs):
             "Variance": [var.reshape(lead)]}
 
 
+@register_grad("layer_norm")
+def layer_norm_grad(ins, attrs):
+    """Analytic LN backward (the reference's custom grad, nn_ops.py:417):
+    the row statistics recomputed once, dX in one expression, dScale and
+    dBias as column sums."""
+    if has_out_grad(ins, "Mean") or has_out_grad(ins, "Variance"):
+        return generic_grad_kernel(ins, attrs)
+    fw = attrs["fw_attrs"]
+    x = first(ins, "X")
+    scale = first(ins, "Scale")
+    dy = first(ins, "Y@GRAD_OUT")
+    eps = fw.get("epsilon", 1e-5)
+    begin = fw.get("begin_norm_axis", 1)
+    red = tuple(range(begin, x.ndim))
+    lead = tuple(range(begin))
+    norm_shape = (1,) * begin + tuple(x.shape[begin:])
+    xs = x.float()
+    dyf = dy.float()
+    m1 = xs.mean(dim=red, keepdim=True)
+    if x.dtype == torch.bfloat16:     # match the forward's stats exactly
+        var = ((xs * xs).mean(dim=red, keepdim=True)
+               - m1 * m1).clamp_min(0.0)
+    else:
+        var = ((xs - m1) ** 2).mean(dim=red, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (xs - m1) * inv
+    g = dyf * scale.float().reshape(norm_shape) if scale is not None \
+        else dyf
+    s1 = g.mean(dim=red, keepdim=True)
+    s2 = (g * xhat).mean(dim=red, keepdim=True)
+    needs = {s for s, _ in attrs["needs_input_grad"]}
+    outs = {}
+    if "X" in needs:
+        outs["X@GRAD"] = [(inv * (g - s1 - xhat * s2)).to(x.dtype)]
+    if "Scale" in needs:
+        dscale = (dyf * xhat).sum(dim=lead) if lead else dyf * xhat
+        outs["Scale@GRAD"] = [dscale.reshape(scale.shape).to(scale.dtype)]
+    if "Bias" in needs:
+        bias = first(ins, "Bias")
+        dbias = dyf.sum(dim=lead) if lead else dyf
+        outs["Bias@GRAD"] = [dbias.reshape(bias.shape).to(bias.dtype)]
+    return outs
+
+
 def squeeze_ids(ids):
     """Drop the trailing 1 dim fluid ids carry ([..., 1] -> [...])."""
     return ids.reshape(ids.shape[:-1]) if ids.shape[-1] == 1 else ids
@@ -85,3 +207,36 @@ def lookup_table(ins, attrs):
     if pad != -1:
         out = out.masked_fill((idx == pad).unsqueeze(-1), 0.0)
     return as_out(out)
+
+
+@register_grad("lookup_table")
+def lookup_table_grad(ins, attrs):
+    """Dense table gradient (the reference's custom grad, nn_ops.py:692,
+    dense arm): one scatter-add of the out-grad rows, with the
+    padding_idx rows zeroed; ids out of range add nothing, as jax's
+    scatter drops them.  The ``is_sparse`` (SelectedRows) arm waits for
+    ``core/selected_rows.py``."""
+    fw_attrs = attrs["fw_attrs"]
+    if fw_attrs.get("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table_grad with is_sparse=True needs SelectedRows, "
+            "which the port does not have yet")
+    w = first(ins, "W")
+    og = first(ins, "Out@GRAD_OUT")
+    rows = squeeze_ids(first(ins, "Ids")).reshape(-1).long()
+    values = og.reshape((-1,) + tuple(w.shape[1:]))
+    n = w.shape[0]
+    pad = normalize_padding_idx(fw_attrs.get("padding_idx", -1), n)
+    drop = rows == pad if pad != -1 else torch.zeros_like(rows, dtype=bool)
+    rows = torch.where(rows < 0, rows + n, rows)
+    drop = drop | (rows < 0) | (rows >= n)
+    values = values.masked_fill(
+        drop.reshape((-1,) + (1,) * (values.ndim - 1)), 0.0)
+    dense = torch.zeros((n,) + tuple(w.shape[1:]), dtype=values.dtype,
+                        device=values.device)
+    return {"W@GRAD": [dense.index_add(0, rows.clamp(0, n - 1), values)]}
+
+
+@register("square_error_cost")
+def square_error_cost(ins, attrs):
+    return as_out(torch.square(first(ins, "X") - first(ins, "Y")))

@@ -1,8 +1,9 @@
 """Tensor manipulation + initialization kernels (port of
-``paddle_tpu/ops/tensor_ops.py``): the ops the BERT inference program and
-its startup program emit.
+``paddle_tpu/ops/tensor_ops.py``): the ops the BERT inference and
+training programs and their startup programs emit.
 
-Reference: ``fill_constant_op.cc``, ``uniform_random_op.cc``,
+Reference: ``fill_constant_op.cc``, ``fill_any_like_op.cc``,
+``assign_op.cc``, ``uniform_random_op.cc``,
 ``gaussian_random_op.cc``, ``truncated_gaussian_random_op.cc``,
 ``assign_value_op.cc``, ``reshape_op.cc``, ``transpose_op.cc``,
 ``cast_op.cc``, ``gather_op.cc``, ``slice_op.cc``.
@@ -25,7 +26,7 @@ def _random(attrs, draw):
     return as_out(out.to(torch_dtype(attrs.get("dtype", "float32"))))
 
 
-@register("fill_constant")
+@register("fill_constant", not_differentiable=True)
 def fill_constant(ins, attrs):
     return as_out(torch.full(tuple(attrs.get("shape", ())),
                              attrs.get("value", 0.0),
@@ -33,19 +34,32 @@ def fill_constant(ins, attrs):
                              device=current().device))
 
 
-@register("uniform_random")
+@register("fill_any_like", not_differentiable=True)
+def fill_any_like(ins, attrs):
+    x = first(ins, "X")
+    dtype = attrs.get("dtype")
+    dtype = x.dtype if dtype in (None, -1) else torch_dtype(dtype)
+    return as_out(torch.full_like(x, attrs.get("value", 0.0), dtype=dtype))
+
+
+@register("assign")
+def assign(ins, attrs):
+    return as_out(first(ins, "X"))
+
+
+@register("uniform_random", not_differentiable=True)
 def uniform_random(ins, attrs):
     lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
     return _random(attrs, lambda t, g: t.uniform_(lo, hi, generator=g))
 
 
-@register("gaussian_random")
+@register("gaussian_random", not_differentiable=True)
 def gaussian_random(ins, attrs):
     mean, std = attrs.get("mean", 0.0), attrs.get("std", 1.0)
     return _random(attrs, lambda t, g: t.normal_(mean, std, generator=g))
 
 
-@register("truncated_gaussian_random")
+@register("truncated_gaussian_random", not_differentiable=True)
 def truncated_gaussian_random(ins, attrs):
     # truncated at two standard deviations, as jax.random.truncated_normal
     # (-2, 2) in the reference
@@ -58,7 +72,7 @@ def truncated_gaussian_random(ins, attrs):
     return _random(attrs, draw)
 
 
-@register("assign_value")
+@register("assign_value", not_differentiable=True)
 def assign_value(ins, attrs):
     vals = np.array(attrs["values"],
                     dtype=np_dtype(attrs.get("dtype", "float32")))

@@ -1,0 +1,216 @@
+"""Optimizers: minimize = append_backward + per-param update ops (a copy
+of ``paddle_tpu/optimizer.py``, for the optimizers whose update ops the
+port has: SGD, Momentum and Adam).
+
+Reference: ``python/paddle/fluid/optimizer.py`` — `Optimizer.minimize`
+(:357) = `backward()` + `apply_gradients` (:286,318);
+`_create_optimization_pass` (:198) creates the global lr var, per-param
+accumulators (initialized in the startup program) and one update op per
+param.  An update op writes its new value under the state var's own
+name, and the Executor stores persistable writes back into the Scope, so
+the next run sees them.
+"""
+
+from .core import unique_name
+from .core.framework import (Variable, default_main_program,
+                             default_startup_program)
+from .core.backward import append_backward
+from .layer_helper import LayerHelper
+from .initializer import ConstantInitializer
+from .regularizer import append_regularization_ops
+from .clip import append_gradient_clip_ops
+
+
+class Optimizer:
+    def __init__(self, learning_rate, regularization=None, name=None):
+        self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._name = name
+        self._learning_rate_var = None
+        self._accumulators = {}      # acc name -> {param name: var}
+        self.helper = None
+
+    # -- learning rate -----------------------------------------------------
+    def _create_global_learning_rate(self):
+        if isinstance(self._learning_rate, Variable):
+            self._learning_rate_var = self._learning_rate
+            return
+        if self._learning_rate_var is not None:
+            return
+        from .layers import tensor as tensor_layers
+        self._learning_rate_var = tensor_layers.create_global_var(
+            shape=[1], value=float(self._learning_rate), dtype="float32",
+            persistable=True,
+            name=unique_name.generate("learning_rate"))
+
+    def _global_learning_rate(self):
+        return self._learning_rate_var
+
+    def _create_param_lr(self, param_and_grad):
+        param = param_and_grad[0]
+        factor = param.optimize_attrs.get("learning_rate", 1.0)
+        if factor == 1.0:
+            return self._global_learning_rate()
+        helper = LayerHelper("param_lr")
+        out = helper.create_variable_for_type_inference("float32", True)
+        out.shape = (1,)
+        helper.append_op(type="scale",
+                         inputs={"X": [self._global_learning_rate()]},
+                         outputs={"Out": [out]},
+                         attrs={"scale": float(factor), "bias": 0.0,
+                                "bias_after_scale": True})
+        return out
+
+    # -- accumulators ------------------------------------------------------
+    def _add_accumulator(self, name, param, dtype=None, fill_value=0.0,
+                         shape=None):
+        if name in self._accumulators and \
+                param.name in self._accumulators[name]:
+            return self._accumulators[name][param.name]
+        shape = list(shape if shape is not None else param.shape)
+        dtype = dtype or param.dtype
+        main_block = default_main_program().global_block()
+        var_name = unique_name.generate(f"{param.name}_{name}")
+        var = main_block.create_var(name=var_name, shape=shape, dtype=dtype,
+                                    persistable=True, stop_gradient=True)
+        # moment buffers inherit the param's TP sharding (same shape)
+        if shape == list(param.shape or []):
+            var.sharding = getattr(param, "sharding", None)
+        sb = default_startup_program().global_block()
+        sv = sb.create_var(name=var_name, shape=shape, dtype=dtype,
+                           persistable=True, stop_gradient=True)
+        sv.sharding = var.sharding
+        ConstantInitializer(float(fill_value))(sv, sb)
+        self._accumulators.setdefault(name, {})[param.name] = var
+        return var
+
+    def _get_accumulator(self, name, param):
+        return self._accumulators[name][param.name]
+
+    def _create_accumulators(self, block, parameters):
+        pass
+
+    def _finish_update(self, block, parameters_and_grads):
+        pass
+
+    def _append_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError
+
+    # -- the pass ----------------------------------------------------------
+    def _create_optimization_pass(self, parameters_and_grads, loss,
+                                  startup_program=None):
+        program = loss.block.program
+        block = program.global_block()
+        self.helper = LayerHelper(self.__class__.__name__)
+        self._create_global_learning_rate()
+        self._create_accumulators(
+            block, [p for p, g in parameters_and_grads if g is not None])
+        optimize_ops = []
+        for pg in parameters_and_grads:
+            if pg[1] is None:
+                continue
+            optimize_ops.append(self._append_optimize_op(block, pg))
+        self._finish_update(block, parameters_and_grads)
+        return optimize_ops
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        return append_backward(loss, parameter_list, no_grad_set)
+
+    def apply_gradients(self, params_grads, loss=None):
+        params_grads = append_gradient_clip_ops(params_grads)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
+        loss = loss if loss is not None else _FakeLoss(params_grads)
+        return self._create_optimization_pass(params_grads, loss)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        params_grads = append_gradient_clip_ops(params_grads)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
+        optimize_ops = self._create_optimization_pass(params_grads, loss,
+                                                      startup_program)
+        return optimize_ops, params_grads
+
+
+class _FakeLoss:
+    def __init__(self, params_grads):
+        self.block = params_grads[0][0].block
+
+
+class SGDOptimizer(Optimizer):
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p.name]})
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
+
+
+class AdamOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_mode=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lazy_mode = lazy_mode
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment1", p)
+            self._add_accumulator("moment2", p)
+            self._add_accumulator("beta1_pow_acc", p, shape=[1],
+                                  fill_value=1.0)
+            self._add_accumulator("beta2_pow_acc", p, shape=[1],
+                                  fill_value=1.0)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m1 = self._get_accumulator("moment1", p)
+        m2 = self._get_accumulator("moment2", p)
+        b1p = self._get_accumulator("beta1_pow_acc", p)
+        b2p = self._get_accumulator("beta2_pow_acc", p)
+        return block.append_op(
+            type="adam",
+            inputs={"Param": [p], "Grad": [g], "Moment1": [m1],
+                    "Moment2": [m2], "Beta1Pow": [b1p], "Beta2Pow": [b2p],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p.name], "Moment1Out": [m1.name],
+                     "Moment2Out": [m2.name], "Beta1PowOut": [b1p.name],
+                     "Beta2PowOut": [b2p.name]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon,
+                   "lazy_mode": self._lazy_mode})
+
+
+
+# fluid-style lowercase aliases
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adam = AdamOptimizer

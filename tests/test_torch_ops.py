@@ -147,13 +147,239 @@ def test_port_random_op_distribution(op_type, attrs):
 
 
 def test_port_train_mode_dropout_and_grad_ops_raise():
-    x = torch.ones(2, 3)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_registry.run_op("dropout", {"X": [x]}, {"dropout_prob": 0.5})
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_registry.run_op(
-            "fused_attention",
-            {"Q": [torch.ones(1, 1, 4, 8)], "K": [torch.ones(1, 1, 4, 8)],
-             "V": [torch.ones(1, 1, 4, 8)]}, {"dropout_prob": 0.1})
-    with pytest.raises(NotImplementedError, match="training slice"):
+    """What still raises now that the port trains: a grad op with neither
+    a custom kernel nor the generic form (append_backward never emits
+    one), and the sparse table grad, which waits for SelectedRows."""
+    with pytest.raises(NotImplementedError, match="No kernel registered"):
         port_registry.run_op("mul_grad", {}, {})
+    w, ids = torch.ones(4, 3), torch.zeros(2, 1, dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="SelectedRows"):
+        port_registry.run_op(
+            "lookup_table_grad",
+            {"W": [w], "Ids": [ids], "Out@GRAD_OUT": [torch.ones(2, 3)]},
+            {"fw_attrs": {"is_sparse": True}})
+
+
+# ---------------------------------------------------------------------------
+# The training slice: grad ops (the generic recompute-and-autograd kernel
+# and the four custom grads) and the update ops, port against the JAX
+# package's run_op on the same inputs, atol/rtol 1e-5 (float32).
+# ---------------------------------------------------------------------------
+
+def grad_op(fw_type, fw_ins, fw_attrs, out_slots, needs, ograds):
+    """ins/attrs of the grad op append_backward emits for one forward op:
+    the forward inputs plus ``<slot>@GRAD_OUT`` out-grads."""
+    attrs = {"fw_type": fw_type, "fw_attrs": fw_attrs,
+             "fw_in_slots": [(s, len(v)) for s, v in fw_ins.items()],
+             "fw_out_slots": out_slots, "needs_input_grad": needs,
+             "has_out_grad": [(slot, 0) for slot in ograds]}
+    ins = dict(fw_ins)
+    ins.update({f"{slot}@GRAD_OUT": [g] for slot, g in ograds.items()})
+    return ins, attrs
+
+
+labels = rng.randint(0, 7, (4, 1)).astype(np.int64)
+labels[2, 0] = -100                              # ignore_index row
+GRAD_CASES = [
+    ("generic_grad",) + grad_op(
+        "mul", {"X": [f32(2, 5, 6)], "Y": [f32(6, 4)]},
+        {"x_num_col_dims": 2, "y_num_col_dims": 1}, [("Out", 1)],
+        [("X", 0), ("Y", 0)], {"Out": f32(2, 5, 4)}),
+    ("generic_grad",) + grad_op(
+        "matmul", {"X": [f32(2, 3, 4)], "Y": [f32(2, 5, 4)]},
+        {"transpose_Y": True, "alpha": 0.5}, [("Out", 1)],
+        [("X", 0), ("Y", 0)], {"Out": f32(2, 3, 5)}),
+    ("generic_grad",) + grad_op(
+        "gelu", {"X": [f32(3, 4) * 3]}, {}, [("Out", 1)], [("X", 0)],
+        {"Out": f32(3, 4)}),
+    ("generic_grad",) + grad_op(
+        "softmax", {"X": [f32(3, 7)]}, {"axis": -1}, [("Out", 1)],
+        [("X", 0)], {"Out": f32(3, 7)}),
+    ("generic_grad",) + grad_op(
+        "reshape2", {"X": [f32(2, 6, 4)]}, {"shape": [0, 3, 8]},
+        [("Out", 1), ("XShape", 1)], [("X", 0)], {"Out": f32(2, 3, 8)}),
+    ("generic_grad",) + grad_op(
+        "transpose2", {"X": [f32(2, 3, 4)]}, {"axis": [2, 0, 1]},
+        [("Out", 1), ("XShape", 1)], [("X", 0)], {"Out": f32(4, 2, 3)}),
+    ("generic_grad",) + grad_op(
+        "gather", {"X": [f32(6, 3)], "Index": [np.array([5, 0, 2, 2])]},
+        {}, [("Out", 1)], [("X", 0)], {"Out": f32(4, 3)}),
+    ("generic_grad",) + grad_op(
+        "slice", {"Input": [f32(3, 5, 4)]},
+        {"axes": [0, 1], "starts": [-1, 1], "ends": [10, -1],
+         "decrease_axis": [0]}, [("Out", 1)], [("Input", 0)],
+        {"Out": f32(3, 4)}),
+    ("generic_grad",) + grad_op(
+        "fused_attention",
+        {"Q": [f32(2, 2, 8, 16)], "K": [f32(2, 2, 8, 16)],
+         "V": [f32(2, 2, 8, 16)],
+         "Bias": [np.where(rng.rand(2, 1, 1, 8) < 0.3, -1e4,
+                           0.0).astype(np.float32)]},
+        {"causal": False, "scale": 0.0, "dropout_prob": 0.0,
+         "is_test": False}, [("Out", 1)], [("Q", 0), ("K", 0), ("V", 0)],
+        {"Out": f32(2, 2, 8, 16)}),
+    ("elementwise_add_grad",) + grad_op(
+        "elementwise_add", {"X": [f32(2, 3, 4)], "Y": [f32(3)]},
+        {"axis": 1}, [("Out", 1)], [("X", 0), ("Y", 0)],
+        {"Out": f32(2, 3, 4)}),
+    ("elementwise_add_grad",) + grad_op(
+        "elementwise_add", {"X": [f32(2, 3, 4)], "Y": [f32(2, 1, 4)]},
+        {"axis": -1}, [("Out", 1)], [("Y", 0)], {"Out": f32(2, 3, 4)}),
+    ("layer_norm_grad",) + grad_op(
+        "layer_norm", {"X": [f32(2, 3, 8)], "Scale": [f32(8)],
+                       "Bias": [f32(8)]},
+        {"begin_norm_axis": 2, "epsilon": 1e-5},
+        [("Y", 1), ("Mean", 1), ("Variance", 1)],
+        [("X", 0), ("Scale", 0), ("Bias", 0)], {"Y": f32(2, 3, 8)}),
+    ("softmax_with_cross_entropy_grad",) + grad_op(
+        "softmax_with_cross_entropy",
+        {"Logits": [f32(4, 7)], "Label": [labels]}, {},
+        [("Softmax", 1), ("Loss", 1)], [("Logits", 0)],
+        {"Loss": f32(4, 1)}),
+    ("lookup_table_grad",) + grad_op(
+        "lookup_table", {"W": [f32(10, 6)], "Ids": [ids]},
+        {"padding_idx": 4}, [("Out", 1)], [("W", 0)],
+        {"Out": f32(3, 5, 6)}),
+]
+
+
+def _both(op_type, ins, attrs):
+    want = jax_registry.run_op(
+        op_type, {s: [jnp.asarray(v) for v in vs] for s, vs in ins.items()},
+        dict(attrs))
+    got = port_registry.run_op(
+        op_type, {s: [torch.from_numpy(np.array(v)) for v in vs]
+                  for s, vs in ins.items()}, dict(attrs))
+    return want, got
+
+
+def _assert_same(want, got, what):
+    assert set(want) == set(got), (what, sorted(want), sorted(got))
+    for slot, wv in want.items():
+        assert len(wv) == len(got[slot])
+        for w, g in zip(wv, got[slot]):
+            w, g = np.asarray(w), g.detach().numpy()
+            assert g.shape == w.shape, (what, slot, g.shape, w.shape)
+            np.testing.assert_allclose(g, w, atol=ATOL, rtol=RTOL,
+                                       err_msg=f"{what}:{slot}")
+
+
+@pytest.mark.parametrize(
+    "op_type,ins,attrs", GRAD_CASES,
+    ids=[f"{c[0]}-{c[2]['fw_type']}-{i}" for i, c in enumerate(GRAD_CASES)])
+def test_port_grad_op_matches_jax(op_type, ins, attrs, monkeypatch):
+    monkeypatch.setitem(jax_flags._overrides, "force_attention_impl",
+                        "composed")
+    want, got = _both(op_type, ins, attrs)
+    _assert_same(want, got, f"{op_type}({attrs['fw_type']})")
+
+
+def test_port_grad_registry_matches_jax():
+    """append_backward reads both sets, so they shape the program: for
+    every op the port registers, the same custom grad and the same
+    not_differentiable mark as the JAX package."""
+    ported = sorted(port_registry._KERNELS)
+    assert "adam" in ported and "sum" in ported
+    for op in ported:
+        assert port_registry.is_differentiable(op) == \
+            jax_registry.is_differentiable(op), op
+        assert (port_registry.get_custom_grad(op) is None) == \
+            (jax_registry.get_custom_grad(op) is None), op
+
+
+STATE = {"ParamOut": "Param", "VelocityOut": "Velocity",
+         "Moment1Out": "Moment1", "Moment2Out": "Moment2",
+         "Beta1PowOut": "Beta1Pow", "Beta2PowOut": "Beta2Pow"}
+UPDATE_CASES = [
+    ("sgd", {"Param": [f32(4, 3)], "LearningRate": [np.full(1, 0.1,
+                                                            np.float32)]},
+     {}),
+    ("momentum", {"Param": [f32(4, 3)], "Velocity": [f32(4, 3)],
+                  "LearningRate": [np.full(1, 0.1, np.float32)]},
+     {"mu": 0.9, "use_nesterov": False}),
+    ("momentum", {"Param": [f32(4, 3)], "Velocity": [f32(4, 3)],
+                  "LearningRate": [np.full(1, 0.1, np.float32)]},
+     {"mu": 0.8, "use_nesterov": True}),
+    ("adam", {"Param": [f32(4, 3)], "Moment1": [np.zeros((4, 3),
+                                                         np.float32)],
+              "Moment2": [np.zeros((4, 3), np.float32)],
+              "Beta1Pow": [np.ones(1, np.float32)],
+              "Beta2Pow": [np.ones(1, np.float32)],
+              "LearningRate": [np.full(1, 1e-2, np.float32)]},
+     {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+]
+
+
+@pytest.mark.parametrize("op_type,state,attrs", UPDATE_CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in
+                              enumerate(UPDATE_CASES)])
+def test_port_update_op_matches_jax_over_two_steps(op_type, state, attrs):
+    """Each package feeds its own outputs back as the next step's state,
+    as the Executor's write-back does."""
+    jstate = {s: [jnp.asarray(v) for v in vs] for s, vs in state.items()}
+    pstate = {s: [torch.from_numpy(v) for v in vs]
+              for s, vs in state.items()}
+    for step in range(2):
+        grad = f32(4, 3)
+        want = jax_registry.run_op(
+            op_type, dict(jstate, Grad=[jnp.asarray(grad)]), dict(attrs))
+        got = port_registry.run_op(
+            op_type, dict(pstate, Grad=[torch.from_numpy(grad)]),
+            dict(attrs))
+        _assert_same(want, got, f"{op_type} step {step}")
+        jstate.update({STATE[s]: v for s, v in want.items()})
+        pstate.update({STATE[s]: v for s, v in got.items()})
+    assert port_registry.get_custom_grad(op_type) is None
+    assert not port_registry.is_differentiable(op_type)
+
+
+@pytest.mark.parametrize("impl", ["upscale_in_train", "downgrade_in_infer"])
+def test_port_train_mode_dropout(impl):
+    """Training-mode dropout, statistically: over 20000 draws at p=0.3 the
+    keep rate is within 0.016 of 0.7 (five standard deviations); Mask
+    times the implementation's scale is Out/X; the generic grad's
+    recompute draws the same mask, so X@GRAD = Mask·scale·og; the next
+    step draws another mask."""
+    p = 0.3
+    scale = 1.0 / (1.0 - p) if impl == "upscale_in_train" else 1.0
+    x = torch.from_numpy(f32(200, 100)) + 5.0
+    og = torch.from_numpy(f32(200, 100))
+    attrs = {"dropout_prob": p, "seed": 3, "dropout_implementation": impl}
+
+    def run(step, op_type="dropout", ins=None, a=None):
+        ctx = port_registry.ExecContext(seed=11, step=step)
+        with port_registry.exec_context(ctx):
+            return port_registry.run_op(op_type, ins or {"X": [x]},
+                                        a or attrs)
+
+    res = run(0)
+    out, mask = res["Out"][0], res["Mask"][0]
+    assert set(mask.unique().tolist()) <= {0.0, 1.0}
+    assert abs(mask.mean().item() - (1.0 - p)) < 0.016
+    torch.testing.assert_close(mask * scale, out / x, atol=1e-6, rtol=1e-6)
+    ins, gattrs = grad_op("dropout", {"X": [x]}, attrs,
+                          [("Out", 1), ("Mask", 1)], [("X", 0)], {"Out": og})
+    dx = run(0, "generic_grad", ins, gattrs)["X@GRAD"][0]
+    torch.testing.assert_close(dx, mask * scale * og, atol=1e-6, rtol=1e-6)
+    assert torch.equal(run(0)["Mask"][0], mask)
+    assert not torch.equal(run(1)["Mask"][0], mask)
+
+
+def test_port_train_mode_fused_attention_dropout():
+    """fused_attention in training mode with dropout_prob runs the flash
+    attention with the op's Philox seed (the plain version on CPU
+    tensors), and its grad recomputes the same mask."""
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    q, k, v = (torch.from_numpy(f32(1, 2, 8, 16)) for _ in range(3))
+    attrs = {"dropout_prob": 0.25, "seed": 5, "causal": False,
+             "scale": 0.0}
+    ctx = port_registry.ExecContext(seed=2, step=4)
+    with port_registry.exec_context(ctx):
+        out = port_registry.run_op("fused_attention",
+                                   {"Q": [q], "K": [k], "V": [v]},
+                                   attrs)["Out"][0]
+        seed = port_registry.op_seed(attrs)
+    want = ak.flash_attention_reference(q, k, v, dropout_p=0.25, seed=seed)
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+    assert not torch.allclose(out, ak.flash_attention_reference(q, k, v))

@@ -21,22 +21,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dropout on and off, against the plain forward and the plain
    FlashAttention-2 backward on the same tensors (the same Philox mask);
    the dropout keep rate and the bits' determinism per seed.
-5. serving: build BERT-base (12 layers, hidden 768, 12 heads, seq 128,
+5. int8 kernel vs plain: K6 (quant_matmul) at the int8 serving path's
+   shapes (M = 1024 with (K, N) in {(768, 768), (768, 3072), (3072,
+   768)}, ragged M, the pooler's M = 8, the logits head's N = 2, and a
+   shape ragged in M, K and N) against its plain version, which must
+   agree bit for bit; kernel, plain and torch._int_mm + scale times.
+6. serving: build BERT-base (12 layers, hidden 768, 12 heads, seq 128,
    random weights from a seed) with the port's fluid API, save it as an
    inference model, serve 32 single-row requests through
    create_paddle_predictor -> ServingEngine on the card, check that the
    flash-attention kernel ran 12 times per executed batch, and hold the
    served probabilities against a CPU Predictor on the same model dir.
-6. training parity: BERT-base width with 2 layers, batch 8, seq 128,
+7. quantized serving: the same model dir and requests through
+   AnalysisConfig.enable_quantize() -> ServingEngine: K6 launched once
+   per __quant__ op per executed batch (and K1 12 times), one executed
+   batch run again with K6's plain version swapped in (equal answers),
+   the engine's padded batches re-run on a CPU quantized Predictor (the
+   int8 codes that differ counted), the answers within 0.05 of the fp32
+   phase's, latency and throughput beside the fp32 phase's, and a
+   profile of one quantized batch.
+8. training parity: BERT-base width with 2 layers, batch 8, seq 128,
    Adam, from one startup state, 3 steps on the card against 3 steps on
    the CPU, with dropout 0 and with dropout 0.1 (the same Philox masks
    on both devices).
-7. training: BERT-base pretraining (12 layers, dropout 0.1, batch 32,
+9. training: BERT-base pretraining (12 layers, dropout 0.1, batch 32,
    seq 128, 20 masked positions per sequence, Adam 1e-4, random weights
    from a seed) for 6 steps on the card through Executor.run: finite
    losses with the last below the first, the kernels' launch counts per
    step, step time, tokens/s, peak memory, and a profile of one step.
-8. report: a "kernels" JSON line, then the result line
+10. report: a "kernels" JSON line, then the result line
    {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
@@ -56,7 +69,7 @@ import numpy as np
 SEED = 1234
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # fp32: the kernel and the plain version sum exps in another order; bf16:
 # the plain version rounds its output to bf16 from a different fp32 value
 ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -77,6 +90,28 @@ PARITY_RTOL = {1: 1e-4, 3: 1e-3}
 # served probabilities against the CPU Predictor: cuBLAS vs CPU matmul
 # summation order through 12 fp32 layers
 SERVE_ATOL = 1e-4
+# quantized, card against CPU: K6 equals its plain version bit for bit,
+# but the fp32 ops between the matmuls (attention, layer norm, gelu) sum
+# in other orders on the two devices, so some int8 activation codes round
+# the other way on each side; a flipped code moves a matmul output by one
+# activation step (amax/127 of the whole batch), and the flips compound
+# through 12 layers (chip_smoke counts them).  Each side is within the
+# JAX package's quantization bar of fp32, so that bar bounds their
+# difference too.
+SERVE_QUANT_ATOL = 0.05
+# quantized answers against the fp32 ones: the JAX package's bar
+# (tests/test_quantize_pass.py:319)
+QUANT_FP32_BAR = 0.05
+# K6 at the int8 serving path's shapes: (name, M, K, N); serving batches
+# are rows * 128 tokens with rows bucketed to 1-8, the pooler runs at
+# M = rows and the logits head at N = 2
+QUANT_CASES = [("qkv_out_m1024", 1024, 768, 768),
+               ("ffn1_m1024", 1024, 768, 3072),
+               ("ffn2_m1024", 1024, 3072, 768),
+               ("ragged_m1000_ffn1", 1000, 768, 3072),
+               ("pooler_m8", 8, 768, 768),
+               ("logits_m8_n2", 8, 768, 2),
+               ("ragged_mkn", 333, 1001, 999)]
 BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_heads=12,
                  intermediate_size=3072, max_position=512,
                  type_vocab_size=2)
@@ -93,6 +128,9 @@ KERNELS = {
     "dq": {"name": "flash_attention_bwd_dq", "route": "cuda",
            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": "paddle_tpu/ops/pallas_kernels.py:625"},
+    "quant": {"name": "quant_matmul", "route": "cuda",
+              "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
+              "replaces": "paddle_tpu/ops/quant_kernels.py:64"},
 }
 
 
@@ -459,6 +497,60 @@ def dropout_checks(torch, ak, args, seed):
         raise SystemExit("attention dropout bits fail their checks")
 
 
+def int8_library(torch, xq, wq):
+    """torch._int_mm (cuBLASLt) on the kernel's operands, or None where it
+    refuses the shape (M <= 16, K or N not a multiple of 8)."""
+    try:
+        torch._int_mm(xq, wq)
+    except RuntimeError:
+        return None
+    return lambda: torch._int_mm(xq, wq)
+
+
+def quant_kernel_phase(torch):
+    """K6 against its plain version, which must give the same bits."""
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    phase("int8 kernel vs plain (quant_matmul)")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = {}
+    for name, m, k, n in QUANT_CASES:
+        xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                           dtype=torch.int8)
+        cs = torch.rand(n, generator=g, device="cuda") * 1e-4 + 1e-6
+        out = qk.int8_matmul(xq, wq, cs)
+        ref = qk.int8_matmul_reference(xq, wq, cs)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        lib = int8_library(torch, xq, wq)
+        nbytes = m * k + k * n + 4 * n + 4 * m * n
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = 2 * m * k * n / PEAK_FLOPS["int8"] * 1e3
+        row = {
+            "max_abs_err": err,
+            "ms": time_ms(torch, lambda: qk.int8_matmul(xq, wq, cs)),
+            "plain_ms": time_ms(torch, lambda: qk.int8_matmul_reference(
+                xq, wq, cs)),
+            "library_ms": None if lib is None else time_ms(
+                torch, lambda: lib().float() * cs),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+        rows[name] = row
+        lib_txt = "refused" if lib is None else \
+            f"{row['library_ms']:.6f} ms"
+        print(f"{name}: M {m} K {k} N {n} max_abs_err {err:.3e} (must be 0;"
+              f" max |out| {out.abs().max().item():.3e}) kernel "
+              f"{row['ms']:.6f} ms plain {row['plain_ms']:.6f} ms "
+              f"_int_mm+scale {lib_txt} bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']})", flush=True)
+        if err != 0.0:
+            raise SystemExit(f"quant_matmul disagrees with its plain version "
+                             f"on {name}: {err}")
+    return rows
+
+
 def bert_requests(cfg, t, n):
     """n single-row requests: seeded token ids and padding masks."""
     rng = np.random.RandomState(SEED)
@@ -475,6 +567,61 @@ def bert_requests(cfg, t, n):
             "pos_ids": np.arange(t, dtype=np.int64)[None, :],
             "sent_ids": sent, "attn_bias": bias})
     return reqs
+
+
+def serve(fluid, pred, reqs, max_batch, counters, on_start=None):
+    """Serve `reqs` through a ServingEngine over `pred`: warm-up, then
+    every launch counter set to 0 (and `on_start` called) just before the
+    timed burst and read just after it."""
+    engine = fluid.serving.ServingEngine(
+        pred, fluid.serving.ServingConfig(max_batch_size=max_batch,
+                                          max_wait_ms=5.0))
+    try:
+        engine.warmup()
+        # one warm-up round through the engine (cuBLAS handles, allocator)
+        for r in [engine.submit(f) for f in reqs[:max_batch]]:
+            r.result(120)
+        engine.reset_stats()
+        for c in counters.values():
+            c.launches = 0
+        if on_start is not None:
+            on_start()
+        done_ms = []
+        t0 = time.perf_counter()
+        futures = [engine.submit(f) for f in reqs]
+        for f in futures:
+            f.add_done_callback(lambda r: done_ms.append(
+                (time.perf_counter() - r.enq_t) * 1e3))
+        served = [f.result(120)[0] for f in futures]
+        wall_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    c = stats["counters"]
+    n_req = len(reqs)
+    print(f"answered {c['completed']}/{n_req} in {c['batches_executed']} "
+          f"batches, launches {launches}")
+    if c["completed"] != n_req or len(served) != n_req:
+        raise SystemExit(f"only {c['completed']} of {n_req} requests "
+                         "were answered")
+    served = np.concatenate(served)
+    if served.shape != (n_req, 2) or not np.isfinite(served).all():
+        raise SystemExit(f"served output has shape {served.shape} or is "
+                         "not finite")
+    lat = stats["latency_ms"]
+    run = {"served": served, "launches": launches, "stats": stats,
+           "batches": c["batches_executed"], "wall_s": wall_s,
+           "p50": float(np.percentile(done_ms, 50)),
+           "p99": float(np.percentile(done_ms, 99)),
+           "req_s": n_req / wall_s}
+    run["line"] = (f"latency p50 {lat['p50']} ms p99 {lat['p99']} ms "
+                   f"(engine histogram, bucket edges), client-side p50 "
+                   f"{run['p50']:.6f} ms p99 {run['p99']:.6f} ms, "
+                   f"{run['req_s']:.3f} req/s over {wall_s:.6f} s, "
+                   f"compute_ms avg {stats['compute_ms']['avg']} per batch, "
+                   f"batch occupancy {stats['batch_occupancy']}")
+    return run
 
 
 def serving_phase(torch, smi):
@@ -506,44 +653,12 @@ def serving_phase(torch, smi):
 
     pred = fluid.create_paddle_predictor(fluid.AnalysisConfig(model_dir))
     reqs = bert_requests(cfg, t_seq, n_req)
-    engine = fluid.serving.ServingEngine(
-        pred, fluid.serving.ServingConfig(max_batch_size=max_batch,
-                                          max_wait_ms=5.0))
-    try:
-        engine.warmup()
-        # one warm-up round through the engine (cuBLAS handles, allocator)
-        for r in [engine.submit(f) for f in reqs[:max_batch]]:
-            r.result(120)
-        engine.reset_stats()
-        ak.flash_attention.launches = 0
-        done_ms = []
-        t0 = time.perf_counter()
-        futures = [engine.submit(f) for f in reqs]
-        for f in futures:
-            f.add_done_callback(lambda r: done_ms.append(
-                (time.perf_counter() - r.enq_t) * 1e3))
-        served = [f.result(120)[0] for f in futures]
-        wall_s = time.perf_counter() - t0
-        launches = ak.flash_attention.launches
-        stats = engine.stats()
-    finally:
-        engine.stop()
-    c = stats["counters"]
-    batches = c["batches_executed"]
-    print(f"answered {c['completed']}/{n_req} in {batches} batches, "
-          f"flash_attention_fwd launches {launches}")
-    if c["completed"] != n_req or len(served) != n_req:
-        raise SystemExit(f"only {c['completed']} of {n_req} requests "
-                         "were answered")
-    if launches != cfg.num_layers * batches or launches == 0:
+    run = serve(fluid, pred, reqs, max_batch, {"fwd": ak.flash_attention})
+    launches = run["launches"]["fwd"]
+    if launches != cfg.num_layers * run["batches"] or launches == 0:
         raise SystemExit(f"flash_attention_fwd ran {launches} times for "
-                         f"{batches} batches, expected "
-                         f"{cfg.num_layers * batches}")
-    served = np.concatenate(served)
-    if served.shape != (n_req, 2) or not np.isfinite(served).all():
-        raise SystemExit(f"served output has shape {served.shape} or is "
-                         "not finite")
-
+                         f"{run['batches']} batches, expected "
+                         f"{cfg.num_layers * run['batches']}")
     cpu_cfg = fluid.AnalysisConfig(model_dir)
     cpu_cfg.disable_gpu()
     cpu_pred = fluid.create_paddle_predictor(cpu_cfg)
@@ -551,23 +666,126 @@ def serving_phase(torch, smi):
         cpu_pred.run({n: np.concatenate([r[n] for r in reqs[i:i + 8]])
                       for n in feeds})[0]
         for i in range(0, n_req, 8)])
-    err = float(np.abs(served - cpu).max())
+    err = float(np.abs(run["served"] - cpu).max())
     print(f"served vs CPU Predictor: max_abs_err {err:.3e} "
           f"(atol {SERVE_ATOL:g})")
     if err > SERVE_ATOL:
         raise SystemExit(f"card and CPU predictors disagree: {err}")
-    lat = stats["latency_ms"]
-    print(f"serving [{smi}]: latency p50 {lat['p50']} ms p99 {lat['p99']}"
-          f" ms (engine histogram, bucket edges), client-side p50 "
-          f"{np.percentile(done_ms, 50):.6f} ms p99 "
-          f"{np.percentile(done_ms, 99):.6f} ms, {n_req / wall_s:.3f} req/s"
-          f" over {wall_s:.6f} s, compute_ms avg "
-          f"{stats['compute_ms']['avg']} per batch, batch occupancy "
-          f"{stats['batch_occupancy']}")
+    print(f"serving [{smi}]: {run['line']}")
     batch = {n: np.concatenate([r[n] for r in reqs[:max_batch]])
              for n in feeds}
     profile_batch(torch, pred, batch, smi)
-    return launches
+    run.update(cfg=cfg, model_dir=model_dir, reqs=reqs, batch=batch,
+               max_batch=max_batch)
+    return run
+
+
+def code_flips(qk, card_pred, cpu_pred, feed):
+    """The int8 activation codes of every quantized matmul of one batch,
+    on the card and on the CPU: how many differ, per matmul."""
+    codes, quantize = [], qk.quantize_activation
+
+    def recording(x):
+        xq, xs = quantize(x)
+        codes.append(xq.cpu())
+        return xq, xs
+
+    qk.quantize_activation = recording
+    try:
+        card_pred.run(feed)
+        card = codes[:]
+        codes.clear()
+        cpu_pred.run(feed)
+    finally:
+        qk.quantize_activation = quantize
+    return {"counts": [int((a != b).sum()) for a, b in zip(card, codes)],
+            "sizes": [a.numel() for a in card],
+            "max_step": max(int((a.int() - b.int()).abs().max())
+                            for a, b in zip(card, codes))}
+
+
+def quant_serving_phase(torch, smi, fp32):
+    """The serving phase's model dir and requests served with int8
+    weights: the main path of the int8 slice (K1 and K6)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    phase("quantized serving: AnalysisConfig.enable_quantize() -> "
+          "ServingEngine")
+    cfg = fluid.AnalysisConfig(fp32["model_dir"])
+    cfg.enable_quantize()
+    t0 = time.perf_counter()
+    pred = fluid.create_paddle_predictor(cfg)
+    n_quant = sum("__quant__" in op.attrs
+                  for op in pred._program.global_block().ops)
+    print(f"quantized predictor: {n_quant} __quant__ ops, load + quantize "
+          f"in {time.perf_counter() - t0:.3f} s")
+    # every padded batch the engine executes, with the card's answers
+    executed, run_feeds, int8_matmul = [], pred._run_feeds, qk.int8_matmul
+
+    def recorded(feed):
+        outs = run_feeds(feed)
+        executed.append(({n: np.array(a) for n, a in feed.items()}, outs))
+        return outs
+
+    pred._run_feeds = recorded
+    run = serve(fluid, pred, fp32["reqs"], fp32["max_batch"],
+                {"fwd": ak.flash_attention, "quant": qk.int8_matmul},
+                on_start=executed.clear)
+    pred._run_feeds = run_feeds
+    want = {"fwd": fp32["cfg"].num_layers * run["batches"],
+            "quant": n_quant * run["batches"]}
+    print(f"launches {run['launches']} (expected {want}: "
+          f"{fp32['cfg'].num_layers} and {n_quant} per batch)")
+    if run["launches"] != want or not run["batches"] or             len(executed) != run["batches"]:
+        raise SystemExit(f"quantized serving launches {run['launches']} for "
+                         f"{run['batches']} batches ({len(executed)} "
+                         f"recorded), expected {want}")
+    # the path with K6 against the same path with K6's plain version, on
+    # the card, on one executed batch: the rest of the path is the same
+    # deterministic sequence of kernels, so the answers must be equal
+    feed, outs = executed[0]
+    qk.int8_matmul = qk.int8_matmul_reference
+    try:
+        (plain,) = pred.run(feed)
+    finally:
+        qk.int8_matmul = int8_matmul
+    path_err = float(np.abs(outs[0] - plain).max())
+    print(f"served batch with K6 vs with its plain version on the card: "
+          f"max_abs_err {path_err:.3e} (must be 0; max |out| "
+          f"{np.abs(plain).max():.3e})")
+    if path_err != 0.0:
+        raise SystemExit(f"the int8 path with K6 departs from its plain "
+                         f"version: {path_err}")
+    cpu_cfg = fluid.AnalysisConfig(fp32["model_dir"])
+    cpu_cfg.disable_gpu()
+    cpu_cfg.enable_quantize()
+    cpu_pred = fluid.create_paddle_predictor(cpu_cfg)
+    flips = code_flips(qk, pred, cpu_pred, feed)
+    print(f"int8 activation codes that differ card vs CPU on one batch, per "
+          f"quantized matmul in program order (of "
+          f"{flips['sizes'][0]}-{max(flips['sizes'])} codes each): first 6 "
+          f"{flips['counts'][:6]}, last 6 {flips['counts'][-6:]}, total "
+          f"{sum(flips['counts'])} of {sum(flips['sizes'])}, largest code "
+          f"difference {flips['max_step']}")
+    err = max(float(np.abs(outs[0] - cpu_pred.run(feed)[0]).max())
+              for feed, outs in executed)
+    rows = sorted({len(next(iter(f.values()))) for f, _ in executed})
+    print(f"card vs CPU quantized Predictor on the engine's {len(executed)} "
+          f"padded batches (rows {rows}): max_abs_err {err:.3e} (atol "
+          f"{SERVE_QUANT_ATOL:g})")
+    if err > SERVE_QUANT_ATOL:
+        raise SystemExit(f"card and CPU quantized predictors disagree: {err}")
+    dq = float(np.abs(run["served"] - fp32["served"]).max())
+    print(f"quantized vs fp32 served probabilities: max_abs_diff {dq:.3e} "
+          f"(bar {QUANT_FP32_BAR:g})")
+    if not dq < QUANT_FP32_BAR:
+        raise SystemExit(f"quantized answers depart from fp32 by {dq}")
+    print(f"serving int8 [{smi}]: {run['line']}")
+    print(f"serving fp32 [{smi}]: {fp32['line']}")
+    profile_batch(torch, pred, fp32["batch"], smi)
+    return run
 
 
 def profile_batch(torch, pred, feed, smi):
@@ -609,6 +827,15 @@ def profile_run(torch, run, label, smi):
           f"profiled wall")
     for name, ms, count in rows[:12]:
         print(f"  {ms:10.6f} ms  x{count:<5d} {name[:90]}")
+    # the host side: torch operators by self CPU time (profiled, so
+    # inflated), and how many the run dispatched
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.key.startswith("aten::")), key=lambda r: -r[1])
+    print(f"  host: {sum(r[2] for r in host)} torch operator calls, "
+          f"{sum(r[1] for r in host):.6f} ms of self CPU time; top: " +
+          ", ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in host[:6]))
 
 
 def pretrain_program(fluid, num_layers, dropout):
@@ -753,17 +980,28 @@ def main():
     build_phase()
     kernel_phase(torch)
     train_rows = train_kernel_phase(torch)
-    serving_launches = serving_phase(torch, smi)
+    quant_rows = quant_kernel_phase(torch)
+    fp32 = serving_phase(torch, smi)
+    quant = quant_serving_phase(torch, smi, fp32)
     training_parity_phase(torch)
     launches = training_phase(torch, smi)
 
     phase("report")
-    print(f"flash_attention_fwd launches: serving {serving_launches}, "
-          f"training {launches['fwd']}")
-    # the main path's shape: BERT-base training, fp32, dropout 0.1
+    print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
+          f" int8 serving {quant['launches']['fwd']}, training "
+          f"{launches['fwd']}")
+    per_batch = quant["launches"]["quant"] / quant["batches"]
+    print(f"quant_matmul launches: int8 serving {quant['launches']['quant']}"
+          f" over {quant['batches']} batches ({per_batch:g} per batch)")
+    # the main paths' shapes: BERT-base training, fp32, dropout 0.1; and
+    # the int8 serving batch's q/k/v/out projection (4 of 6 per layer)
     kernels = [dict(KERNELS[k], launches=launches[k],
                     **train_rows[k]["bert_row_f32_drop"])
                for k in ("fwd", "dkv", "dq")]
+    kernels.append(dict(KERNELS["quant"],
+                        launches=quant["launches"]["quant"],
+                        launches_per_batch=per_batch,
+                        **quant_rows["qkv_out_m1024"]))
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -17,7 +17,10 @@ It serves: fluid layers -> ``io.save_inference_model`` ->
 ServingEngine``, with the BERT encoder of ``models/bert.py``.  And it
 trains: fluid layers -> ``optimizer.Adam(...).minimize(loss)``
 (``append_backward`` plus update ops) -> ``Executor.run(startup)`` ->
-``Executor.run(main, feed, fetch_list=[loss])`` step after step.
+``Executor.run(main, feed, fetch_list=[loss])`` step after step.  And it
+serves with int8 weights: ``AnalysisConfig.enable_quantize()`` runs the
+Predictor's verifier (``analysis/``) and pass pipeline (``passes/``), and
+each annotated matmul runs the int8 kernel ``csrc/quant_matmul.cu``.
 """
 
 from .core import framework, unique_name  # noqa: F401

@@ -1,0 +1,896 @@
+"""Static shape & dtype inference over Program IR.
+
+Propagates from feed / parameter / persistable declarations through a
+per-op-type inference registry covering the op set the model zoo uses
+(conv / matmul / elementwise / reductions / reshape / concat / softmax /
+cross-entropy / lookup / norm layers / optimizer updates / grad ops /
+control-flow sub-blocks).  Ops without a rule infer ⊤ (unknown) and are
+REPORTED, never crashed on — the analysis must hold up on any program,
+including ones this repo has never seen (deserialized, transpiled,
+hand-built).
+
+Like every module in ``paddle_tpu_torch.analysis``, this is a pure query: no
+IR mutation, no ``Program._version`` bump, so jitcache hint
+fingerprints are byte-identical before/after inference.
+
+Dim conventions: ``-1`` (or None) in a declared or inferred shape is a
+dynamic/unknown dim.  Arithmetic on an unknown dim yields unknown.
+Two shapes are *compatible* when ranks match and every dim pair is
+equal or has an unknown side.
+"""
+
+import collections
+
+from ..core import framework
+
+UNK = -1                      # unknown dim
+
+Mismatch = collections.namedtuple(
+    "Mismatch", ["kind", "name", "block_idx", "op_idx",
+                 "declared", "inferred"])
+UnknownOp = collections.namedtuple(
+    "UnknownOp", ["block_idx", "op_idx", "op_type"])
+
+
+def _norm_shape(shape):
+    if shape is None:
+        return None
+    return tuple(UNK if (d is None or int(d) < 0) else int(d)
+                 for d in shape)
+
+
+def compatible_shapes(a, b):
+    """True unless both shapes are known, with a definite conflict."""
+    if a is None or b is None:
+        return True
+    a, b = _norm_shape(a), _norm_shape(b)
+    if len(a) != len(b):
+        return False
+    return all(x == UNK or y == UNK or x == y for x, y in zip(a, b))
+
+
+def merge_shapes(a, b):
+    """Most-precise merge of two compatible shapes (unknown dims filled
+    from the other side); None if either is fully unknown."""
+    if a is None:
+        return _norm_shape(b)
+    if b is None:
+        return _norm_shape(a)
+    a, b = _norm_shape(a), _norm_shape(b)
+    if len(a) != len(b):
+        return a
+    return tuple(y if x == UNK else x for x, y in zip(a, b))
+
+
+class VarInfo:
+    """(shape, dtype) lattice value: None = unknown (⊤)."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape=None, dtype=None):
+        self.shape = _norm_shape(shape)
+        self.dtype = dtype
+
+    def __repr__(self):
+        return f"VarInfo(shape={self.shape}, dtype={self.dtype})"
+
+
+def _dim_mul(*dims):
+    out = 1
+    for d in dims:
+        if d == UNK:
+            return UNK
+        out *= d
+    return out
+
+
+def _conv_dim(x, k, pad, stride, dil=1):
+    if UNK in (x, k):
+        return UNK
+    return (x + 2 * pad - dil * (k - 1) - 1) // stride + 1
+
+
+# ---------------------------------------------------------------------------
+# Per-op inference registry.  fn(op, get) -> {out_name: VarInfo} | None.
+# `get(name)` returns the current VarInfo for an input (never None —
+# unknown inputs give VarInfo(None, None)).  Returning None, raising, or
+# omitting outputs leaves those outputs unknown.
+# ---------------------------------------------------------------------------
+
+INFER = {}
+
+
+def infer_rule(*op_types):
+    def deco(fn):
+        for t in op_types:
+            INFER[t] = fn
+        return fn
+    return deco
+
+
+def _first(op, slot):
+    names = op.inputs.get(slot) or []
+    return names[0] if names else None
+
+
+def _outs(op, slot="Out"):
+    return op.outputs.get(slot) or []
+
+
+def _same_as(slot="X"):
+    def fn(op, get):
+        src = _first(op, slot)
+        if src is None:
+            return None
+        info = get(src)
+        return {n: VarInfo(info.shape, info.dtype) for n in _outs(op)}
+    return fn
+
+
+_UNARY_SAME = (
+    "relu", "sigmoid", "tanh", "exp", "log", "sqrt", "rsqrt", "square",
+    "abs", "floor", "ceil", "cos", "sin", "softsign", "softplus",
+    "leaky_relu", "relu6", "elu", "selu", "brelu", "soft_relu", "swish",
+    "stanh", "hard_sigmoid", "prelu", "scale", "clip", "sign", "gelu",
+    "softmax", "log_softmax", "sequence_softmax", "label_smooth",
+    "pow", "l2_normalize", "assign", "pad_constant_like", "lrn",
+)
+for _t in _UNARY_SAME:
+    infer_rule(_t)(_same_as("X"))
+
+
+@infer_rule("elementwise_add", "elementwise_sub", "elementwise_mul",
+            "elementwise_div", "elementwise_pow", "elementwise_max",
+            "elementwise_min", "elementwise_mod", "elementwise_floordiv")
+def _ew(op, get):
+    # fluid broadcast rule: Y broadcasts into X; output takes X's shape
+    x = get(_first(op, "X"))
+    return {n: VarInfo(x.shape, x.dtype) for n in _outs(op)}
+
+
+@infer_rule("cast")
+def _cast(op, get):
+    x = get(_first(op, "X"))
+    dt = framework.convert_dtype(op.attrs.get("out_dtype", "float32"))
+    return {n: VarInfo(x.shape, dt) for n in _outs(op)}
+
+
+def _quant_out_dtype(op, x_dtype):
+    """Output dtype of a matmul-class op, quantization-aware: a
+    ``__quant__``-annotated op (passes/quantize.py) dequantizes in its
+    epilogue, so its output is FLOAT at the activation's dtype even
+    though the declared weight is int8 — and an int8/fp8 activation
+    side (fully-quantized graphs) still produces float32.  The fp32
+    Scale operand never leaks into the output dtype."""
+    if "__quant__" in op.attrs and (
+            x_dtype is None or "int" in str(x_dtype) or
+            "float8" in str(x_dtype)):
+        return "float32"
+    return x_dtype
+
+
+@infer_rule("mul")
+def _mul(op, get):
+    x, y = get(_first(op, "X")), get(_first(op, "Y"))
+    if x.shape is None or y.shape is None:
+        return None
+    xnc = op.attrs.get("x_num_col_dims", 1)
+    ync = op.attrs.get("y_num_col_dims", 1)
+    out = x.shape[:xnc] + y.shape[ync:]
+    dt = _quant_out_dtype(op, x.dtype)
+    return {n: VarInfo(out, dt) for n in _outs(op)}
+
+
+@infer_rule("matmul")
+def _matmul(op, get):
+    x, y = get(_first(op, "X")), get(_first(op, "Y"))
+    if x.shape is None or y.shape is None or \
+            len(x.shape) < 2 or len(y.shape) < 2:
+        return None
+    xs = list(x.shape)
+    ys = list(y.shape)
+    if op.attrs.get("transpose_X", False):
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if op.attrs.get("transpose_Y", False):
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    batch = xs[:-2] if len(xs) >= len(ys) else ys[:-2]
+    out = tuple(batch) + (xs[-2], ys[-1])
+    dt = _quant_out_dtype(op, x.dtype)
+    return {n: VarInfo(out, dt) for n in _outs(op)}
+
+
+@infer_rule("conv2d", "depthwise_conv2d", "conv2d_fusion")
+def _conv2d(op, get):
+    x = get(_first(op, "Input"))
+    w = get(_first(op, "Filter"))
+    if x.shape is None or w.shape is None or len(x.shape) != 4 \
+            or len(w.shape) != 4:
+        return None
+    s = op.attrs.get("strides", [1, 1])
+    p = op.attrs.get("paddings", [0, 0])
+    d = op.attrs.get("dilations", [1, 1])
+    n, _, h, wd = x.shape
+    o, _, kh, kw = w.shape
+    out = (n, o, _conv_dim(h, kh, p[0], s[0], d[0]),
+           _conv_dim(wd, kw, p[1], s[1], d[1]))
+    return {nm: VarInfo(out, x.dtype) for nm in
+            _outs(op, "Output") or _outs(op)}
+
+
+@infer_rule("conv2d_transpose", "depthwise_conv2d_transpose")
+def _conv2d_t(op, get):
+    x = get(_first(op, "Input"))
+    w = get(_first(op, "Filter"))
+    if x.shape is None or w.shape is None or len(x.shape) != 4 \
+            or len(w.shape) != 4:
+        return None
+    s = op.attrs.get("strides", [1, 1])
+    p = op.attrs.get("paddings", [0, 0])
+    d = op.attrs.get("dilations", [1, 1])
+    n, _, h, wd = x.shape
+    _, cpg, kh, kw = w.shape           # filter IOHW: [C_in, C_out/g, kh, kw]
+    groups = op.attrs.get("groups", 1)
+
+    def tdim(xd, k, pad, st, dil):
+        if UNK in (xd, k):
+            return UNK
+        return (xd - 1) * st - 2 * pad + dil * (k - 1) + 1
+
+    out = (n, cpg * groups, tdim(h, kh, p[0], s[0], d[0]),
+           tdim(wd, kw, p[1], s[1], d[1]))
+    return {nm: VarInfo(out, x.dtype) for nm in
+            _outs(op, "Output") or _outs(op)}
+
+
+@infer_rule("pool2d")
+def _pool2d(op, get):
+    x = get(_first(op, "X"))
+    if x.shape is None or len(x.shape) != 4:
+        return None
+    if op.attrs.get("global_pooling", False):
+        out = (x.shape[0], x.shape[1], 1, 1)
+    elif op.attrs.get("adaptive", False):
+        k = op.attrs.get("ksize", [1, 1])
+        out = (x.shape[0], x.shape[1], k[0], k[1])
+    else:
+        k = list(op.attrs.get("ksize", [2, 2]))
+        s = list(op.attrs.get("strides", k))
+        p = op.attrs.get("paddings", [0, 0])
+        ceil = op.attrs.get("ceil_mode", False)
+
+        def pdim(xd, kk, pad, st):
+            if xd == UNK:
+                return UNK
+            num = xd + 2 * pad - kk
+            return (num + st - 1) // st + 1 if ceil else num // st + 1
+
+        out = (x.shape[0], x.shape[1], pdim(x.shape[2], k[0], p[0], s[0]),
+               pdim(x.shape[3], k[1], p[1], s[1]))
+    return {n: VarInfo(out, x.dtype) for n in _outs(op)}
+
+
+@infer_rule("batch_norm")
+def _batch_norm(op, get):
+    x = get(_first(op, "X"))
+    c = get(_first(op, "Scale"))
+    out = {n: VarInfo(x.shape, x.dtype) for n in _outs(op, "Y")}
+    for slot in ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        for n in _outs(op, slot):
+            out[n] = VarInfo(c.shape, "float32")
+    return out
+
+
+@infer_rule("layer_norm")
+def _layer_norm(op, get):
+    x = get(_first(op, "X"))
+    out = {n: VarInfo(x.shape, x.dtype) for n in _outs(op, "Y")}
+    if x.shape is not None:
+        ax = op.attrs.get("begin_norm_axis", 1)
+        stat = x.shape[:ax]
+        for slot in ("Mean", "Variance"):
+            for n in _outs(op, slot):
+                out[n] = VarInfo(stat, "float32")
+    return out
+
+
+@infer_rule("dropout")
+def _dropout(op, get):
+    x = get(_first(op, "X"))
+    out = {n: VarInfo(x.shape, x.dtype) for n in _outs(op)}
+    for n in _outs(op, "Mask"):
+        out[n] = VarInfo(x.shape, x.dtype)
+    return out
+
+
+@infer_rule("mean")
+def _mean(op, get):
+    x = get(_first(op, "X"))
+    return {n: VarInfo((), x.dtype) for n in _outs(op)}
+
+
+@infer_rule("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+            "reduce_prod", "frobenius_norm")
+def _reduce(op, get):
+    x = get(_first(op, "X"))
+    if x.shape is None:
+        return None
+    dims = op.attrs.get("dim", [0])
+    if isinstance(dims, int):
+        dims = [dims]
+    keep = op.attrs.get("keep_dim", False)
+    if op.attrs.get("reduce_all", False) or dims is None:
+        out = tuple([1] * len(x.shape)) if keep else ()
+    else:
+        axes = set(d % len(x.shape) for d in dims)
+        if keep:
+            out = tuple(1 if i in axes else d
+                        for i, d in enumerate(x.shape))
+        else:
+            out = tuple(d for i, d in enumerate(x.shape)
+                        if i not in axes)
+    return {n: VarInfo(out, x.dtype) for n in _outs(op)}
+
+
+@infer_rule("sum")
+def _sum(op, get):
+    # shape/dtype of the first input with a known shape
+    for nm in op.inputs.get("X", []):
+        info = get(nm)
+        if info.shape is not None:
+            return {n: VarInfo(info.shape, info.dtype)
+                    for n in _outs(op)}
+    return None
+
+
+@infer_rule("reshape", "reshape2")
+def _reshape(op, get):
+    x = get(_first(op, "X"))
+    tgt = list(op.attrs.get("shape", []))
+    if not tgt:
+        return None
+    xs = x.shape
+    out = []
+    for i, s in enumerate(tgt):
+        if s == 0:
+            out.append(xs[i] if xs is not None and i < len(xs) else UNK)
+        else:
+            out.append(int(s))
+    if -1 in out:
+        i = out.index(-1)
+        if xs is not None and UNK not in xs:
+            total = _dim_mul(*xs)
+            rest = _dim_mul(*[d for j, d in enumerate(out) if j != i])
+            out[i] = total // rest if rest not in (0, UNK) else UNK
+        else:
+            out[i] = UNK
+    res = {n: VarInfo(tuple(out), x.dtype) for n in _outs(op)}
+    for n in _outs(op, "XShape"):
+        if xs is not None:
+            res[n] = VarInfo((0,) + tuple(xs), x.dtype)
+    return res
+
+
+@infer_rule("flatten", "flatten2")
+def _flatten(op, get):
+    x = get(_first(op, "X"))
+    if x.shape is None:
+        return None
+    ax = op.attrs.get("axis", 1)
+    out = (_dim_mul(*x.shape[:ax]), _dim_mul(*x.shape[ax:]))
+    res = {n: VarInfo(out, x.dtype) for n in _outs(op)}
+    for n in _outs(op, "XShape"):
+        res[n] = VarInfo((0,) + x.shape, x.dtype)
+    return res
+
+
+@infer_rule("concat")
+def _concat(op, get):
+    infos = [get(n) for n in op.inputs.get("X", [])]
+    if not infos or any(i.shape is None for i in infos):
+        return None
+    ax = op.attrs.get("axis", 0)
+    rank = len(infos[0].shape)
+    if any(len(i.shape) != rank for i in infos):
+        return None
+    ax %= rank
+    cat = 0
+    for i in infos:
+        if i.shape[ax] == UNK:
+            cat = UNK
+            break
+        cat += i.shape[ax]
+    out = tuple(cat if j == ax else infos[0].shape[j]
+                for j in range(rank))
+    return {n: VarInfo(out, infos[0].dtype) for n in _outs(op)}
+
+
+@infer_rule("split")
+def _split(op, get):
+    x = get(_first(op, "X"))
+    outs = _outs(op)
+    if x.shape is None or not outs:
+        return None
+    ax = op.attrs.get("axis", 0) % len(x.shape)
+    sections = op.attrs.get("sections") or []
+    res = {}
+    for i, n in enumerate(outs):
+        if sections:
+            d = sections[i] if i < len(sections) else UNK
+        elif x.shape[ax] == UNK:
+            d = UNK
+        else:
+            d = x.shape[ax] // len(outs)
+        res[n] = VarInfo(tuple(d if j == ax else s
+                               for j, s in enumerate(x.shape)), x.dtype)
+    return res
+
+
+@infer_rule("transpose", "transpose2")
+def _transpose(op, get):
+    x = get(_first(op, "X"))
+    perm = op.attrs.get("axis")
+    if x.shape is None or not perm:
+        return None
+    out = tuple(x.shape[p] for p in perm)
+    res = {n: VarInfo(out, x.dtype) for n in _outs(op)}
+    for n in _outs(op, "XShape"):
+        res[n] = VarInfo((0,) + x.shape, x.dtype)
+    return res
+
+
+@infer_rule("stack")
+def _stack(op, get):
+    infos = [get(n) for n in op.inputs.get("X", [])]
+    if not infos or infos[0].shape is None:
+        return None
+    ax = op.attrs.get("axis", 0)
+    base = list(infos[0].shape)
+    ax = ax if ax >= 0 else ax + len(base) + 1
+    out = tuple(base[:ax] + [len(infos)] + base[ax:])
+    return {n: VarInfo(out, infos[0].dtype) for n in
+            _outs(op, "Y") or _outs(op)}
+
+
+@infer_rule("unsqueeze", "unsqueeze2")
+def _unsqueeze(op, get):
+    x = get(_first(op, "X"))
+    axes = op.attrs.get("axes", [])
+    if x.shape is None:
+        return None
+    out = list(x.shape)
+    for a in sorted(axes):
+        a = a if a >= 0 else a + len(out) + 1
+        out.insert(a, 1)
+    return {n: VarInfo(tuple(out), x.dtype) for n in _outs(op)}
+
+
+@infer_rule("squeeze", "squeeze2")
+def _squeeze(op, get):
+    x = get(_first(op, "X"))
+    if x.shape is None:
+        return None
+    axes = op.attrs.get("axes", [])
+    if axes:
+        drop = set(a % len(x.shape) for a in axes)
+        out = tuple(d for i, d in enumerate(x.shape) if i not in drop)
+    else:
+        out = tuple(d for d in x.shape if d != 1)
+    return {n: VarInfo(out, x.dtype) for n in _outs(op)}
+
+
+@infer_rule("expand")
+def _expand(op, get):
+    x = get(_first(op, "X"))
+    times = op.attrs.get("expand_times", [])
+    if x.shape is None or len(times) != len(x.shape):
+        return None
+    out = tuple(_dim_mul(d, t) for d, t in zip(x.shape, times))
+    return {n: VarInfo(out, x.dtype) for n in _outs(op)}
+
+
+@infer_rule("fill_constant", "uniform_random", "gaussian_random",
+            "truncated_gaussian_random")
+def _filled(op, get):
+    shape = op.attrs.get("shape")
+    dt = op.attrs.get("dtype", "float32")
+    if isinstance(dt, int):           # VarType enum leak: treat unknown
+        dt = None
+    else:
+        dt = framework.convert_dtype(dt)
+    return {n: VarInfo(_norm_shape(shape), dt) for n in _outs(op)}
+
+
+@infer_rule("assign_value")
+def _assign_value(op, get):
+    # kernel: np.array(attrs["values"], dtype).reshape(attrs["shape"])
+    # — shape and dtype are both attrs, same lattice value as
+    # fill_constant.  (Found by the memplan estimator sweep: this was
+    # the one zoo op inferring ⊤, leaving its output priced off the
+    # declaration alone.)
+    shape = op.attrs.get("shape")
+    dt = op.attrs.get("dtype", "float32")
+    dt = None if isinstance(dt, int) else framework.convert_dtype(dt)
+    return {n: VarInfo(_norm_shape(shape), dt) for n in _outs(op)}
+
+
+@infer_rule("fill_any_like", "fill_zeros_like")
+def _fill_like(op, get):
+    x = get(_first(op, "X"))
+    dt = op.attrs.get("dtype", -1)
+    dtype = x.dtype if (dt in (-1, None) or isinstance(dt, int)) \
+        else framework.convert_dtype(dt)
+    return {n: VarInfo(x.shape, dtype) for n in _outs(op)}
+
+
+@infer_rule("fill_constant_batch_size_like",
+            "uniform_random_batch_size_like",
+            "gaussian_random_batch_size_like")
+def _fill_bsl(op, get):
+    x = get(_first(op, "Input"))
+    shape = list(op.attrs.get("shape", []))
+    if not shape:
+        return None
+    in_idx = op.attrs.get("input_dim_idx", 0)
+    out_idx = op.attrs.get("output_dim_idx", 0)
+    if x.shape is not None and in_idx < len(x.shape) and \
+            out_idx < len(shape):
+        shape[out_idx] = x.shape[in_idx]
+    dt = op.attrs.get("dtype", "float32")
+    dt = None if isinstance(dt, int) else framework.convert_dtype(dt)
+    return {n: VarInfo(_norm_shape(shape), dt) for n in _outs(op)}
+
+
+@infer_rule("lookup_table", "lookup_table_v2", "lookup_sparse_table")
+def _lookup(op, get):
+    w = get(_first(op, "W"))
+    ids = get(_first(op, "Ids"))
+    if w.shape is None or ids.shape is None or len(w.shape) != 2:
+        return None
+    base = ids.shape[:-1] if (op.type != "lookup_table_v2" and
+                              ids.shape and ids.shape[-1] == 1) \
+        else ids.shape
+    return {n: VarInfo(tuple(base) + (w.shape[1],), w.dtype)
+            for n in _outs(op)}
+
+
+@infer_rule("sharded_lookup_table")
+def _sharded_lookup(op, get):
+    """Engine lookup (paddle_tpu.sparse): the table var is GONE from
+    the program — geometry comes from the op's declaration attrs."""
+    ids = get(_first(op, "Ids"))
+    dim = op.attrs.get("table_dim")
+    if ids.shape is None or dim is None:
+        return None
+    base = ids.shape[:-1] if (op.attrs.get("squeeze", True) and
+                              ids.shape and ids.shape[-1] == 1) \
+        else ids.shape
+    return {n: VarInfo(tuple(base) + (int(dim),),
+                       op.attrs.get("dtype", "float32"))
+            for n in _outs(op)}
+
+
+@infer_rule("sharded_push_grad")
+def _sharded_push(op, get):
+    """Per-shard scatter-update push: output-free host op (the update
+    applies on the owning shard) — nothing to infer, but registering
+    the rule keeps rewritten CTR programs off the unknown-ops report."""
+    return {}
+
+
+@infer_rule("one_hot")
+def _one_hot(op, get):
+    x = get(_first(op, "X"))
+    if x.shape is None:
+        return None
+    depth = op.attrs.get("depth")
+    base = x.shape[:-1] if x.shape and x.shape[-1] == 1 else x.shape
+    return {n: VarInfo(tuple(base) + (int(depth),), "float32")
+            for n in _outs(op)}
+
+
+@infer_rule("cross_entropy", "softmax_with_cross_entropy",
+            "sigmoid_cross_entropy_with_logits")
+def _xent(op, get):
+    x = get(_first(op, "X") or _first(op, "Logits"))
+    out = {}
+    if x.shape is not None:
+        if op.type == "sigmoid_cross_entropy_with_logits":
+            loss_shape = x.shape
+        else:
+            loss_shape = tuple(x.shape[:-1]) + (1,)
+        for n in _outs(op, "Y") or _outs(op, "Loss") or _outs(op):
+            out[n] = VarInfo(loss_shape, x.dtype)
+        for n in _outs(op, "Softmax"):
+            out[n] = VarInfo(x.shape, x.dtype)
+    return out
+
+
+@infer_rule("square_error_cost")
+def _sec(op, get):
+    x = get(_first(op, "X"))
+    return {n: VarInfo(x.shape, x.dtype) for n in _outs(op)}
+
+
+@infer_rule("top_k")
+def _top_k(op, get):
+    x = get(_first(op, "X"))
+    if x.shape is None:
+        return None
+    k = int(op.attrs.get("k", 1))
+    out = tuple(x.shape[:-1]) + (k,)
+    res = {n: VarInfo(out, x.dtype) for n in _outs(op)}
+    for n in _outs(op, "Indices"):
+        # dtype deliberately unknown: the kernel emits int32, fluid
+        # declarations say int64, and both work (the executor feeds the
+        # runtime value) — contradicting either would be a false alarm
+        res[n] = VarInfo(out, None)
+    return res
+
+
+@infer_rule("sampling_decode")
+def _sampling_decode(op, get):
+    x = get(_first(op, "Logits"))
+    if x.shape is None:
+        return None
+    toks = tuple(x.shape[:-1])           # one token per logits row
+    res = {}
+    for n in _outs(op):
+        # token dtype deliberately unknown — the kernel emits int32 and
+        # declarations commonly say int64 (the top_k precedent above)
+        res[n] = VarInfo(toks, None)
+    for n in _outs(op, "Probs"):
+        # warped per-row distribution the draw came from (float32
+        # regardless of the logits dtype — the kernel renormalizes in
+        # f32 for the cumsum)
+        res[n] = VarInfo(x.shape, "float32")
+    return res
+
+
+@infer_rule("arg_max", "arg_min")
+def _arg(op, get):
+    x = get(_first(op, "X"))
+    if x.shape is None:
+        return None
+    ax = op.attrs.get("axis", -1) % len(x.shape)
+    out = tuple(d for i, d in enumerate(x.shape) if i != ax)
+    return {n: VarInfo(out, "int64") for n in _outs(op)}
+
+
+@infer_rule("accuracy")
+def _accuracy(op, get):
+    out = {}
+    for n in _outs(op, "Accuracy") or _outs(op):
+        out[n] = VarInfo((), "float32")
+    for n in _outs(op, "Correct"):
+        out[n] = VarInfo((1,), "int32")
+    for n in _outs(op, "Total"):
+        out[n] = VarInfo((1,), "int32")
+    return out
+
+
+@infer_rule("gather")
+def _gather(op, get):
+    x = get(_first(op, "X"))
+    idx = get(_first(op, "Index"))
+    if x.shape is None or idx.shape is None:
+        return None
+    out = tuple(idx.shape[:1]) + tuple(x.shape[1:])
+    return {n: VarInfo(out, x.dtype) for n in _outs(op)}
+
+
+@infer_rule("fused_attention")
+def _fused_attention(op, get):
+    q = get(_first(op, "Q"))
+    return {n: VarInfo(q.shape, q.dtype) for n in _outs(op)}
+
+
+@infer_rule("slice")
+def _slice(op, get):
+    x = get(_first(op, "Input"))
+    if x.shape is None:
+        return None
+    out = list(x.shape)
+    for a, s, e in zip(op.attrs.get("axes", []),
+                       op.attrs.get("starts", []),
+                       op.attrs.get("ends", [])):
+        d = out[a]
+        if d == UNK:
+            continue
+        s = max(s + d, 0) if s < 0 else min(s, d)
+        e = max(e + d, 0) if e < 0 else min(e, d)
+        out[a] = max(e - s, 0)
+    return {n: VarInfo(tuple(out), x.dtype) for n in _outs(op)}
+
+
+@infer_rule("shape")
+def _shape(op, get):
+    x = get(_first(op, "X") or _first(op, "Input"))
+    rank = None if x.shape is None else len(x.shape)
+    return {n: VarInfo((rank,) if rank is not None else None, "int32")
+            for n in _outs(op)}
+
+
+@infer_rule("increment")
+def _increment(op, get):
+    x = get(_first(op, "X"))
+    return {n: VarInfo(x.shape, x.dtype) for n in _outs(op)}
+
+
+# optimizer updates: <Slot>Out mirrors <Slot>
+_OPT_SLOTS = {
+    "sgd": [("Param", "ParamOut")],
+    "momentum": [("Param", "ParamOut"), ("Velocity", "VelocityOut")],
+    "adam": [("Param", "ParamOut"), ("Moment1", "Moment1Out"),
+             ("Moment2", "Moment2Out"),
+             ("Beta1Pow", "Beta1PowOut"), ("Beta2Pow", "Beta2PowOut")],
+    "adagrad": [("Param", "ParamOut"), ("Moment", "MomentOut")],
+    "rmsprop": [("Param", "ParamOut"), ("MeanSquare", "MeanSquareOut"),
+                ("Moment", "MomentOut")],
+    "adamax": [("Param", "ParamOut"), ("Moment", "MomentOut"),
+               ("InfNorm", "InfNormOut")],
+    "adadelta": [("Param", "ParamOut"), ("AvgSquaredGrad",
+                                         "AvgSquaredGradOut"),
+                 ("AvgSquaredUpdate", "AvgSquaredUpdateOut")],
+    "decayed_adagrad": [("Param", "ParamOut"), ("Moment", "MomentOut")],
+    "ftrl": [("Param", "ParamOut"), ("SquaredAccumulator",
+                                     "SquaredAccumOut"),
+             ("LinearAccumulator", "LinearAccumOut")],
+    "lars_momentum": [("Param", "ParamOut"),
+                      ("Velocity", "VelocityOut")],
+}
+
+
+def _opt_rule(slots):
+    def fn(op, get):
+        out = {}
+        for in_slot, out_slot in slots:
+            src = _first(op, in_slot)
+            if src is None:
+                continue
+            info = get(src)
+            for n in _outs(op, out_slot):
+                out[n] = VarInfo(info.shape, info.dtype)
+        return out
+    return fn
+
+
+for _t, _slots in _OPT_SLOTS.items():
+    infer_rule(_t)(_opt_rule(_slots))
+
+
+def _grad_rule(op, get):
+    """generic_grad / <fw>_grad: grad outputs mirror the forward inputs
+    they differentiate — attrs carry needs_input_grad as (slot, i)
+    pairs, appended to '<slot>@GRAD' output slots in order
+    (core/backward.py)."""
+    needs = op.attrs.get("needs_input_grad")
+    if needs is None:
+        return None
+    per_slot = collections.defaultdict(list)
+    for slot, i in needs:
+        per_slot[slot].append(i)
+    out = {}
+    for slot, idxs in per_slot.items():
+        gnames = op.outputs.get(f"{slot}@GRAD", [])
+        fw_names = op.inputs.get(slot, [])
+        for gname, i in zip(gnames, idxs):
+            if i < len(fw_names):
+                info = get(fw_names[i])
+                out[gname] = VarInfo(info.shape, info.dtype)
+    return out
+
+
+class ShapeResult:
+    """Outcome of one inference run.
+
+    - ``info``: name -> VarInfo (inferred, merged with declarations)
+    - ``unknown_ops``: ops with no inference rule (⊤ outputs) — the
+      REPORT side of "infer ⊤ and report, never crash"
+    - ``mismatches``: definite conflicts between a declaration and the
+      inferred value, or between two inferred writes
+    """
+
+    def __init__(self):
+        self.info = {}
+        self.unknown_ops = []
+        self.mismatches = []
+
+    def get(self, name):
+        return self.info.get(name) or VarInfo(None, None)
+
+    def shape_of(self, name):
+        return self.get(name).shape
+
+    def dtype_of(self, name):
+        return self.get(name).dtype
+
+
+def _declared_info(var):
+    return VarInfo(var.shape, var.dtype)
+
+
+def infer(program, feeds=None, check_declarations=True):
+    """Run static shape/dtype inference over `program`.
+
+    ``feeds``: optional {name: (shape, dtype)} runtime-concrete
+    overrides (e.g. the actual batch shapes at a compile seam) — these
+    refine the declared -1 dims.  Pure query: the program is not
+    touched.
+    """
+    res = ShapeResult()
+
+    def seed(block):
+        for name, v in block.vars.items():
+            if name in res.info:
+                continue
+            if v.persistable or v.is_data:
+                res.info[name] = _declared_info(v)
+
+    for blk in program.blocks:
+        seed(blk)
+    for name, (shape, dtype) in (feeds or {}).items():
+        dt = framework.convert_dtype(dtype) if dtype is not None else None
+        declared = res.info.get(name)
+        if declared is not None and check_declarations and \
+                not compatible_shapes(declared.shape, shape):
+            res.mismatches.append(Mismatch(
+                "feed-shape", name, 0, None, declared.shape,
+                _norm_shape(shape)))
+        res.info[name] = VarInfo(shape, dt)
+
+    def get(name):
+        if name is None:
+            return VarInfo(None, None)
+        return res.get(name)
+
+    def record(name, info, block, op_idx):
+        declared = None
+        v = block._find_var_recursive(name)
+        if v is not None:
+            declared = _declared_info(v)
+        if declared is not None and check_declarations:
+            if not compatible_shapes(declared.shape, info.shape):
+                res.mismatches.append(Mismatch(
+                    "shape", name, block.idx, op_idx, declared.shape,
+                    info.shape))
+            elif declared.dtype is not None and info.dtype is not None \
+                    and declared.dtype != info.dtype:
+                res.mismatches.append(Mismatch(
+                    "dtype", name, block.idx, op_idx, declared.dtype,
+                    info.dtype))
+        merged = VarInfo(None, None)
+        merged.shape = merge_shapes(
+            info.shape, declared.shape if declared else None)
+        merged.dtype = info.dtype or (declared.dtype if declared
+                                      else None)
+        res.info[name] = merged
+
+    def run_block(block):
+        for i, op in enumerate(block.ops):
+            if op.type in ("feed", "fetch"):
+                continue
+            if op.type in ("while", "conditional_block"):
+                sub = op.attrs.get("sub_block")
+                if isinstance(sub, framework.Block):
+                    run_block(sub)
+                continue
+            rule = INFER.get(op.type)
+            if rule is None and (op.type.endswith("_grad") or
+                                 op.type == "generic_grad"):
+                rule = _grad_rule
+            if rule is None:
+                res.unknown_ops.append(UnknownOp(block.idx, i, op.type))
+                continue
+            try:
+                out = rule(op, get) or {}
+            except Exception:      # noqa: BLE001 — report ⊤, never crash
+                res.unknown_ops.append(UnknownOp(block.idx, i, op.type))
+                continue
+            for name, info in out.items():
+                record(name, info, block, i)
+
+    run_block(program.global_block())
+    # sub-blocks of self-contained ops (dynamic_rnn/gpipe) are loop-
+    # locals — deliberately not walked; control-flow bodies were walked
+    # in-line above.
+    return res

@@ -32,6 +32,17 @@ _DEFAULTS = {
     # capped at trace_max_spans spans
     "trace_max_traces": 64,
     "trace_max_spans": 512,
+    # static program verification (analysis/verifier.py) at the
+    # Predictor seam, once per program version: "warn" prints findings
+    # to stderr, "strict" raises on error findings, "off" skips
+    "validate_program": "warn",
+    # IR pass pipeline (passes/) run at the Predictor seam: comma list of
+    # presets/pass names with -pass opt-outs ("default,-cse"), or
+    # "off"/"none"; unknown tokens raise at the seam
+    "pass_pipeline": "default",
+    # quantized-inference weight dtype (passes/quantize.py): "int8" only;
+    # "fp8" raises until it is ported
+    "quant_dtype": "int8",
 }
 
 _overrides = {}

@@ -6,11 +6,19 @@ Reference: ``paddle/fluid/inference/api/paddle_api.h:186``
 ``create_paddle_predictor(AnalysisConfig)``.
 
 The predictor loads an inference model dir (``io.load_inference_model``)
-into its own Scope and runs it with the port's Executor in inference mode.
-``AnalysisConfig`` runs on the GPU unless ``disable_gpu()`` is called;
-with no CUDA device it raises rather than run on the CPU.  Not ported
-yet: the verifier and pass-pipeline seams, AOT ``export_serialized``,
-``ZeroCopyTensor``, ``enable_bf16`` and ``enable_quantize``.
+into its own Scope, runs the static verifier (``FLAGS_validate_program``)
+and the IR pass pipeline (``FLAGS_pass_pipeline``) over the loaded
+program in the reference's order, and runs the result with the port's
+Executor in inference mode.  With ``enable_quantize()`` the pipeline's
+``quantize_weights`` pass annotates the program's matmuls and the
+predictor converts their weights to int8 with per-channel scales once, at
+load; the annotated ops run the int8 kernel K6
+(``ops/quant_kernels.py``).  ``AnalysisConfig`` runs on the GPU unless
+``disable_gpu()`` is called; with no CUDA device it raises rather than
+run on the CPU.  Not ported yet: AOT ``export_serialized``,
+``ZeroCopyTensor``, ``enable_bf16``, and the quantize-at-swap of a warm
+reload (``passes.quantize.quantize_values`` exists; the engine has no
+warm reload to call it).
 """
 
 import numpy as np
@@ -61,8 +69,12 @@ class AnalysisConfig:
             "enable_bf16 is not ported to the PyTorch package yet")
 
     def enable_quantize(self):
-        raise NotImplementedError(
-            "enable_quantize is not ported to the PyTorch package yet")
+        """Serve the loaded program with per-channel int8 weights
+        (``passes.quantize``): the pass pipeline annotates matmul-class
+        ops and the Predictor quantizes the scope weights ONCE at load.
+        Requires the pass pipeline (no effect under
+        FLAGS_pass_pipeline=off)."""
+        self._quant = True
 
 
 class PaddleTensor:
@@ -92,9 +104,29 @@ class Predictor:
                 config.model_dir, self._exe,
                 model_filename=config.prog_file,
                 params_filename=config.params_file)
-        self._program = program
         self._feed_names = list(feed_names)
         self._fetch_names = [v.name for v in fetch_vars]
+        if getattr(config, "_quant", False):
+            program._quant = True
+            program._version += 1
+        # FLAGS_validate_program seam: a deserialized program never went
+        # through the layer functions' checks, so desc corruption surfaces
+        # here as located findings
+        from .analysis.verifier import validate_at_seam
+        validate_at_seam(program, feed_names=sorted(self._feed_names),
+                         fetch_names=self._fetch_names, where="Predictor")
+        # FLAGS_pass_pipeline seam (cse, dce, ..., quantize_weights)
+        from .passes import apply_at_seam
+        program = apply_at_seam(program,
+                                feed_names=sorted(self._feed_names),
+                                fetch_names=self._fetch_names,
+                                where="Predictor")
+        self._program = program
+        if getattr(program, "_quant", False):
+            # quantize-at-load: the fp32 weights the pass annotated become
+            # int8 + per-channel scales on the executor's device, once
+            from .passes import quantize as quantize_mod
+            quantize_mod.apply_to_scope(program, self._scope)
 
     def get_input_names(self):
         return list(self._feed_names)

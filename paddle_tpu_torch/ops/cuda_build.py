@@ -22,7 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "quant_matmul")
 
 _LIBS = {}
 _LOCK = threading.Lock()

@@ -36,6 +36,17 @@ _KERNELS = {}
 _CUSTOM_GRADS = {}
 _NOT_DIFFERENTIABLE = set()
 
+# The JAX package's bf16 AMP lists (paddle_tpu/ops/registry.py:82-97), as
+# data: the passes (amp_propagate, the verifier's amp-dtype-mix rule) read
+# them.  The AMP cast wrap around kernel dispatch is not ported yet.
+_AMP_WHITE = {"conv2d", "depthwise_conv2d", "conv2d_transpose", "mul",
+              "matmul"}
+_AMP_BLACK = {"softmax", "cross_entropy",
+              "sigmoid_cross_entropy_with_logits", "mean", "reduce_mean",
+              "reduce_sum", "sum", "exp", "log", "square", "cos_sim",
+              "sqrt", "rsqrt", "pow"}
+_AMP_EXEMPT = {"batch_norm", "layer_norm", "softmax_with_cross_entropy"}
+
 
 class ExecContext:
     """State of the run in progress on this thread.  `masks`, when given,
@@ -192,11 +203,21 @@ def register_grad(op_type):
     return deco
 
 
-def get_kernel(op_type):
+def get_kernel(op_type, attrs=None):
+    """The kernel of `op_type`.  An op the quantize pass annotated
+    (``__quant__`` in `attrs`, passes/quantize.py) runs the quantized
+    matmul over its int8 weight and Scale operand instead
+    (``ops/quant_kernels.make_quant_kernel``).  Other annotations
+    (``__isolate__``, ``__amp__``) change nothing here."""
     if op_type not in _KERNELS:
         raise NotImplementedError(
             f"No kernel registered for op {op_type!r} in the PyTorch port. "
             f"Known: {sorted(_KERNELS)}")
+    quant = attrs.get("__quant__") if isinstance(attrs, dict) else None
+    if quant is not None:
+        from . import quant_kernels
+
+        return quant_kernels.make_quant_kernel(op_type, quant)
     return _KERNELS[op_type]
 
 
@@ -248,7 +269,7 @@ def generic_grad_kernel(ins, attrs):
     for (slot, idx), p in zip(needs, primals):
         fw_ins[slot][idx] = p
     with torch.enable_grad():
-        outs = get_kernel(fw_type)(fw_ins, fw_attrs)
+        outs = get_kernel(fw_type, fw_attrs)(fw_ins, fw_attrs)
 
     # Out-grads for slot s are packed into input slot "s@GRAD_OUT" in the
     # order their (slot, idx) entries appear in has_out_grad.  Outputs
@@ -290,7 +311,7 @@ def run_op(op_type, ins, attrs):
         return generic_grad_kernel(ins, attrs)
     if op_type.endswith("_grad") and op_type[:-5] in _CUSTOM_GRADS:
         return _CUSTOM_GRADS[op_type[:-5]](ins, attrs)
-    return get_kernel(op_type)(ins, attrs)
+    return get_kernel(op_type, attrs)(ins, attrs)
 
 
 _TORCH_DTYPES = {

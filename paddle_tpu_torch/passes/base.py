@@ -1,0 +1,285 @@
+"""Pass infrastructure: registry, context, and the transform contract.
+
+The transform half of the reference's ``BuildStrategy``/``ir::Pass``
+layer (PAPER.md §L4), built ON TOP of the pure queries in
+``paddle_tpu.analysis`` — a pass READS the dataflow/shape analyses and
+WRITES a new program; the analyses themselves never mutate anything.
+
+The contract every pass must honor (MLIR's per-pass discipline,
+arXiv:2002.11054; TASO's verified-substitution stance, SOSP'19):
+
+* **Pure function** ``Program -> Program``: the input program is never
+  mutated.  A pass that changes anything returns a fresh clone; a pass
+  with nothing to do returns the INPUT OBJECT itself.  That identity
+  fast path is load-bearing for the jitcache: a semantically-unchanged
+  program keeps its object, its ``_jitcache_fp`` memo, and therefore a
+  byte-identical hint fingerprint — warm starts built before the
+  pipeline existed still hit.
+* **Deterministic**: same input program + same context -> structurally
+  identical output (the post-pipeline hint fingerprint is the jitcache
+  key, so nondeterminism here is a recompile storm).
+* **Verifier-gated**: the PassManager runs the static verifier after
+  every pass that changed the program and raises
+  :class:`PassVerificationError` on any NEW error-severity finding —
+  a pass may not trade one bug for another.
+* **Name-preserving for externally observed state**: feeds, fetches,
+  persistables, and ``is_data`` vars keep their names and declarations
+  (scopes, checkpoints, and serving handles address state by name).
+"""
+
+import collections
+
+from ..core import framework
+
+# ---------------------------------------------------------------------------
+# Op classification shared by the passes.
+# ---------------------------------------------------------------------------
+
+# Ops whose kernels consume the trace RNG stream (TRACE_CTX.next_rng_key
+# bumps a per-trace counter): removing or merging one would SHIFT the
+# keys of every later random op in the trace and change draws vs the
+# pipeline-off program — so they are neither removable nor CSE-able,
+# even when dead.  (Their dead OUTPUT SLOTS are still droppable: the
+# kernel runs identically either way.)
+RNG_OPS = frozenset({
+    "dropout", "uniform_random", "gaussian_random",
+    "truncated_gaussian_random", "uniform_random_batch_size_like",
+    "gaussian_random_batch_size_like", "sampling_id", "random_crop",
+})
+
+# Optimizer in-place update ops (ops/optimizer_ops.py) — the fusion-
+# boundary pass sinks these below the forward/backward region, and DCE
+# must never touch them (they write persistable state anyway).
+OPTIMIZER_OPS = frozenset({
+    "sgd", "momentum", "adam", "adagrad", "rmsprop", "adamax",
+    "adadelta", "decayed_adagrad", "ftrl", "lars_momentum",
+})
+
+# Side-effect-free, RNG-free, state-free op types: safe to REMOVE when
+# every output is dead, and (minus the few value-sensitive exclusions
+# in cse.py) safe to MERGE when two instances read identical values.
+# Deliberately a whitelist — an op type the pipeline has never seen is
+# assumed effectful.
+_UNARY_PURE = (
+    "relu", "sigmoid", "tanh", "exp", "log", "sqrt", "rsqrt", "square",
+    "abs", "floor", "ceil", "cos", "sin", "softsign", "softplus",
+    "leaky_relu", "relu6", "elu", "selu", "brelu", "soft_relu", "swish",
+    "stanh", "hard_sigmoid", "prelu", "scale", "clip", "sign", "gelu",
+    "softmax", "log_softmax", "label_smooth", "pow", "l2_normalize",
+    "assign", "lrn",
+)
+_ELEMENTWISE_PURE = (
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_pow", "elementwise_max",
+    "elementwise_min", "elementwise_mod", "elementwise_floordiv",
+)
+PURE_OPS = frozenset(_UNARY_PURE) | frozenset(_ELEMENTWISE_PURE) | {
+    "cast", "mul", "matmul", "concat", "split", "stack",
+    "reshape", "reshape2", "transpose", "transpose2",
+    "flatten", "flatten2", "squeeze", "squeeze2",
+    "unsqueeze", "unsqueeze2", "expand", "slice", "gather",
+    "one_hot", "lookup_table", "lookup_table_v2",
+    "top_k", "arg_max", "arg_min", "shape", "increment",
+    "fill_constant", "fill_zeros_like", "fill_any_like",
+    "fill_constant_batch_size_like",
+    "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+    "reduce_prod", "frobenius_norm", "sum", "mean",
+    "square_error_cost", "cross_entropy", "softmax_with_cross_entropy",
+    "sigmoid_cross_entropy_with_logits", "accuracy",
+    "pad_constant_like", "sequence_softmax",
+}
+
+# Dead output SLOTS that are provably write-only side channels: the
+# kernel materializes them unconditionally, nothing in this repo reads
+# them unless an op names them as input (which the liveness check sees),
+# and dropping the slot only skips the env write — the kernel invocation
+# (and its RNG consumption) is untouched.
+DROPPABLE_SLOTS = frozenset({
+    ("reshape2", "XShape"), ("transpose2", "XShape"),
+    ("flatten2", "XShape"), ("squeeze2", "XShape"),
+    ("unsqueeze2", "XShape"),
+    ("dropout", "Mask"),
+    ("batch_norm", "SavedMean"), ("batch_norm", "SavedVariance"),
+})
+
+
+def has_sub_blocks(op):
+    return any(isinstance(v, framework.Block) for v in op.attrs.values())
+
+
+def is_grad_op(op):
+    return op.type == "generic_grad" or op.type.endswith("_grad")
+
+
+def grad_fw_type(op):
+    """Forward op type a grad op differentiates (None if unknowable)."""
+    if op.type == "generic_grad":
+        return op.attrs.get("fw_type")
+    if op.type.endswith("_grad"):
+        return op.type[:-5]
+    return None
+
+
+# Ops the JAX package runs on the host around the traced step
+# (``paddle_tpu/distributed/host_ops.py``): RPC, barriers, print, the
+# sharded embedding engine.  None is ported yet; DCE never deletes one.
+HOST_OP_TYPES = frozenset({
+    "send", "recv", "send_barrier", "fetch_barrier", "listen_and_serv",
+    "print", "checkpoint_notify", "distributed_lookup_table",
+    "send_sparse_grad", "sharded_lookup_table", "sharded_push_grad"})
+
+
+def host_op_types():
+    return HOST_OP_TYPES
+
+
+def is_removable(op):
+    """Whether DCE may delete this op outright when all outputs are
+    dead.  Pure whitelist semantics; grad ops inherit from the forward
+    op they recompute (the vjp re-trace replays its RNG use)."""
+    if has_sub_blocks(op):
+        return False
+    t = op.type
+    if is_grad_op(op):
+        fw = grad_fw_type(op)
+        return fw in PURE_OPS and fw not in RNG_OPS
+    return t in PURE_OPS and t not in RNG_OPS
+
+
+# Memory-planning annotation attrs (passes/memory.py, passes/remat.py).
+# Their values NAME vars but are not live USES — __dead_after__ lists
+# the vars provably dead after the op, __reuse__ maps an output onto a
+# dead donor buffer, __remat__ tags a recompute clone with the var it
+# rematerializes — so attr_referenced_names must NOT treat them as
+# keep-alive references (scanning them would turn every planned
+# deletion into a protected name and the planning fixpoint would never
+# converge).
+DEAD_AFTER_ATTR = "__dead_after__"
+REUSE_ATTR = "__reuse__"
+REMAT_ATTR = "__remat__"
+MEMPLAN_ATTRS = frozenset({DEAD_AFTER_ATTR, REUSE_ATTR, REMAT_ATTR})
+
+
+def attr_referenced_names(program):
+    """Var names ops reference through plain-string attrs.  The
+    control-flow kernels wire their sub-block env by NAME through
+    attrs — gpipe's ``in_name``/``out_name``/``param_inner_names``/
+    ``static_names``, dynamic RNN's ``step_names``/``mem_names``/
+    ``next_names``/``out_names`` — which dataflow cannot see, so
+    DCE/CSE must treat every such string as a live use or the kernel
+    KeyErrors at trace time on the deleted/renamed var.  Non-name
+    attr strings ("SAME", dtype names, ...) are over-kept, which is
+    merely conservative.  The memory-planning annotations
+    (MEMPLAN_ATTRS) are excluded: they name vars about liveness facts,
+    not uses."""
+    names = set()
+    for blk in program.blocks:
+        for op in blk.ops:
+            for k, v in op.attrs.items():
+                if k in MEMPLAN_ATTRS:
+                    continue
+                if isinstance(v, str):
+                    names.add(v)
+                elif isinstance(v, (list, tuple)):
+                    names.update(x for x in v if isinstance(x, str))
+    return names
+
+
+def protected_names(program, extra=()):
+    """Names DCE/CSE must keep addressable: persistable state, declared
+    data vars (and their @SEQ_LEN companions, which are is_data too),
+    attr-referenced names (control-flow kernels address sub-block vars
+    by string attr), plus the caller's feeds/fetches."""
+    keep = set(extra)
+    for v in program.list_vars():
+        if getattr(v, "persistable", False) or getattr(v, "is_data",
+                                                       False):
+            keep.add(v.name)
+    keep |= attr_referenced_names(program)
+    return keep
+
+
+def op_counts(program):
+    """(total ops, total declared vars) across all blocks — the
+    coarse size observable the per-pass metrics report as deltas."""
+    ops = sum(len(b.ops) for b in program.blocks)
+    nvars = sum(len(b.vars) for b in program.blocks)
+    return ops, nvars
+
+
+# ---------------------------------------------------------------------------
+# Context & registry
+# ---------------------------------------------------------------------------
+
+class PassContext:
+    """Everything a pass may condition on besides the program itself.
+
+    mesh_axes: ``{axis_name: size}`` of the device mesh the program
+    will compile under (None/empty = single-device or data-parallel
+    seam without a model axis) — auto_shard keys off this without
+    needing a live ``jax.sharding.Mesh`` (tests and the lint CLI pass
+    plain dicts).
+
+    feed_shapes: ``{name: (shape, dtype)}`` concrete feed overrides
+    (the zoo's ``zp.feeds`` format) — the memory passes price plans
+    off the shapes lattice, and pinned batch dims turn lower-bound
+    estimates into exact ones.  Optional: passes must stay correct
+    (conservative) without it.
+    """
+
+    def __init__(self, feed_names=(), fetch_names=(), mesh=None,
+                 mesh_axes=None, where="pipeline", feed_shapes=None):
+        self.feed_names = tuple(feed_names)
+        self.fetch_names = tuple(fetch_names)
+        self.mesh = mesh
+        if mesh_axes is None and mesh is not None:
+            mesh_axes = dict(zip(mesh.axis_names,
+                                 mesh.devices.shape))
+        self.mesh_axes = dict(mesh_axes or {})
+        self.where = where
+        self.feed_shapes = dict(feed_shapes or {})
+
+    def keep_names(self, program):
+        return protected_names(
+            program, extra=set(self.feed_names) | set(self.fetch_names))
+
+    def memo_key(self):
+        key = (tuple(self.feed_names), tuple(self.fetch_names),
+               tuple(sorted(self.mesh_axes.items())))
+        if self.feed_shapes:
+            key += (tuple(sorted(
+                (n, tuple(s), str(d))
+                for n, (s, d) in self.feed_shapes.items())),)
+        return key
+
+
+class PassVerificationError(RuntimeError):
+    """A pass introduced NEW verifier errors — a bug in the pass, not
+    in the user's program, so it raises regardless of
+    FLAGS_validate_program."""
+
+    def __init__(self, message, findings=()):
+        super().__init__(message)
+        self.findings = list(findings)
+
+
+PASSES = collections.OrderedDict()      # name -> fn(program, ctx)
+
+
+def program_pass(name):
+    """Register a ``Program -> Program`` transform under `name`."""
+    def deco(fn):
+        fn.pass_name = name
+        PASSES[name] = fn
+        return fn
+    return deco
+
+
+def clone_for_rewrite(program):
+    """Clone preserving ``_version`` (Program.__deepcopy__ already
+    does) so the transformed program's caches key consistently; the
+    runtime attrs the deepcopy drops on purpose (StepGuard) are
+    re-attached by the seam (manager.apply_at_seam)."""
+    import copy
+
+    return copy.deepcopy(program)

@@ -1,0 +1,79 @@
+"""The ONE region-propagation traversal precision passes share.
+
+``amp_propagate`` and ``quantize_weights`` both
+answer the same structural questions about every op before applying
+their own lattice rules: which ops to visit (control-flow sub-blocks
+recursed, feed/fetch skipped), whether an op is a grad op and what
+forward type it differentiates, which of its inputs are forward values
+(grad operands excluded), and whether the op is *skippable* for
+precision purposes (casts, self-managing exempt ops, optimizer state,
+custom grads).  Keeping two hand-synced copies of that walk is the
+``pick_preemption_victim`` lesson — the copies diverge, and
+the divergence is a precision bug you only see on the program shape
+one pass got wrong.  So the walk lives HERE, once, and each pass
+supplies only its decision rules.
+
+Pure queries only: nothing in this module mutates a Program.
+"""
+
+import collections
+
+from ..core import framework
+from .base import OPTIMIZER_OPS, grad_fw_type, is_grad_op
+
+OpSite = collections.namedtuple(
+    "OpSite",
+    ["block", "idx", "op", "grad", "eff", "ins", "skippable"])
+# block     the owning framework.Block
+# idx       the op's index within it
+# op        the Operator
+# grad      is this a grad op (generic_grad or *_grad)
+# eff       effective FORWARD op type (grad ops resolve to the op they
+#           differentiate; None when unknowable)
+# ins       forward-value input names (grad operands stripped on grad
+#           ops — a precision rule must not track @GRAD names, their
+#           dtypes are the cotangents', not the activations')
+# skippable whether precision passes leave this op alone: casts manage
+#           their own dtype, exempt ops accumulate internally in fp32,
+#           optimizer/non-differentiable ops own fp32 state, and
+#           custom (non-generic) grad kernels manage precision
+#           themselves
+
+
+def _precision_lists():
+    from ..ops.registry import (_AMP_EXEMPT, _NOT_DIFFERENTIABLE)
+
+    return _AMP_EXEMPT, _NOT_DIFFERENTIABLE
+
+
+def walk_dataflow(program, visit):
+    """Program-order walk of every op, recursing into ``while`` /
+    ``conditional_block`` sub-blocks, calling ``visit(site: OpSite)``
+    for each.  Feed/fetch ops and the control-flow wrappers themselves
+    are not visited (their bodies are)."""
+    exempt, nondiff = _precision_lists()
+
+    def visit_block(blk):
+        for i, op in enumerate(blk.ops):
+            if op.type in ("feed", "fetch"):
+                continue
+            if op.type in ("while", "conditional_block"):
+                sub = op.attrs.get("sub_block")
+                if isinstance(sub, framework.Block):
+                    visit_block(sub)
+                continue
+            grad = is_grad_op(op)
+            eff = grad_fw_type(op) if grad else op.type
+            if grad:
+                ins = [n for n in op.input_arg_names
+                       if not framework.is_grad_var_name(n)]
+            else:
+                ins = list(op.input_arg_names)
+            skippable = (eff is None or eff == "cast" or
+                         eff in exempt or op.type in nondiff or
+                         eff in OPTIMIZER_OPS)
+            if grad and op.type != "generic_grad":
+                skippable = True     # custom grads manage precision
+            visit(OpSite(blk, i, op, grad, eff, ins, skippable))
+
+    visit_block(program.global_block())

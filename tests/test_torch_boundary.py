@@ -31,6 +31,27 @@ def test_import_leaves_jax_and_paddle_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
+# the modules of the pass pipeline and the int8 serving path, imported with
+# jax and paddle_tpu made unimportable (a None entry in sys.modules)
+NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
+               "paddle_tpu_torch.passes.quantize",
+               "paddle_tpu_torch.ops.quant_kernels",
+               "paddle_tpu_torch.inference")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_modules_import_without_jax_or_paddle_tpu(module):
+    code = ("import sys\n"
+            f"for m in {FORBIDDEN!r}: sys.modules[m] = None\n"
+            f"import importlib; importlib.import_module({module!r})\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} and sys.modules[m] is not None))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_source_imports_no_jax_or_paddle_tpu(path):
     with open(os.path.join(REPO, path)) as f:
@@ -63,9 +84,10 @@ def test_analysis_config_defaults_to_gpu():
     assert cfg.use_gpu() and isinstance(cfg.place(), fluid.CUDAPlace)
     cfg.disable_gpu()
     assert not cfg.use_gpu() and isinstance(cfg.place(), fluid.CPUPlace)
-    for knob in (cfg.enable_bf16, cfg.enable_quantize):
-        with pytest.raises(NotImplementedError):
-            knob()
+    with pytest.raises(NotImplementedError):
+        cfg.enable_bf16()
+    cfg.enable_quantize()
+    assert cfg._quant
 
 
 def test_flags_define_only_what_the_port_reads(monkeypatch):

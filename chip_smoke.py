@@ -49,7 +49,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    from a seed) for 6 steps on the card through Executor.run: finite
    losses with the last below the first, the kernels' launch counts per
    step, step time, tokens/s, peak memory, and a profile of one step.
-10. report: a "kernels" JSON line, then the result line
+10. RNN and sequence kernels vs plain: K8 (lstm_cell) at the seq2seq
+   encoder's B = 16, D = 512 and at edge shapes, K9 (gru_output) at
+   (16, 512) in both modes on the gru op's strided input and at an edge
+   shape, K7 (masked_softmax) at [16, 128], at ragged lengths with an
+   empty row and at T = 1000: outputs and the backward's grads against
+   the plain versions (atol 1e-5), kernel, plain and library times
+   (_thnn_fused_lstm_cell, _thnn_fused_gru_cell, _masked_softmax).
+11. seq2seq parity: the book's seq2seq model (bi-LSTM encoder, DynamicRNN
+   decoder) at dictionary 1000, width 128, batch 8, 3 Adam steps on the
+   card against 3 on the CPU from one state.
+12. seq2seq training: the same model at the width of Paddle's
+   machine-translation benchmark (dictionary 30000, embedding, encoder
+   and decoder 512), batch 16, lengths 10-50, Adam 1e-3, 6 steps: finite
+   falling losses, K8's launches per step, step time, target tokens/s,
+   peak memory and a profile of one step.
+13. GRU and sequence-softmax programs: embedding -> fc -> dynamic_gru(512)
+   in both modes, and fc(1) -> sequence_softmax at T = 128 and at ragged
+   lengths, 3 SGD steps on one batch on the card against the CPU, each
+   update moving the loss, with K9 and K7 launched.
+14. report: a "kernels" JSON line, then the result line
    {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
@@ -118,6 +137,25 @@ BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_heads=12,
 # BERT pretraining at seq 128: 20 masked positions per sequence
 # (max_predictions_per_seq of the published pretraining data)
 TRAIN_B, TRAIN_T, TRAIN_M, TRAIN_STEPS = 32, 128, 20, 6
+# the RNN slice: the book's seq2seq model at the width of Paddle's
+# machine-translation benchmark (benchmark/fluid/models/
+# machine_translation.py, Fluid 1.x: embedding 512, encoder and decoder
+# 512, dictionary 30000), batch 16, source and target lengths 10-50; its
+# card-vs-CPU parity at a reduced width
+S2S_FULL = dict(dict_size=30000, emb=512, hidden=512)
+S2S_PARITY = dict(dict_size=1000, emb=128, hidden=128)
+S2S_B, S2S_LENS, S2S_STEPS = 16, (10, 50), 6
+# the GRU program's loss, the mean of h·h, is ~5e-6 at its random init,
+# and so are its gradients: at SGD 0.5 its updates move it by ~7e-5
+# relative over two steps, under the parity bound; at 200 by ~1e-2.  A
+# repeated batch must move by MIN_MOVE (5x the step-3 bound) after each
+# update, so a run that skipped them could not pass the card-vs-CPU check
+GRU_LR = 200.0
+MIN_MOVE = 5 * PARITY_RTOL[3]
+# K7, K8, K9 against their plain versions on the same tensors, outputs
+# and grads: the kernels take the plain version's operations in its
+# order, with the accurate expf/tanhf
+RNN_ATOL = 1e-5
 KERNELS = {
     "fwd": {"name": "flash_attention_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -131,6 +169,15 @@ KERNELS = {
     "quant": {"name": "quant_matmul", "route": "cuda",
               "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
               "replaces": "paddle_tpu/ops/quant_kernels.py:64"},
+    "lstm": {"name": "lstm_cell", "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/rnn_cells.cu",
+             "replaces": "paddle_tpu/ops/pallas_kernels.py:1194"},
+    "gru": {"name": "gru_output", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/rnn_cells.cu",
+            "replaces": "paddle_tpu/ops/pallas_kernels.py:1267"},
+    "softmax": {"name": "masked_softmax", "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/masked_softmax.cu",
+                "replaces": "paddle_tpu/ops/pallas_kernels.py:1340"},
 }
 
 
@@ -884,28 +931,8 @@ def training_parity_phase(torch):
     feed = pretrain_feed(8, TRAIN_T, TRAIN_M, SEED)
     for dropout in (0.0, 0.1):
         main, startup, loss = pretrain_program(fluid, 2, dropout)
-        init = fluid.Scope()
-        fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
-        state = {n: t.numpy() for n, t in init.vars.items()
-                 if t is not None}
-        losses = {}
-        for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
-            scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
-                                              place=place,
-                                              main_program=main)
-            exe = fluid.Executor(place)
-            losses[type(place).__name__] = [
-                float(exe.run(main, feed=feed, fetch_list=[loss],
-                              scope=scope)[0]) for _ in range(3)]
-        card, cpu = losses["CUDAPlace"], losses["CPUPlace"]
-        rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
-        print(f"dropout {dropout}: card {card} cpu {cpu} relative "
-              f"differences {rel} (bounds {PARITY_RTOL[1]:g} at step 1, "
-              f"{PARITY_RTOL[3]:g} at step 3)", flush=True)
-        if not np.isfinite(card + cpu).all() or rel[0] > PARITY_RTOL[1] \
-                or max(rel) > PARITY_RTOL[3]:
-            raise SystemExit(f"training on the card departs from the CPU "
-                             f"at dropout {dropout}: {rel}")
+        card_vs_cpu(fluid, main, startup, loss, [feed] * 3,
+                    f"dropout {dropout}")
     torch.cuda.empty_cache()
 
 
@@ -963,6 +990,353 @@ def training_phase(torch, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the RNN slice: K7, K8, K9 and the seq2seq, GRU and sequence-softmax
+# programs
+# ---------------------------------------------------------------------------
+
+def thnn_lstm_cell(torch, gates, c_prev):
+    """The library yardstick of K8: PyTorch's fused LSTM cell on the same
+    gates reordered from (c, i, f, o) to its (i, f, g, o) order (done
+    here, outside the timed call), with zero hidden gates."""
+    gc, gi, gf, go = gates.chunk(4, dim=-1)
+    ig = torch.cat([gi, gf, gc, go], dim=-1).contiguous()
+    hg = torch.zeros_like(ig)
+    return lambda: torch.ops.aten._thnn_fused_lstm_cell(ig, hg, c_prev)
+
+
+def thnn_gru_cell(torch, gu, gc, h_prev, origin_mode):
+    """The library yardstick of K9: PyTorch's fused GRU cell, whose
+    hy = (1 - z)·tanh(n) + z·hx with z = σ(its update gate), on input
+    gates (0 | gu | gc) in its (r, z, n) order and zero hidden gates.
+    That is K9 with origin_mode; the default mode's
+    (1 - σ(gu))·h + σ(gu)·tanh(gc) follows from z = σ(-gu).  The gates
+    are assembled here, outside the timed call."""
+    z = gu if origin_mode else -gu
+    ig = torch.cat([torch.zeros_like(gc), z, gc], dim=-1).contiguous()
+    hg = torch.zeros_like(ig)
+    return lambda: torch.ops.aten._thnn_fused_gru_cell(ig, hg, h_prev)
+
+
+def torch_masked_softmax(torch, x, lens):
+    """The library yardstick of K7: torch._masked_softmax over the last
+    dim with the boolean mask of the invalid positions (mask type 2: the
+    mask has x's shape), built here, outside the timed call."""
+    invalid = torch.arange(x.shape[1], device=x.device)[None, :] \
+        >= lens[:, None]
+    return lambda: torch._masked_softmax(x, invalid, 1, 2)
+
+
+def grads_err(torch, fn, plain, inputs, cots):
+    """Max |output or grad| difference of `fn` (a kernel's wrapper, its
+    backward included) against `plain` under torch autograd, on the same
+    inputs and cotangents."""
+    res = []
+    for f in (fn, plain):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        outs = f(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        res.append(list(outs) + list(torch.autograd.grad(outs, leaves,
+                                                         cots)))
+    torch.cuda.synchronize()
+    return max((a - b).abs().max().item() for a, b in zip(*res))
+
+
+def bound_row(nbytes, flops):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def rnn_kernel_phase(torch):
+    """K8, K9 and K7 against their plain versions at the shapes of the
+    slice's programs and at edge shapes.  Bounds count each input read
+    once and each output written once (fp32), and the flops the function
+    needs with a transcendental as one: 15 an element for the LSTM cell
+    (three sigmoids of exp, add, divide; two tanh; three multiplies and
+    an add), 8 for the GRU output, 7 per valid element for the softmax.
+    At these sizes every kernel is launch-bound: its bound is tens of
+    nanoseconds."""
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    from paddle_tpu_torch.ops import sequence_kernels as sk
+
+    phase("RNN and sequence kernels vs plain (lstm_cell, gru_output, "
+          "masked_softmax)")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") * 2.0
+
+    rows = {"lstm": {}, "gru": {}, "softmax": {}}
+
+    def report(kern, name, err, fwd, plain, lib, bound, note):
+        row = {"max_abs_err": err, "ms": time_ms(torch, fwd),
+               "plain_ms": time_ms(torch, plain),
+               "library_ms": None if lib is None else time_ms(torch, lib),
+               **bound}
+        rows[kern][name] = row
+        lib_txt = "–" if lib is None else f"{row['library_ms']:.6f} ms"
+        print(f"{KERNELS[kern]['name']} {name}: {note} max_abs_err "
+              f"{err:.3e} (outputs and grads, atol {RNN_ATOL:g}) kernel "
+              f"{row['ms']:.6f} ms plain {row['plain_ms']:.6f} ms library "
+              f"{lib_txt} bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}; launch-bound at this size)", flush=True)
+        if not err <= RNN_ATOL:
+            raise SystemExit(f"{KERNELS[kern]['name']} disagrees with its "
+                             f"plain version on {name}: {err}")
+
+    # K8: the seq2seq encoder's step, B = 1, D not a multiple of 128, and
+    # B * D not a multiple of 32
+    for name, b, d in (("seq2seq_b16_d512", 16, 512), ("b1_d512", 1, 512),
+                       ("b16_d129", 16, 129), ("b3_d37", 3, 37)):
+        gates, c_prev = randn(b, 4 * d), randn(b, d)
+        lib = thnn_lstm_cell(torch, gates, c_prev)
+        diff = max((a - b).abs().max().item() for a, b in zip(
+            rk.fused_lstm_cell(gates, c_prev), lib()))
+        print(f"  _thnn_fused_lstm_cell vs kernel: max_abs_diff {diff:.3e}")
+        err = grads_err(torch, rk.fused_lstm_cell, rk.lstm_cell_reference,
+                        (gates, c_prev), (randn(b, d), randn(b, d)))
+        report("lstm", name, err,
+               lambda: rk.fused_lstm_cell(gates, c_prev),
+               lambda: rk.lstm_cell_reference(gates, c_prev), lib,
+               bound_row(4 * b * d * 7, 15 * b * d), f"B {b} D {d}")
+
+    # K9: the GRU program's step in both modes, gu read in place out of
+    # the [B, 2D] (u | r) buffer (row stride 2D), as the gru op passes it;
+    # and a contiguous gu at an edge shape
+    for name, b, d, mode, strided in (
+            ("gru_b16_d512", 16, 512, False, True),
+            ("gru_b16_d512_origin", 16, 512, True, True),
+            ("gru_b5_d129_contiguous", 5, 129, False, False)):
+        gu = randn(b, 2 * d)[:, :d] if strided else randn(b, d)
+        gc, h_prev = randn(b, d), randn(b, d)
+        lib = thnn_gru_cell(torch, gu, gc, h_prev, mode)
+        diff = (rk.fused_gru_output(gu, gc, h_prev, mode)
+                - lib()[0]).abs().max().item()
+        print(f"  _thnn_fused_gru_cell vs kernel: max_abs_diff {diff:.3e}")
+        err = grads_err(
+            torch, lambda u, c, h: rk.fused_gru_output(u, c, h, mode),
+            lambda u, c, h: rk.gru_output_reference(u, c, h, mode),
+            (gu, gc, h_prev), (randn(b, d),))
+        report("gru", name, err,
+               lambda: rk.fused_gru_output(gu, gc, h_prev, mode),
+               lambda: rk.gru_output_reference(gu, gc, h_prev, mode), lib,
+               bound_row(4 * b * d * 4, 8 * b * d),
+               f"B {b} D {d} origin_mode {mode} strided {strided}")
+
+    # K7: the sequence-softmax program's [16, 128], ragged lengths in
+    # [1, 50] with an empty row, and T = 1000
+    def lens(b, t, lo):
+        return torch.randint(lo, t + 1, (b,), generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    ragged = lens(16, 50, 1)
+    ragged[3] = 0
+    for name, x, n in (
+            ("b16_t128", randn(16, 128), torch.full(
+                (16,), 128, dtype=torch.int32, device="cuda")),
+            ("ragged_t50_empty_row", randn(16, 50), ragged),
+            ("b16_t1000", randn(16, 1000), lens(16, 1000, 1))):
+        mask = sk.length_mask(n, x.shape[1])
+        lib = torch_masked_softmax(torch, x, n)
+        # the library call leaves an empty row NaN; K7 writes it 0
+        rows_valid = n > 0
+        diff = (sk.masked_softmax(x, n) - lib())[rows_valid].abs().max()
+        print(f"  torch._masked_softmax vs kernel: max_abs_diff "
+              f"{diff.item():.3e} over the non-empty rows")
+        err = grads_err(torch, lambda v: sk.masked_softmax(v, n),
+                        lambda v: sk.masked_softmax_reference(v, mask),
+                        (x,), (randn(*x.shape),))
+        valid = int(n.sum().item())
+        report("softmax", name, err, lambda: sk.masked_softmax(x, n),
+               lambda: sk.masked_softmax_reference(x, mask), lib,
+               bound_row(8 * x.numel() + 4 * n.numel(), 7 * valid),
+               f"x {tuple(x.shape)} ({valid} valid)")
+    return rows
+
+
+def rnn_program(fluid, net, optimizer, **sizes):
+    """(main, startup, loss) of `net` with `optimizer`, seeds fixed to
+    SEED."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        loss = net(fluid, **sizes)
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        optimizer.minimize(loss)
+    return main, startup, loss
+
+
+def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
+                min_move=None):
+    """One startup state (run on the CPU), the losses of `feeds` on the
+    card and on the CPU, held to PARITY_RTOL; `counters` are set to 0
+    just before the card's run and read just after.  With `min_move`
+    (the feeds are one batch repeated), the CPU's losses after step 1
+    must each differ from its step-1 loss by at least that much,
+    relatively: a card run that skipped the updates would repeat its
+    step-1 loss and fail the comparison.  Returns the card's launches."""
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {n: t.numpy() for n, t in init.vars.items() if t is not None}
+    losses, launches = {}, {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                          place=place, main_program=main)
+        exe = fluid.Executor(place)
+        on_card = isinstance(place, fluid.CUDAPlace)
+        if on_card:
+            for c in counters:
+                c.launches = 0
+        losses[on_card] = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=scope)[0]) for f in feeds]
+        if on_card:
+            launches = {c.__name__: c.launches for c in counters}
+    card, cpu = losses[True], losses[False]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    print(f"{label}: card {card} cpu {cpu} relative differences {rel} "
+          f"(bounds {PARITY_RTOL[1]:g} at step 1, {PARITY_RTOL[3]:g} at "
+          f"step 3)" + (f", card launches {launches}" if counters else ""),
+          flush=True)
+    if not np.isfinite(card + cpu).all() or rel[0] > PARITY_RTOL[1] \
+            or max(rel) > PARITY_RTOL[3]:
+        raise SystemExit(f"{label}: the card departs from the CPU: {rel}")
+    if min_move is not None:
+        moves = [abs(a - cpu[0]) / abs(cpu[0]) for a in cpu[1:]]
+        print(f"  the updates move the loss from step 1 by {moves} "
+              f"relative (at least {min_move:g} required)")
+        if min(moves) < min_move:
+            raise SystemExit(f"{label}: the updates move the loss by "
+                             f"{moves}, under {min_move:g}")
+    return launches
+
+
+def seq2seq_parity_phase(torch):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.rnn import seq2seq_batch, seq_to_seq_net
+
+    phase("seq2seq parity: dictionary 1000, width 128, card vs CPU")
+    main, startup, loss = rnn_program(
+        fluid, seq_to_seq_net, fluid.optimizer.Adam(learning_rate=1e-3),
+        **S2S_PARITY)
+    rng = np.random.RandomState(SEED + 4)
+    feeds = [seq2seq_batch(rng, 8, S2S_PARITY["dict_size"], 2, 12)
+             for _ in range(3)]
+    card_vs_cpu(fluid, main, startup, loss, feeds, "seq2seq width 128")
+    torch.cuda.empty_cache()
+
+
+def seq2seq_training_phase(torch, smi):
+    """The book's seq2seq model trained on the card at the benchmark's
+    width: the main path of the RNN slice."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.lod import bucket_len
+    from paddle_tpu_torch.models.rnn import seq2seq_batch, seq_to_seq_net
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    phase(f"training seq2seq: dictionary {S2S_FULL['dict_size']}, width "
+          f"{S2S_FULL['hidden']}, batch {S2S_B}, lengths {S2S_LENS}, Adam, "
+          f"{S2S_STEPS} steps")
+    main, startup, loss = rnn_program(
+        fluid, seq_to_seq_net, fluid.optimizer.Adam(learning_rate=1e-3),
+        **S2S_FULL)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    feed = seq2seq_batch(np.random.RandomState(SEED + 8), S2S_B,
+                         S2S_FULL["dict_size"], *S2S_LENS)
+    t_src = bucket_len(max(len(s) for s in feed["source_sequence"]))
+    t_trg = bucket_len(max(len(s) for s in feed["target_sequence"]))
+    n_trg = sum(len(s) for s in feed["target_sequence"])
+    print(f"seq2seq: {n_params} parameters, {len(main.global_block().ops)} "
+          f"ops (step block {len(main.blocks[1].ops)}), startup on the card "
+          f"in {time.perf_counter() - t0:.3f} s; padded source T {t_src}, "
+          f"target T {t_trg}, {n_trg} target tokens")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rk.fused_lstm_cell.launches = 0
+    losses, walls = [], []
+    for _ in range(S2S_STEPS):
+        t0 = time.perf_counter()
+        (value,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(value))
+    launches = rk.fused_lstm_cell.launches
+    peak = torch.cuda.max_memory_allocated()
+    # per step: one K8 launch per padded source step in each direction,
+    # in the lstm ops and again in their generic grads' recompute
+    want = 4 * t_src * S2S_STEPS
+    step_s = statistics.median(walls[1:])
+    print(f"losses {losses}")
+    print(f"lstm_cell launches {launches} (expected {want}: 4 x {t_src} "
+          f"per step)")
+    print(f"[{smi}] step {step_s * 1e3:.6f} ms (median of steps 2-"
+          f"{S2S_STEPS}; first step {walls[0] * 1e3:.6f} ms), "
+          f"{n_trg / step_s:.3f} target tokens/s, peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit(f"seq2seq losses are not finite and falling: "
+                         f"{losses}")
+    if launches != want:
+        raise SystemExit(f"lstm_cell launches {launches}, expected {want}")
+    profile_run(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                       scope=scope),
+                f"one seq2seq training step (batch {S2S_B})", smi)
+    return launches
+
+
+def rnn_programs_phase(torch):
+    """The GRU and sequence-softmax programs, card against CPU, with K9
+    and K7 launched: per SGD step once per padded step (K9) or once (K7)
+    in the forward op and again in its generic grad's recompute.  Each
+    runs one batch three times, so the comparison sees the updates."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.lod import bucket_len
+    from paddle_tpu_torch.models.rnn import gru_net, seq_softmax_net
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+    from paddle_tpu_torch.ops import sequence_kernels as sk
+
+    phase("GRU and sequence-softmax programs, card vs CPU")
+    rng = np.random.RandomState(SEED + 5)
+    launches = {"gru": 0, "softmax": 0}
+    words = {"words": [rng.randint(0, S2S_FULL["dict_size"], (n,))
+                       for n in rng.randint(10, 51, S2S_B)]}
+    t_words = bucket_len(max(len(w) for w in words["words"]))
+    for mode in (False, True):
+        main, startup, loss = rnn_program(
+            fluid, gru_net, fluid.optimizer.SGD(learning_rate=GRU_LR),
+            dict_size=S2S_FULL["dict_size"], hidden=S2S_FULL["hidden"],
+            origin_mode=mode)
+        got = card_vs_cpu(fluid, main, startup, loss, [words] * 3,
+                          f"embedding -> fc -> dynamic_gru(512) origin_mode"
+                          f" {mode}", [rk.fused_gru_output], MIN_MOVE)
+        n = got["fused_gru_output"]
+        if n != 2 * 3 * t_words:
+            raise SystemExit(f"gru_output launched {n} times, expected "
+                             f"{2 * 3 * t_words}")
+        launches["gru"] += n
+    for label, lens in (("T 128", np.full(S2S_B, 128)),
+                        ("ragged lengths 1-50", rng.randint(1, 51, S2S_B))):
+        feed = {"x": [rng.standard_normal((n, 64)).astype(np.float32)
+                      for n in lens]}
+        main, startup, loss = rnn_program(
+            fluid, seq_softmax_net, fluid.optimizer.SGD(learning_rate=0.5),
+            width=64)
+        got = card_vs_cpu(fluid, main, startup, loss, [feed] * 3,
+                          f"fc(1) -> sequence_softmax, {label}",
+                          [sk.masked_softmax], MIN_MOVE)
+        n = got["masked_softmax"]
+        if n != 2 * 3:
+            raise SystemExit(f"masked_softmax launched {n} times, expected "
+                             f"6")
+        launches["softmax"] += n
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -983,8 +1357,12 @@ def main():
     quant_rows = quant_kernel_phase(torch)
     fp32 = serving_phase(torch, smi)
     quant = quant_serving_phase(torch, smi, fp32)
+    rnn_rows = rnn_kernel_phase(torch)
     training_parity_phase(torch)
     launches = training_phase(torch, smi)
+    seq2seq_parity_phase(torch)
+    launches["lstm"] = seq2seq_training_phase(torch, smi)
+    launches.update(rnn_programs_phase(torch))
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -993,6 +1371,10 @@ def main():
     per_batch = quant["launches"]["quant"] / quant["batches"]
     print(f"quant_matmul launches: int8 serving {quant['launches']['quant']}"
           f" over {quant['batches']} batches ({per_batch:g} per batch)")
+    print(f"lstm_cell launches: seq2seq training {launches['lstm']} over "
+          f"{S2S_STEPS} steps; gru_output: GRU programs {launches['gru']}; "
+          f"masked_softmax: sequence-softmax programs "
+          f"{launches['softmax']}")
     # the main paths' shapes: BERT-base training, fp32, dropout 0.1; and
     # the int8 serving batch's q/k/v/out projection (4 of 6 per layer)
     kernels = [dict(KERNELS[k], launches=launches[k],
@@ -1002,6 +1384,12 @@ def main():
                         launches=quant["launches"]["quant"],
                         launches_per_batch=per_batch,
                         **quant_rows["qkv_out_m1024"]))
+    # the RNN slice's shapes: the seq2seq encoder step, the GRU program's
+    # step, the sequence-softmax program at T = 128
+    for k, case in (("lstm", "seq2seq_b16_d512"), ("gru", "gru_b16_d512"),
+                    ("softmax", "b16_t128")):
+        kernels.append(dict(KERNELS[k], launches=launches[k],
+                            **rnn_rows[k][case]))
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

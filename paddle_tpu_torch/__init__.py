@@ -21,6 +21,11 @@ trains: fluid layers -> ``optimizer.Adam(...).minimize(loss)``
 serves with int8 weights: ``AnalysisConfig.enable_quantize()`` runs the
 Predictor's verifier (``analysis/``) and pass pipeline (``passes/``), and
 each annotated matmul runs the int8 kernel ``csrc/quant_matmul.cu``.
+And it trains RNNs over lod (ragged) inputs: ``layers.dynamic_lstm``,
+``dynamic_gru`` and ``DynamicRNN`` loop over the padded time steps, the
+cells running ``csrc/rnn_cells.cu`` and ``sequence_softmax`` running
+``csrc/masked_softmax.cu`` on the card (the seq2seq model of Paddle's
+book).
 """
 
 from .core import framework, unique_name  # noqa: F401

@@ -11,6 +11,10 @@ stored back into the Scope after the run, so the next run reads it.
 Kernels never update a tensor in place, because a grad op reads forward
 inputs from the run's environment after later ops have run.
 
+Control flow: a ``dynamic_rnn`` op runs its step block once per time
+step through :func:`_run_block` (``ops/rnn_ops.py``); ``while`` and
+``conditional_block`` raise until a later slice ports them.
+
 Entry points run on the card unless the caller asks for the CPU:
 ``Executor()`` means ``CUDAPlace(0)``, and with no CUDA device it raises
 instead of carrying on on the CPU.  Pass ``CPUPlace()`` to run on the CPU.

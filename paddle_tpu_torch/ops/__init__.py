@@ -6,3 +6,5 @@ from . import nn_ops        # noqa: F401
 from . import tensor_ops    # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import sequence_ops  # noqa: F401
+from . import rnn_ops       # noqa: F401

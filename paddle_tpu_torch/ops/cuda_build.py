@@ -22,7 +22,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "quant_matmul")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "quant_matmul",
+           "rnn_cells", "masked_softmax")
 
 _LIBS = {}
 _LOCK = threading.Lock()

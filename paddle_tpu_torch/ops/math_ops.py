@@ -1,7 +1,8 @@
 """Dense math kernels (port of ``paddle_tpu/ops/math_ops.py``):
 elementwise ops with fluid's ``axis`` broadcast and the custom
 ``elementwise_add`` grad, mul/matmul, sum, the activations and reductions
-on the BERT serving and training paths.
+on the BERT serving and training paths and the RNN slice (``sigmoid``,
+the length-masked ``mean`` of a lod input).
 
 Reference op semantics: ``paddle/fluid/operators/elementwise/``,
 ``mul_op.cc``, ``matmul_op.cc``, ``activation_op.cc``, ``scale_op.cc``,
@@ -13,6 +14,7 @@ XLA.
 import torch
 
 from .registry import register, register_grad, first, as_out
+from .sequence_kernels import length_mask
 
 
 def _bcast_y(x, y, axis):
@@ -129,6 +131,7 @@ def _unary(fn):
 
 
 register("relu")(_unary(torch.relu))
+register("sigmoid")(_unary(torch.sigmoid))
 register("tanh")(_unary(torch.tanh))
 # exact erf form, as jax.nn.gelu(approximate=False) in the reference
 register("gelu")(_unary(
@@ -137,11 +140,15 @@ register("gelu")(_unary(
 
 @register("mean")
 def mean(ins, attrs):
-    if first(ins, "SeqLen") is not None:
-        raise NotImplementedError(
-            "mean over a lod input (SeqLen) runs in the sequence slice "
-            "of the port, which has not landed yet")
-    return as_out(torch.mean(first(ins, "X")))
+    x = first(ins, "X")
+    lens = first(ins, "SeqLen")
+    if lens is not None and x.dim() >= 2:
+        # lod input [B, T, ...]: mask pads and average valid tokens only
+        valid = length_mask(lens, x.shape[1], x.dtype)
+        masked = x * valid.reshape(tuple(valid.shape) + (1,) * (x.dim() - 2))
+        denom = lens.sum().clamp_min(1).to(x.dtype) * _prod(x.shape[2:])
+        return as_out(masked.sum() / denom)
+    return as_out(torch.mean(x))
 
 
 def _reduce(fn):

@@ -1,9 +1,10 @@
-"""NN kernels on the BERT serving and training paths (port of
-``paddle_tpu/ops/nn_ops.py``): softmax, softmax_with_cross_entropy with
+"""NN kernels on the BERT serving and training paths and the RNN slice
+(port of ``paddle_tpu/ops/nn_ops.py``): softmax, cross_entropy over
+probabilities (with its lod mask), softmax_with_cross_entropy with
 its fused grad, dropout, layer_norm with its analytic grad, lookup_table
 with its dense grad, square_error_cost.
 
-Reference semantics: ``softmax_op.cc``,
+Reference semantics: ``softmax_op.cc``, ``cross_entropy_op.cc``,
 ``softmax_with_cross_entropy_op.cc``, ``dropout_op.cc`` (two
 implementations), ``layer_norm_op.cc``, ``lookup_table_op.cc:71``
 (padding_idx).
@@ -21,6 +22,7 @@ import torch
 from .registry import (register, register_grad, first, as_out, current,
                        dropout_keep, generic_grad_kernel, has_out_grad,
                        op_seed)
+from .sequence_kernels import length_mask
 from .tensor_ops import take_rows
 
 
@@ -62,6 +64,36 @@ def _labels(label):
     """Hard labels [..., 1] -> [...]."""
     return label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
         else label
+
+
+@register("cross_entropy")
+def cross_entropy(ins, attrs):
+    """-log of the probability of the label (hard) or -sum(label *
+    log(prob)) (soft), over probabilities X [..., C].  The log's argument
+    is clamped at 1e-20, so a 0 probability (a masked pad row) gives a
+    finite loss and grad.  With SeqLen (a lod input) the loss of each pad
+    position is 0."""
+    x = first(ins, "X")
+    label = first(ins, "Label")
+    lens = first(ins, "SeqLen")
+    if attrs.get("soft_label", False):
+        loss = -(label * torch.log(x.clamp_min(1e-20))).sum(dim=-1,
+                                                             keepdim=True)
+    else:
+        lbl = _labels(label).long()
+        c = x.shape[-1]
+        # in-range indices for the gather (never a device-side assert);
+        # the ignored label's loss is zeroed below
+        idx = torch.where(lbl < 0, lbl + c, lbl).clamp(0, c - 1)
+        picked = torch.gather(x, -1, idx.unsqueeze(-1))
+        loss = -torch.log(picked.clamp_min(1e-20))
+        loss = loss.masked_fill(
+            (lbl == attrs.get("ignore_index", -100)).unsqueeze(-1), 0.0)
+    if lens is not None and loss.dim() >= 2:
+        valid = length_mask(lens, loss.shape[1], loss.dtype)
+        loss = loss * valid.reshape(tuple(valid.shape)
+                                    + (1,) * (loss.dim() - 2))
+    return as_out(loss)
 
 
 @register("softmax_with_cross_entropy")

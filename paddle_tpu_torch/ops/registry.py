@@ -254,8 +254,15 @@ def has_out_grad(ins, slot):
 # ---------------------------------------------------------------------------
 
 def generic_grad_kernel(ins, attrs):
+    from ..core.framework import Block
+
     fw_type = attrs["fw_type"]
     fw_attrs = attrs["fw_attrs"]
+    # Block-valued attrs (dynamic_rnn's step block) ride as top-level
+    # grad-op attrs (core/backward.py); fold them back for the recompute
+    blocks = {k: v for k, v in attrs.items() if isinstance(v, Block)}
+    if blocks:
+        fw_attrs = dict(fw_attrs, **blocks)
     fw_out_slots = attrs["fw_out_slots"]    # [(slot, arity), ...]
     needs = attrs["needs_input_grad"]       # [(slot, idx), ...]
     has_ograd = attrs["has_out_grad"]       # [(slot, idx), ...] with grads fed

@@ -1,12 +1,14 @@
 """Tensor manipulation + initialization kernels (port of
 ``paddle_tpu/ops/tensor_ops.py``): the ops the BERT inference and
-training programs and their startup programs emit.
+training programs and their startup programs emit, and the RNN slice's
+``concat`` and ``fill_constant_batch_size_like``.
 
 Reference: ``fill_constant_op.cc``, ``fill_any_like_op.cc``,
-``assign_op.cc``, ``uniform_random_op.cc``,
-``gaussian_random_op.cc``, ``truncated_gaussian_random_op.cc``,
-``assign_value_op.cc``, ``reshape_op.cc``, ``transpose_op.cc``,
-``cast_op.cc``, ``gather_op.cc``, ``slice_op.cc``.
+``fill_constant_batch_size_like_op.cc``, ``assign_op.cc``,
+``uniform_random_op.cc``, ``gaussian_random_op.cc``,
+``truncated_gaussian_random_op.cc``, ``assign_value_op.cc``,
+``reshape_op.cc``, ``transpose_op.cc``, ``cast_op.cc``, ``concat_op.cc``,
+``gather_op.cc``, ``slice_op.cc``.
 """
 
 import numpy as np
@@ -40,6 +42,17 @@ def fill_any_like(ins, attrs):
     dtype = attrs.get("dtype")
     dtype = x.dtype if dtype in (None, -1) else torch_dtype(dtype)
     return as_out(torch.full_like(x, attrs.get("value", 0.0), dtype=dtype))
+
+
+@register("fill_constant_batch_size_like", not_differentiable=True)
+def fill_constant_batch_size_like(ins, attrs):
+    ref = first(ins, "Input")
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = ref.shape[
+        attrs.get("input_dim_idx", 0)]
+    return as_out(torch.full(tuple(shape), attrs.get("value", 0.0),
+                             dtype=torch_dtype(attrs.get("dtype", "float32")),
+                             device=ref.device))
 
 
 @register("assign")
@@ -130,6 +143,11 @@ def take_rows(table, idx):
         valid = valid.reshape(valid.shape + (1,) * (out.ndim - valid.ndim))
         out = torch.where(valid, out, torch.full_like(out, float("nan")))
     return out
+
+
+@register("concat")
+def concat(ins, attrs):
+    return as_out(torch.cat(ins["X"], dim=attrs.get("axis", 0)))
 
 
 @register("gather")

@@ -31,12 +31,19 @@ def test_import_leaves_jax_and_paddle_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
-# the modules of the pass pipeline and the int8 serving path, imported with
-# jax and paddle_tpu made unimportable (a None entry in sys.modules)
+# the modules of the pass pipeline, the int8 serving path and the RNN
+# slice, imported with jax and paddle_tpu made unimportable (a None entry
+# in sys.modules)
 NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.passes.quantize",
                "paddle_tpu_torch.ops.quant_kernels",
-               "paddle_tpu_torch.inference")
+               "paddle_tpu_torch.inference",
+               "paddle_tpu_torch.ops.rnn_kernels",
+               "paddle_tpu_torch.ops.sequence_kernels",
+               "paddle_tpu_torch.ops.rnn_ops",
+               "paddle_tpu_torch.ops.sequence_ops",
+               "paddle_tpu_torch.layers.rnn",
+               "paddle_tpu_torch.layers.control_flow")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

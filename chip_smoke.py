@@ -68,7 +68,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in both modes, and fc(1) -> sequence_softmax at T = 128 and at ragged
    lengths, 3 SGD steps on one batch on the card against the CPU, each
    update moving the loss, with K9 and K7 launched.
-14. report: a "kernels" JSON line, then the result line
+14. row gather kernel vs plain: K11 (gather_rows) against index_select,
+   bit for bit, at one CTR step's deep and wide lookups on one shard
+   (65,536 padded ids from a 500,000-row block, D = 16 and D = 1), at
+   D = 129, a bf16 table, N = 1 and a 68-byte row stride, and ids outside
+   the table (zero rows); kernel, plain and index_select times at the
+   deep and wide shapes.
+15. CTR parity: bench.py's CTR model (vocab 1,000,000, dim 16, 26 slots,
+   400-400-400, SGD 1e-3, batch 4096) over 2 shard servers (shard 0
+   colocated, shard 1 over RPC on 127.0.0.1), 3 steps on the card against
+   3 on the CPU from one state, K11 launched 4 times a step on the card.
+16. CTR training: the same, 6 steps on the card through
+   declare_sharded_table -> SparseShardServer(device_table=True) ->
+   shard_program -> Executor(CUDAPlace(0)): finite losses, K11 launched
+   exactly 4 times a step, every shard's device mirror equal to its host
+   block after the run, step time, examples/s, ids/s, the dedup ratio
+   and padding waste, and a profile of one step.
+17. report: a "kernels" JSON line, then the result line
    {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
@@ -178,7 +194,17 @@ KERNELS = {
     "softmax": {"name": "masked_softmax", "route": "cuda",
                 "source": "paddle_tpu_torch/csrc/masked_softmax.cu",
                 "replaces": "paddle_tpu/ops/pallas_kernels.py:1340"},
+    "gather": {"name": "gather_rows", "route": "cuda",
+               "source": "paddle_tpu_torch/csrc/gather_rows.cu",
+               "replaces": "paddle_tpu/sparse/gather.py:54"},
 }
+# the CTR slice: bench.py's CTR configuration (bench.py:268-316, Paddle's
+# CTR DNN on Criteo): 26 categorical slots through one shared deep table
+# of 1,000,000 x 16 and a wide table of width 1, 13 dense features, a
+# 400-400-400 MLP, SGD 1e-3, batch 4096, ids uniform over the vocabulary;
+# both tables row-sharded over 2 shard servers (shard 0 colocated, shard 1
+# over RPC on 127.0.0.1), each gathering through K11 on the card
+CTR_B, CTR_SHARDS, CTR_STEPS, CTR_PARITY_STEPS = 4096, 2, 6, 3
 
 
 def phase(name):
@@ -1337,6 +1363,274 @@ def rnn_programs_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the CTR slice: K11 and the sharded embedding engine
+# ---------------------------------------------------------------------------
+
+def path_ids(rng, vocab, shard):
+    """The shard-local ids one lookup of the CTR step gathers on `shard`:
+    26 x CTR_B uniform ids deduped on the host, the shard's rows in
+    local index space, padded with row 0 to the power-of-two bucket."""
+    from paddle_tpu_torch.sparse import RowPartition, dedup_ids, pad_bucket
+
+    part = RowPartition(vocab, CTR_SHARDS)
+    uniq, _ = dedup_ids(rng.randint(0, vocab, 26 * CTR_B))
+    local = part.local_of(uniq[part.shard_of(uniq) == shard])
+    idx = np.zeros(pad_bucket(len(local)), np.int64)
+    idx[:len(local)] = local
+    return idx
+
+
+def ctr_kernel_phase(torch):
+    """K11 against its plain version (index_select), bit for bit, at the
+    CTR step's deep and wide lookups (the ids one shard gathers in one
+    step, from a 500,000-row shard block), D = 129, a bf16 table, N = 1
+    and a table whose row stride (68 bytes) is not a multiple of 16; and
+    ids outside [0, V), whose rows K11 writes as zeros.  Bound: each
+    gathered row read once and written once, 8 bytes an id, over
+    3.35 TB/s; index_select is the plain version and the library call."""
+    from paddle_tpu_torch.models.ctr import CTR_VOCAB
+    from paddle_tpu_torch.sparse import gather as ga
+
+    phase("row gather kernel vs plain (gather_rows, K11)")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rng = np.random.RandomState(SEED + 9)
+    height = CTR_VOCAB // CTR_SHARDS
+    deep_ids = torch.from_numpy(path_ids(rng, CTR_VOCAB, 0)).cuda()
+
+    def table(v, d, dtype=torch.float32):
+        return torch.randn(v, d, generator=g, device="cuda").to(dtype)
+
+    def ids(v, n):
+        return torch.randint(0, v, (n,), generator=g, device="cuda")
+
+    cases = [("deep_n65536_d16_f32", table(height, 16), deep_ids),
+             ("wide_n65536_d1_f32", table(height, 1), deep_ids),
+             ("d129_f32", table(20000, 129), ids(20000, 4096)),
+             ("deep_d16_bf16", table(height, 16, torch.bfloat16), deep_ids),
+             ("n1_d16_f32", table(height, 16), ids(height, 1)),
+             ("stride68_d16_f32", table(height, 17)[:, :16], deep_ids)]
+    rows = {}
+    for name, t, idx in cases:
+        out = ga.gather_rows(t, idx)
+        ref = ga.gather_rows(t, idx, impl="plain")
+        torch.cuda.synchronize()
+        exact = torch.equal(out, ref)
+        err = (out.float() - ref.float()).abs().max().item()
+        n, d, s = idx.numel(), t.shape[1], t.element_size()
+        row = {"max_abs_err": err, **bound_row(2 * n * d * s + 8 * n, 0)}
+        if name.startswith(("deep_n", "wide_n")):
+            row.update(
+                ms=time_ms(torch, lambda: ga.gather_rows(t, idx)),
+                plain_ms=time_ms(torch, lambda: ga.gather_rows_reference(
+                    t, idx)),
+                library_ms=time_ms(torch, lambda: torch.index_select(
+                    t, 0, idx)))
+            times = (f" kernel {row['ms']:.6f} ms plain {row['plain_ms']:.6f}"
+                     f" ms index_select {row['library_ms']:.6f} ms")
+        else:
+            times = ""
+        rows[name] = row
+        print(f"gather_rows {name}: table {tuple(t.shape)} stride "
+              f"{t.stride(0) * s} B {str(t.dtype)[6:]} N {n}: equal bit for "
+              f"bit {exact} (max_abs_err {err:.3e}){times} bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+        if not exact:
+            raise SystemExit(f"gather_rows disagrees with its plain version "
+                             f"on {name}: {err}")
+    t = table(1000, 16)
+    bad = torch.tensor([3, -1, 1000, 999, 10 ** 12], device="cuda")
+    out = ga.gather_rows(t, bad)
+    want = torch.zeros_like(out)
+    want[[0, 3]] = t[[3, 999]]
+    torch.cuda.synchronize()
+    print(f"gather_rows ids outside [0, V): their rows zero, the others "
+          f"equal: {torch.equal(out, want)}")
+    if not torch.equal(out, want):
+        raise SystemExit("gather_rows read or wrote wrong rows for ids "
+                         "outside the table")
+    return rows
+
+
+def ctr_program(fluid):
+    """(main, startup, loss) of the CTR model at bench.py's full width."""
+    from paddle_tpu_torch.models.ctr import CTR_DIM, CTR_VOCAB, ctr_dnn
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        loss = ctr_dnn(fluid, CTR_VOCAB, CTR_DIM)
+    return main, startup, loss
+
+
+def ctr_cluster(fluid, sparse, place, tables=None):
+    """Declare both CTR tables over CTR_SHARDS shard servers on `place`:
+    every server started on 127.0.0.1 (OS-assigned ports), shard 0 also
+    bound in-process (the colocated rank: no RPC); with `tables`
+    ({name: dense [vocab, D] array}) the shards are loaded from them.
+    Returns the servers."""
+    from paddle_tpu_torch.models.ctr import (CTR_DIM, CTR_VOCAB,
+                                             DEEP_TABLE, WIDE_TABLE)
+
+    sparse.clear_tables()
+    cfgs = {name: sparse.declare_sharded_table(
+        name, CTR_VOCAB, dim, ["127.0.0.1:0"] * CTR_SHARDS,
+        optimizer="sgd", learning_rate=1e-3, seed=SEED, init_scale=scale)
+        for name, dim, scale in ((DEEP_TABLE, CTR_DIM, 0.01),
+                                 (WIDE_TABLE, 1, 0.0))}
+    servers = []
+    try:
+        for i in range(CTR_SHARDS):
+            servers.append(sparse.SparseShardServer(
+                "127.0.0.1:0", i, cfgs, device_table=True,
+                place=place).start())
+        for name, cfg in cfgs.items():
+            cfg.endpoints = [s.endpoint for s in servers]
+            sparse.bind_local_server(name, 0, servers[0])
+            if tables is not None:
+                sparse.load_table(servers, name, tables[name])
+    except BaseException:
+        for s in servers:
+            s.shutdown()
+        raise
+    return servers
+
+
+def mirrors_equal(torch, servers):
+    """Whether every shard's device mirror equals its host block, bit for
+    bit (True where no lookup built one)."""
+    return all(torch.equal(dev.cpu(), torch.from_numpy(s.values[name]))
+               for s in servers for name, dev in s._dev.items())
+
+
+def ctr_parity_phase(torch):
+    """The full CTR config, 2 shards as on the main path, 3 SGD steps on
+    the card against 3 on the CPU (CPU executor and CPU mirrors) from one
+    state: the original startup program run once on the CPU, its dense
+    parameters through io.state_from_numpy, its tables shard by shard
+    through sparse.load_table."""
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.sparse as sparse
+    from paddle_tpu_torch.models.ctr import CTR_VOCAB, ctr_batch
+
+    phase(f"CTR parity: vocab {CTR_VOCAB}, 26 slots, 400-400-400, batch "
+          f"{CTR_B}, {CTR_SHARDS} shards, card vs CPU")
+    main, startup, loss = ctr_program(fluid)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = {n: t.numpy() for n, t in init.vars.items() if t is not None}
+    rng = np.random.RandomState(SEED + 10)
+    feeds = [ctr_batch(rng, CTR_B, CTR_VOCAB)
+             for _ in range(CTR_PARITY_STEPS)]
+    losses = []
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        servers = ctr_cluster(fluid, sparse, place, state)
+        try:
+            tp, _ = sparse.shard_program(main, startup)
+            tables = set(tp._sparse_tables)
+            scope = fluid.io.state_from_numpy(
+                {n: v for n, v in state.items() if n not in tables},
+                scope=fluid.Scope(), place=place, main_program=tp)
+            exe = fluid.Executor(place)
+            sparse.gather_rows.launches = 0
+            losses.append([float(exe.run(tp, feed=f, fetch_list=[loss],
+                                         scope=scope)[0]) for f in feeds])
+            exe.close()
+            launches = sparse.gather_rows.launches
+            same = mirrors_equal(torch, servers)
+        finally:
+            for s in servers:
+                s.shutdown()
+        on_card = isinstance(place, fluid.CUDAPlace)
+        want = 2 * CTR_SHARDS * CTR_PARITY_STEPS if on_card else 0
+        print(f"{'card' if on_card else 'CPU'}: losses {losses[-1]}, "
+              f"gather_rows launches {launches} (expected {want}), mirrors "
+              f"equal to the host blocks {same}", flush=True)
+        if launches != want or not same:
+            raise SystemExit(f"CTR parity run on {place!r}: {launches} "
+                             f"gather_rows launches, mirrors equal {same}")
+    card, cpu = losses
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    print(f"CTR card vs CPU relative differences {rel} (bounds "
+          f"{PARITY_RTOL[1]:g} at step 1, {PARITY_RTOL[3]:g} at step 3)")
+    if not np.isfinite(card + cpu).all() or rel[0] > PARITY_RTOL[1] \
+            or max(rel) > PARITY_RTOL[3]:
+        raise SystemExit(f"CTR: the card departs from the CPU: {rel}")
+    torch.cuda.empty_cache()
+
+
+def ctr_training_phase(torch, smi):
+    """The CTR model trained on the card through the sharded engine, as
+    its users run it: declare_sharded_table -> SparseShardServer(
+    device_table=True) -> shard_program -> Executor(CUDAPlace(0)).run(
+    trainer_startup) -> exe.run(trainer_prog) per batch.  The main path
+    of this slice."""
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.sparse as sparse
+    from paddle_tpu_torch.models.ctr import CTR_VOCAB, ctr_batch
+
+    phase(f"training CTR: vocab {CTR_VOCAB} x 16 and x 1, 26 slots, "
+          f"400-400-400, batch {CTR_B}, {CTR_SHARDS} shards, SGD 1e-3, "
+          f"{CTR_STEPS} steps")
+    main, startup, loss = ctr_program(fluid)
+    t0 = time.perf_counter()
+    servers = ctr_cluster(fluid, sparse, fluid.CUDAPlace(0))
+    try:
+        tp, ts = sparse.shard_program(main, startup)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(ts, scope=scope)
+        n_params = sum(int(np.prod(p.shape)) for p in tp.all_parameters())
+        print(f"CTR: trainer program {len(tp.global_block().ops)} ops, "
+              f"{n_params} dense parameters on the trainer; servers and "
+              f"trainer startup in {time.perf_counter() - t0:.3f} s")
+        rng = np.random.RandomState(SEED + 11)
+        feeds = [ctr_batch(rng, CTR_B, CTR_VOCAB) for _ in range(CTR_STEPS)]
+        torch.cuda.synchronize()
+        sparse.METRICS.reset()
+        sparse.gather_rows.launches = 0
+        losses, walls = [], []
+        for f in feeds:
+            t0 = time.perf_counter()
+            (value,) = exe.run(tp, feed=f, fetch_list=[loss], scope=scope)
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(value))
+        launches = sparse.gather_rows.launches
+        exe.close()                   # every push applied
+        same = mirrors_equal(torch, servers)
+        snap = sparse.METRICS.snapshot()
+        want = 2 * CTR_SHARDS * CTR_STEPS
+        step_s = statistics.median(walls[1:])
+        c = snap["counters"]
+        print(f"losses {losses}")
+        print(f"gather_rows launches {launches} (expected {want}: 2 tables "
+              f"x {CTR_SHARDS} shards per step); after the run every "
+              f"shard's device mirror equals its host block bit for bit: "
+              f"{same} ({c['push_rows']} rows pushed)")
+        print(f"[{smi}] step {step_s * 1e3:.6f} ms (median of steps 2-"
+              f"{CTR_STEPS}; first step {walls[0] * 1e3:.6f} ms), "
+              f"{CTR_B / step_s:.3f} examples/s, {26 * CTR_B / step_s:.3f} "
+              f"ids/s per table; dedup ratio {snap['dedup_ratio']}, padding "
+              f"waste {snap['padding_waste']}, lookup ms "
+              f"{snap['lookup_ms']}, push ms {snap['push_ms']}", flush=True)
+        if not np.isfinite(losses).all():
+            raise SystemExit(f"CTR losses are not finite: {losses}")
+        if launches != want:
+            raise SystemExit(f"gather_rows launches {launches}, expected "
+                             f"{want}")
+        if not same:
+            raise SystemExit("a device mirror departs from its host block")
+        profile_run(torch, lambda: exe.run(tp, feed=feeds[0],
+                                           fetch_list=[loss], scope=scope),
+                    f"one CTR training step (batch {CTR_B})", smi)
+        exe.close()
+    finally:
+        for s in servers:
+            s.shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1363,6 +1657,9 @@ def main():
     seq2seq_parity_phase(torch)
     launches["lstm"] = seq2seq_training_phase(torch, smi)
     launches.update(rnn_programs_phase(torch))
+    gather_rows = ctr_kernel_phase(torch)
+    ctr_parity_phase(torch)
+    launches["gather"] = ctr_training_phase(torch, smi)
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -1375,6 +1672,8 @@ def main():
           f"{S2S_STEPS} steps; gru_output: GRU programs {launches['gru']}; "
           f"masked_softmax: sequence-softmax programs "
           f"{launches['softmax']}")
+    print(f"gather_rows launches: CTR training {launches['gather']} over "
+          f"{CTR_STEPS} steps")
     # the main paths' shapes: BERT-base training, fp32, dropout 0.1; and
     # the int8 serving batch's q/k/v/out projection (4 of 6 per layer)
     kernels = [dict(KERNELS[k], launches=launches[k],
@@ -1390,6 +1689,9 @@ def main():
                     ("softmax", "b16_t128")):
         kernels.append(dict(KERNELS[k], launches=launches[k],
                             **rnn_rows[k][case]))
+    # the CTR slice's deep-table lookup on one shard
+    kernels.append(dict(KERNELS["gather"], launches=launches["gather"],
+                        **gather_rows["deep_n65536_d16_f32"]))
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -15,6 +15,11 @@ Control flow: a ``dynamic_rnn`` op runs its step block once per time
 step through :func:`_run_block` (``ops/rnn_ops.py``); ``while`` and
 ``conditional_block`` raise until a later slice ports them.
 
+Host ops: the sharded embedding engine's ``sharded_lookup_table`` and
+``sharded_push_grad`` (``sparse/``) run on the host inside the same loop;
+``close()`` flushes their in-flight pushes.  The reference's
+prefetch-ahead (``feed_next``) is not ported yet.
+
 Entry points run on the card unless the caller asks for the CPU:
 ``Executor()`` means ``CUDAPlace(0)``, and with no CUDA device it raises
 instead of carrying on on the CPU.  Pass ``CPUPlace()`` to run on the CPU.
@@ -177,7 +182,17 @@ def _block_io(block):
 
 def _run_block(block, env, read):
     """Run a block's ops in order.  `env` maps names to tensors; `read(n)`
-    supplies a name the block reads before writing it (from the Scope)."""
+    supplies a name the block reads before writing it (from the Scope).
+
+    Host ops (``distributed/host_ops.py``: the sharded embedding engine's
+    lookup and push) run here too, as the reference's eager interpreter
+    runs them (``_run_eager``).  A lookup is ISSUED at its op — host dedup
+    and the per-shard RPCs start — and COLLECTED just before the first op
+    that reads its rows, so the device work dispatched in between overlaps
+    the wire time."""
+    from ..distributed import host_ops
+
+    pending = {}                     # lookup output name -> collect()
     for op in block.ops:
         if op.type in ("feed", "fetch"):
             continue
@@ -186,6 +201,23 @@ def _run_block(block, env, read):
                 f"op {op.type!r}: control-flow sub-blocks run in a later "
                 "slice of the port")
         try:
+            for n in op.input_arg_names:
+                collect = pending.pop(n, None)
+                if collect is not None:
+                    collect()
+            if op.type in host_ops.HOST_OP_TYPES or \
+                    op.type in host_ops.QUEUED_HOST_OP_TYPES:
+                for n in op.input_arg_names:
+                    if n not in env:
+                        read(n)
+                if op.type in host_ops.LOOKUP_HOST_OPS:
+                    collect = host_ops.issue_lookup_op(
+                        op, env, op.attrs, op.attrs.get("trainer_id", 0))
+                    pending.update((n, collect)
+                                   for n in op.output_arg_names)
+                else:
+                    host_ops.run_host_op(op, env)
+                continue
             ins = {slot: [env[n] if n in env else read(n) for n in names]
                    for slot, names in op.inputs.items()}
             outs = registry.run_op(op.type, ins, op.attrs)
@@ -206,6 +238,8 @@ def _run_block(block, env, read):
         # allocator can reuse their memory for the ops that follow
         for n in op.attrs.get("__dead_after__", ()):
             env.pop(n, None)
+    for collect in dict.fromkeys(pending.values()):
+        collect()                    # rows nobody read: land, surface errors
 
 
 def _to_numpy(t):
@@ -225,11 +259,19 @@ class Executor:
         # reseeded per random op from (program seed, op seed, step)
         self.generator = torch.Generator(device=self.device)
         self._step = 0
+        self._dist_endpoints = set()
+        self._dist_trainer_id = 0
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name=None, fetch_var_name=None, scope=None,
-            return_numpy=True, use_program_cache=True):
+            return_numpy=True, use_program_cache=True, feed_next=None):
+        if feed_next is not None:
+            raise NotImplementedError(
+                "Executor.run(feed_next=...): the prefetch-ahead of the "
+                "next step's sharded lookups is not ported yet (ROADMAP "
+                "queue 1 item 11)")
         program = program if program is not None else default_main_program()
+        self._track_dist_endpoints(program)
         feed = _normalize_feed(program, dict(feed) if feed else {})
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
         scope = scope if scope is not None else global_scope()
@@ -270,5 +312,28 @@ class Executor:
             return [_to_numpy(f) for f in fetches]
         return fetches
 
+    def _track_dist_endpoints(self, program):
+        """Collect the shard endpoints of the engine's host ops, so
+        close() can flush their pushes and notify them."""
+        from ..distributed import host_ops
+
+        for op in program.global_block().ops:
+            if op.type in host_ops.HOST_OP_TYPES:
+                self._dist_endpoints.update(op.attrs.get("endpoints", []))
+                self._dist_trainer_id = op.attrs.get("trainer_id", 0)
+
     def close(self):
-        pass
+        """Graceful trainer exit: wait for the in-flight pushes of the
+        sharded tables this executor ran, then send ``complete`` to their
+        shards (Executor::Close -> SendComplete, executor.cc:138-146).
+        A failed push is raised after the shards were notified."""
+        if not self._dist_endpoints:
+            return
+        from ..distributed.host_ops import flush_pending_sends, send_complete
+
+        endpoints = sorted(self._dist_endpoints)
+        self._dist_endpoints = set()
+        try:
+            flush_pending_sends(endpoints)
+        finally:
+            send_complete(endpoints, self._dist_trainer_id)

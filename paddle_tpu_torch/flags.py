@@ -43,6 +43,10 @@ _DEFAULTS = {
     # quantized-inference weight dtype (passes/quantize.py): "int8" only;
     # "fp8" raises until it is ported
     "quant_dtype": "int8",
+    # sharded embedding engine (sparse/): declared tables below this many
+    # rows keep the dense path (sharding a tiny table costs an RPC per
+    # batch for nothing); sparse.shard_program warns once per table
+    "sparse_shard_min_rows": 512,
 }
 
 _overrides = {}

@@ -257,15 +257,16 @@ class Tracer:
 
     def _ensure_hook(self):
         """First sampled span: register as a profiler span sink (child
-        events).  A process that never samples never pays it.  This
-        package has no transport yet, so no frame trailer is installed:
-        contexts propagate in-process only."""
+        events) and install the transport trailer provider.  A process
+        that never samples never pays either."""
         if self._hooked:
             return
         self._hooked = True
         from .. import profiler
+        from . import propagate
 
         profiler.add_span_sink(self._profiler_sink)
+        propagate.ensure_installed()
 
     def _profiler_sink(self, name, t0, t1):
         sp = getattr(_tls, "span", None)

@@ -23,7 +23,7 @@ BUILD = os.path.join(_PKG, "_build")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "quant_matmul",
-           "rnn_cells", "masked_softmax")
+           "rnn_cells", "masked_softmax", "gather_rows")
 
 _LIBS = {}
 _LOCK = threading.Lock()

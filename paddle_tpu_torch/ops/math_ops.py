@@ -84,7 +84,19 @@ def scale(ins, attrs):
 
 @register("sum")
 def sum_op(ins, attrs):
+    """Sum of the inputs.  SelectedRows inputs (the partial grads of a
+    table looked up twice) concatenate their row sets, duplicates
+    accumulating when the update applies them; mixed with dense inputs
+    they are densified first."""
+    from ..core.selected_rows import SelectedRows, is_selected_rows
+
     xs = ins["X"]
+    if any(is_selected_rows(x) for x in xs):
+        if all(is_selected_rows(x) for x in xs):
+            return as_out(SelectedRows(
+                torch.cat([x.rows for x in xs]),
+                torch.cat([x.values for x in xs]), xs[0].height))
+        xs = [x.to_dense() if is_selected_rows(x) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

@@ -2,7 +2,8 @@
 (port of ``paddle_tpu/ops/nn_ops.py``): softmax, cross_entropy over
 probabilities (with its lod mask), softmax_with_cross_entropy with
 its fused grad, dropout, layer_norm with its analytic grad, lookup_table
-with its dense grad, square_error_cost.
+with its dense and SelectedRows grads, square_error_cost,
+sigmoid_cross_entropy_with_logits.
 
 Reference semantics: ``softmax_op.cc``, ``cross_entropy_op.cc``,
 ``softmax_with_cross_entropy_op.cc``, ``dropout_op.cc`` (two
@@ -19,6 +20,7 @@ and step.
 
 import torch
 
+from ..core.selected_rows import SelectedRows
 from .registry import (register, register_grad, first, as_out, current,
                        dropout_keep, generic_grad_kernel, has_out_grad,
                        op_seed)
@@ -243,16 +245,14 @@ def lookup_table(ins, attrs):
 
 @register_grad("lookup_table")
 def lookup_table_grad(ins, attrs):
-    """Dense table gradient (the reference's custom grad, nn_ops.py:692,
-    dense arm): one scatter-add of the out-grad rows, with the
-    padding_idx rows zeroed; ids out of range add nothing, as jax's
-    scatter drops them.  The ``is_sparse`` (SelectedRows) arm waits for
-    ``core/selected_rows.py``."""
+    """Table gradient (the reference's custom grad, nn_ops.py:692).
+    ``is_sparse``: a SelectedRows of the looked-up rows and their out-grad
+    rows (selected_rows.h:32: O(touched rows), duplicates accumulate when
+    an update applies it; ids are the caller's contract, as in the
+    reference).  Dense: one scatter-add of the out-grad rows, ids out of
+    range adding nothing, as jax's scatter drops them.  Either way the
+    padding_idx rows are zeroed."""
     fw_attrs = attrs["fw_attrs"]
-    if fw_attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table_grad with is_sparse=True needs SelectedRows, "
-            "which the port does not have yet")
     w = first(ins, "W")
     og = first(ins, "Out@GRAD_OUT")
     rows = squeeze_ids(first(ins, "Ids")).reshape(-1).long()
@@ -260,6 +260,11 @@ def lookup_table_grad(ins, attrs):
     n = w.shape[0]
     pad = normalize_padding_idx(fw_attrs.get("padding_idx", -1), n)
     drop = rows == pad if pad != -1 else torch.zeros_like(rows, dtype=bool)
+    if fw_attrs.get("is_sparse", False):
+        if pad != -1:
+            values = values.masked_fill(
+                drop.reshape((-1,) + (1,) * (values.ndim - 1)), 0.0)
+        return {"W@GRAD": [SelectedRows(rows, values, n)]}
     rows = torch.where(rows < 0, rows + n, rows)
     drop = drop | (rows < 0) | (rows >= n)
     values = values.masked_fill(
@@ -267,6 +272,23 @@ def lookup_table_grad(ins, attrs):
     dense = torch.zeros((n,) + tuple(w.shape[1:]), dtype=values.dtype,
                         device=values.device)
     return {"W@GRAD": [dense.index_add(0, rows.clamp(0, n - 1), values)]}
+
+
+@register("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(ins, attrs):
+    """Elementwise max(x, 0) - x·label + log(1 + exp(-|x|)) (the
+    reference's nn_ops.py:605): 0 where the label equals ``ignore_index``;
+    with ``normalize``, divided by the count of labels not ignored."""
+    x = first(ins, "X")
+    label = first(ins, "Label")
+    ignore = attrs.get("ignore_index", -100)
+    loss = torch.clamp_min(x, 0) - x * label + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+    loss = torch.where(label == ignore, torch.zeros_like(loss), loss)
+    if attrs.get("normalize", False):
+        norm = torch.clamp_min((label != ignore).to(x.dtype).sum(), 1.0)
+        loss = loss / norm
+    return as_out(loss)
 
 
 @register("square_error_cost")

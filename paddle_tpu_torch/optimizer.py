@@ -1,6 +1,6 @@
 """Optimizers: minimize = append_backward + per-param update ops (a copy
 of ``paddle_tpu/optimizer.py``, for the optimizers whose update ops the
-port has: SGD, Momentum and Adam).
+port has: SGD, Momentum, Adagrad and Adam).
 
 Reference: ``python/paddle/fluid/optimizer.py`` — `Optimizer.minimize`
 (:357) = `backward()` + `apply_gradients` (:286,318);
@@ -172,6 +172,24 @@ class MomentumOptimizer(Optimizer):
             attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
+class AdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            type="adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name]},
+            attrs={"epsilon": self._epsilon})
 
 
 class AdamOptimizer(Optimizer):
@@ -213,4 +231,5 @@ class AdamOptimizer(Optimizer):
 # fluid-style lowercase aliases
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer

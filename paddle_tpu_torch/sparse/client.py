@@ -1,0 +1,281 @@
+"""Trainer-side sharded-table client: batched, deduplicated lookups and
+routed async grad pushes (the port of ``paddle_tpu/sparse/client.py``).
+
+The lookup path is where the engine earns its keep: the batch's ids are
+deduped once on host, translated to shard-local indices, and fetched
+with ONE ``sparse_lookup`` RPC per owning shard — all shards in flight
+concurrently on their per-endpoint ordered lanes (``host_ops._lane``),
+which also gives read-your-writes against this trainer's own pushes
+without any barrier.  A shard this process itself owns is served by a
+direct in-process gather (``table.bind_local_server``), never the wire.
+
+Read-your-writes holds for lookups issued at their program position
+(after the previous step's pushes hit the lanes).  The reference's
+prefetch-ahead (``feed_next``), which trades one push round of
+staleness for hiding the wire time, is not ported yet.
+
+Failures are NAMED: a dead/unreachable shard raises
+:class:`TableShardLostError` carrying (table, shard, endpoint), so a
+killed table-owning rank surfaces as a located, restartable condition
+instead of a generic socket traceback or a hang.
+"""
+
+import time
+
+import numpy as np
+
+from ..observability.trace import TRACER, bind, current_sampled
+from ..profiler import record_span
+from ..resilience.breaker import CircuitOpenError
+from . import table as table_mod
+from .gather import dedup_ids, pad_bucket
+from .metrics import METRICS
+
+
+class TableShardLostError(ConnectionError):
+    """A sharded-table RPC failed against the owning shard: names the
+    table, shard index, and endpoint (the chaos contract — a killed
+    table-owning rank must surface as THIS, not a hang)."""
+
+    def __init__(self, table, shard, endpoint, cause):
+        super().__init__(
+            f"sparse table {table!r} shard {shard} at {endpoint} "
+            f"unreachable: {cause}")
+        self.table = table
+        self.shard = shard
+        self.endpoint = endpoint
+        self.cause = cause
+
+
+def _default_client():
+    from ..distributed.rpc import RPCClient
+
+    return RPCClient()
+
+
+class SparseTableClient:
+    """Lookup/push client for ONE declared table."""
+
+    def __init__(self, cfg, rpc=None, trainer_id=0):
+        self.cfg = cfg
+        self.part = cfg.partition
+        self.rpc = rpc or _default_client()
+        self.trainer_id = trainer_id
+
+    def _lane(self, shard):
+        from ..distributed.host_ops import _lane
+
+        return _lane(self.cfg.endpoints[shard])
+
+    def _wrap(self, shard, e):
+        METRICS.inc("shard_errors")
+        return TableShardLostError(self.cfg.name, shard,
+                                   self.cfg.endpoints[shard], e)
+
+    # -- lookup -------------------------------------------------------------
+
+    def issue_lookup(self, flat_ids, bucket=True):
+        """Start a batched lookup; returns ``collect() -> [N, D]``.
+
+        Split so the executor can overlap the RPCs with device compute
+        (the ``issue_distributed_lookup`` contract).  Dedup and shard
+        routing happen at issue time; collect assembles request order
+        via the dedup inverse."""
+        t0 = time.perf_counter()
+        flat = np.asarray(flat_ids).reshape(-1).astype(np.int64)
+        self.part.check_rows(flat)
+        uniq, inv = dedup_ids(flat)
+        n_uniq = len(uniq)
+        shard_of = self.part.shard_of(uniq)
+        local = self.part.local_of(uniq)
+        pending = []             # (mask, shard, future|None, rows, n)
+        colocated = []           # (mask, shard, idx, n, srv)
+        rpc_calls = rpc_rows = local_rows = padded = 0
+
+        def _padded_idx(loc):
+            # bucket-pad EVERY shard's index vector (pad rows read row
+            # 0, sliced off after): a device_table shard server keys
+            # its gather executable on the index shape, so unpadded
+            # per-batch unique counts would compile one executable per
+            # distinct count — the regime the pow2 buckets exist to
+            # prevent — remote exactly as colocated
+            n = loc.shape[0]
+            n_pad = pad_bucket(n) if bucket else n
+            idx = np.zeros((n_pad,), np.int64)
+            idx[:n] = loc
+            return idx, n, n_pad - n
+
+        # the ambient sampled trace context (None = untraced, one
+        # thread-local read): each remote shard's RPC gets a client
+        # span whose context rides the frame trailer, so the shard
+        # server's handler span parents under it cross-host
+        tctx = current_sampled()
+        spans = {}
+        # submit every REMOTE shard's RPC first: the wire time then
+        # overlaps the in-process gather below (a colocated device
+        # gather inside this loop would delay later shards' frames and
+        # shrink exactly the overlap the issue/collect split exists
+        # for)
+        for s in range(self.cfg.num_shards):
+            mask = shard_of == s
+            if not mask.any():
+                continue
+            idx, n, pad = _padded_idx(local[mask])
+            padded += pad
+            srv = table_mod.local_server(self.cfg.name, s)
+            if srv is not None:
+                colocated.append((mask, s, idx, n, srv))
+                continue
+            rpc_calls += 1
+            rpc_rows += n
+            call = self.rpc.sparse_lookup
+            if tctx is not None:
+                sp = TRACER.start_span(
+                    "rpc/sparse_lookup", tctx,
+                    attrs={"table": self.cfg.name, "shard": s,
+                           "endpoint": self.cfg.endpoints[s],
+                           "rows": int(n)})
+                spans[s] = sp
+                # bind the CLIENT span's context onto the lane thread:
+                # send_frame there attaches the trailer, making the
+                # server's span a child of this one
+                call = bind(call, sp.ctx())
+            fut = self._lane(s).submit(
+                call, self.cfg.endpoints[s],
+                self.cfg.name, idx, self.trainer_id)
+            pending.append((mask, s, fut, None, n))
+        for mask, s, idx, n, srv in colocated:
+            local_rows += n
+            pending.append((mask, s, None,
+                            srv.lookup_local(self.cfg.name, idx)[:n],
+                            n))
+
+        def collect():
+            if spans:
+                try:
+                    return _collect()
+                finally:
+                    # one failing shard must not leave the OTHER
+                    # shards' client spans (or its own, on a handler
+                    # reply_error) open and unrecorded — end_span is
+                    # idempotent, so spans the loop already closed
+                    # (success or with the real error) are untouched;
+                    # the stragglers are marked abandoned, never
+                    # recorded as clean completions (their results
+                    # were never consumed)
+                    for sp in spans.values():
+                        TRACER.end_span(
+                            sp, error="abandoned: sibling shard "
+                                      "failed before collect")
+            return _collect()
+
+        def _collect():
+            out_uniq = np.zeros((n_uniq, self.cfg.dim),
+                                np.dtype(self.cfg.dtype))
+            for mask, s, fut, rows, n in pending:
+                if fut is not None:
+                    try:
+                        rows = fut.result()[:n]
+                    except (OSError, ConnectionError,
+                            CircuitOpenError) as e:
+                        TRACER.end_span(spans.get(s), error=e)
+                        raise self._wrap(s, e) from e
+                    except Exception as e:
+                        # handler errors (reply_error -> RuntimeError)
+                        # close the span too before propagating
+                        TRACER.end_span(spans.get(s), error=e)
+                        raise
+                    TRACER.end_span(spans.get(s))
+                out_uniq[mask] = rows
+            out = out_uniq[inv]
+            pad = self.cfg.padding_idx
+            if pad != -1:
+                out[flat == pad] = 0.0
+            t1 = time.perf_counter()
+            METRICS.observe_lookup(
+                flat.shape[0], n_uniq, padded, rpc_calls, rpc_rows,
+                local_rows, (t1 - t0) * 1000.0)
+            record_span("sparse/lookup", t0, t1)
+            return out
+
+        return collect
+
+    def lookup(self, flat_ids, bucket=True):
+        return self.issue_lookup(flat_ids, bucket=bucket)()
+
+    # -- push ---------------------------------------------------------------
+
+    def push(self, rows, values, wait=False):
+        """Route a SelectedRows-style gradient to its owning shards.
+
+        Duplicates are merged host-side (np.add.at — the reference's
+        merge-add), padding_idx rows dropped, and each shard gets one
+        ``sparse_push`` with LOCAL indices.  Fire-and-forget on the
+        endpoint lanes by default (tracked: failures surface at the
+        next flush/close with the table@shard named); ``wait=True``
+        blocks (tests)."""
+        from ..distributed.host_ops import _track
+
+        t0 = time.perf_counter()
+        rows = np.asarray(rows).reshape(-1).astype(np.int64)
+        values = np.asarray(values).reshape(rows.shape[0], -1)
+        if self.cfg.padding_idx != -1:
+            keep = rows != self.cfg.padding_idx
+            rows, values = rows[keep], values[keep]
+        if rows.size == 0:
+            return
+        self.part.check_rows(rows)
+        uniq, inv = dedup_ids(rows)
+        merged = np.zeros((len(uniq), values.shape[1]), values.dtype)
+        np.add.at(merged, inv, values)
+        shard_of = self.part.shard_of(uniq)
+        local = self.part.local_of(uniq)
+        calls = 0
+        tctx = current_sampled()     # one thread-local read per push
+        for s in range(self.cfg.num_shards):
+            mask = shard_of == s
+            if not mask.any():
+                continue
+            srv = table_mod.local_server(self.cfg.name, s)
+            if srv is not None:
+                srv.push_local(self.cfg.name, local[mask],
+                               merged[mask])
+                continue
+            calls += 1
+            ep = self.cfg.endpoints[s]
+            call = self.rpc.sparse_push
+            if tctx is not None:
+                sp = TRACER.start_span(
+                    "rpc/sparse_push", tctx,
+                    attrs={"table": self.cfg.name, "shard": s,
+                           "endpoint": ep,
+                           "rows": int(mask.sum())})
+                call = bind(call, sp.ctx())
+            fut = self._lane(s).submit(
+                call, ep, self.cfg.name, local[mask],
+                merged[mask], self.trainer_id)
+            if tctx is not None:
+                # fire-and-forget: the lane future's completion (not
+                # the caller) closes the client span
+                fut.add_done_callback(
+                    lambda f, sp=sp: TRACER.end_span(
+                        sp, error=None if f.cancelled()
+                        else f.exception()))
+            what = (f"sparse_push {self.cfg.name}@shard{s} -> {ep}")
+            if wait:
+                try:
+                    fut.result()
+                except (OSError, ConnectionError,
+                        CircuitOpenError) as e:
+                    raise self._wrap(s, e) from e
+            else:
+                _track(fut, what, ep)
+        t1 = time.perf_counter()
+        METRICS.observe_push(len(uniq), calls, (t1 - t0) * 1000.0)
+        record_span("sparse/push", t0, t1)
+
+    def flush(self):
+        """Wait for this table's in-flight pushes (barrier/step-end)."""
+        from ..distributed.host_ops import flush_pending_sends
+
+        flush_pending_sends(self.cfg.endpoints)

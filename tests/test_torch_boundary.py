@@ -31,9 +31,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
-# the modules of the pass pipeline, the int8 serving path and the RNN
-# slice, imported with jax and paddle_tpu made unimportable (a None entry
-# in sys.modules)
+# the modules of the pass pipeline, the int8 serving path, the RNN slice
+# and the CTR slice, imported with jax and paddle_tpu made unimportable (a
+# None entry in sys.modules)
 NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.passes.quantize",
                "paddle_tpu_torch.ops.quant_kernels",
@@ -43,7 +43,18 @@ NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.ops.rnn_ops",
                "paddle_tpu_torch.ops.sequence_ops",
                "paddle_tpu_torch.layers.rnn",
-               "paddle_tpu_torch.layers.control_flow")
+               "paddle_tpu_torch.layers.control_flow",
+               "paddle_tpu_torch.sparse",
+               "paddle_tpu_torch.sparse.engine",
+               "paddle_tpu_torch.sparse.gather",
+               "paddle_tpu_torch.sparse.shard_server",
+               "paddle_tpu_torch.distributed.transport",
+               "paddle_tpu_torch.distributed.rpc",
+               "paddle_tpu_torch.distributed.host_ops",
+               "paddle_tpu_torch.resilience.breaker",
+               "paddle_tpu_torch.core.selected_rows",
+               "paddle_tpu_torch.observability.propagate",
+               "paddle_tpu_torch.models.ctr")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

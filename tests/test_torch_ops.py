@@ -149,15 +149,30 @@ def test_port_random_op_distribution(op_type, attrs):
 def test_port_train_mode_dropout_and_grad_ops_raise():
     """What still raises now that the port trains: a grad op with neither
     a custom kernel nor the generic form (append_backward never emits
-    one), and the sparse table grad, which waits for SelectedRows."""
+    one).  The sparse table grad, which raised until the port had
+    SelectedRows, now gives the JAX package's rows and values."""
     with pytest.raises(NotImplementedError, match="No kernel registered"):
         port_registry.run_op("mul_grad", {}, {})
-    w, ids = torch.ones(4, 3), torch.zeros(2, 1, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="SelectedRows"):
-        port_registry.run_op(
-            "lookup_table_grad",
-            {"W": [w], "Ids": [ids], "Out@GRAD_OUT": [torch.ones(2, 3)]},
-            {"fw_attrs": {"is_sparse": True}})
+    rng = np.random.RandomState(7)
+    w = rng.standard_normal((6, 3)).astype(np.float32)
+    ids = np.array([[4], [1], [4], [2]], np.int64)
+    og = rng.standard_normal((4, 3)).astype(np.float32)
+    attrs = {"fw_attrs": {"is_sparse": True, "padding_idx": 2}}
+    got = port_registry.run_op(
+        "lookup_table_grad", {"W": [torch.from_numpy(w)],
+                              "Ids": [torch.from_numpy(ids)],
+                              "Out@GRAD_OUT": [torch.from_numpy(og)]},
+        attrs)["W@GRAD"][0]
+    want = jax_registry.run_op(
+        "lookup_table_grad", {"W": [jnp.asarray(w)], "Ids": [jnp.asarray(ids)],
+                              "Out@GRAD_OUT": [jnp.asarray(og)]},
+        attrs)["W@GRAD"][0]
+    assert got.height == want.height == 6
+    np.testing.assert_array_equal(got.rows.numpy(), np.asarray(want.rows))
+    np.testing.assert_array_equal(got.values.numpy(),
+                                  np.asarray(want.values))
+    np.testing.assert_array_equal(got.to_dense().numpy(),
+                                  np.asarray(want.to_dense()))
 
 
 # ---------------------------------------------------------------------------

@@ -84,7 +84,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    exactly 4 times a step, every shard's device mirror equal to its host
    block after the run, step time, examples/s, ids/s, the dedup ratio
    and padding waste, and a profile of one step.
-17. report: a "kernels" JSON line, then the result line
+17. fused dropout kernel vs plain: K10 (fused_dropout) against its plain
+   version, bit for bit, Out and input-grad, at BERT-base's and NMT's
+   dropout shapes and a ragged one, both implementations, p 0.1 and 0.5,
+   fp32 and bf16; the keep rate within 4 sigma; kernel, plain and
+   F.dropout times; then K1, K2a and K2b against their plain versions at
+   NMT's attention shapes (T 16, 32, 64 at 4096 tokens, full bias).
+18. NMT parity: bench.py's transformer NMT at width 512, 2 layers,
+   vocabulary 1000, dropout 0.1 with FLAGS_use_fused_dropout (K10 on the
+   card, the plain version on the CPU: the same bits), 3 Adam steps on
+   the card against 3 on the CPU from one state.
+19. NMT training: the same at bench.py's fp32 configuration (6 + 6
+   layers, d_model 512, d_inner 2048, vocabulary 30000, label smoothing
+   0.1, Adam 2e-4, 4096 tokens a batch at T 16, 32, 64), two batches a
+   bucket: K10 launched twice per dropout op a step (84), K1 36 and
+   K2a/K2b 18 a step, step time per bucket, target tokens/s, peak
+   memory, a profile of one step.  (Phase 9 also runs one BERT step
+   with the flag on: K10's 74 launches and the device busy beside the
+   plain dropout's.)
+20. NMT decode: the trained model's forward, cloned for test, through
+   make_program_step_fn -> ContinuousBatchingEngine over the paged KV
+   pool (8 slots, max_len 64, a shared system prompt, 32 requests of
+   mixed budgets): greedy tokens equal lockstep_decode's, sampled
+   slot-mates leave them unchanged and a seed reproduces its tokens, a
+   speculative run accepts every draft, one step shape, no block held
+   after the drain; tokens/s, per-token latency, the step's device-to-
+   host copy.
+21. report: a "kernels" JSON line, then the result line
    {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
@@ -197,6 +223,9 @@ KERNELS = {
     "gather": {"name": "gather_rows", "route": "cuda",
                "source": "paddle_tpu_torch/csrc/gather_rows.cu",
                "replaces": "paddle_tpu/sparse/gather.py:54"},
+    "dropout": {"name": "fused_dropout", "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/fused_dropout.cu",
+                "replaces": "paddle_tpu/ops/pallas_kernels.py:1405"},
 }
 # the CTR slice: bench.py's CTR configuration (bench.py:268-316, Paddle's
 # CTR DNN on Criteo): 26 categorical slots through one shared deep table
@@ -205,6 +234,32 @@ KERNELS = {
 # both tables row-sharded over 2 shard servers (shard 0 colocated, shard 1
 # over RPC on 127.0.0.1), each gathering through K11 on the card
 CTR_B, CTR_SHARDS, CTR_STEPS, CTR_PARITY_STEPS = 4096, 2, 6, 3
+# the NMT slice: bench.py's transformer-base NMT configuration at fp32
+# (bench.py:190-265, bench_nmt(amp=False); BASELINE.json's "Transformer
+# NMT"): 6 + 6 layers, 8 heads, d_model 512, d_inner 2048, vocabulary
+# 30000 on each side (no shared embeddings), label smoothing 0.1, dropout
+# 0.1, Adam 2e-4, batches of 4096 tokens bucketed to T = 16, 32, 64 with
+# lengths in (T/2, T]; FLAGS_use_fused_dropout on, so each of its 42
+# dropout ops runs K10.  Its card-vs-CPU parity at 2 layers, vocabulary
+# 1000, 512 tokens a batch
+NMT = dict(vocab=30000, n_layer=6, n_head=8, d_model=512, d_inner=2048)
+NMT_BUCKETS, NMT_TOKENS, NMT_BATCHES_PER_BUCKET = (16, 32, 64), 4096, 2
+NMT_PARITY = dict(NMT, vocab=1000, n_layer=2)
+# K10 at the dropout shapes of BERT-base training ([32, 128] x hidden and
+# x intermediate), of NMT's buckets ([4096 / T, T] x d_model or d_inner)
+# and a ragged one; the kernels line reports the NMT FFN's [128, 32, 2048]
+DROPOUT_SHAPES = [("bert_b32_t128_d768", (32, 128, 768)),
+                  ("bert_b32_t128_d3072", (32, 128, 3072)),
+                  ("nmt_b256_t16_d512", (256, 16, 512)),
+                  ("nmt_b128_t32_d2048", (128, 32, 2048)),
+                  ("nmt_b64_t64_d512", (64, 64, 512)),
+                  ("ragged_3x5x7", (3, 5, 7))]
+# decode serving of the trained NMT model (bench.py:613-720's pattern at
+# transformer-base width): 8 slots, max_len 64, source length 32, a shared
+# 5-token system prompt (bos + 4), eos never produced (eos_id -1), groups
+# of one long and seven short budgets
+DEC_SLOTS, DEC_LEN, DEC_SRC, DEC_GROUPS = 8, 64, 32, 4
+DEC_LONG, DEC_SHORT, DEC_SYS = 24, 3, [0, 3, 4, 5, 6]
 
 
 def phase(name):
@@ -878,7 +933,8 @@ def profile_batch(torch, pred, feed, smi):
 
 def profile_run(torch, run, label, smi):
     """One run() under torch.profiler: its wall time, the device's busy
-    time and idle share, and the kernels that fill it."""
+    time and idle share, and the kernels that fill it.  Returns {"wall",
+    "busy" (ms), "rows" [(device kernel, ms, count)]}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -909,6 +965,7 @@ def profile_run(torch, run, label, smi):
     print(f"  host: {sum(r[2] for r in host)} torch operator calls, "
           f"{sum(r[1] for r in host):.6f} ms of self CPU time; top: " +
           ", ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in host[:6]))
+    return {"wall": prof_wall, "busy": busy, "rows": rows}
 
 
 def pretrain_program(fluid, num_layers, dropout):
@@ -966,6 +1023,7 @@ def training_phase(torch, smi):
     """BERT-base pretraining on the card: the main path of this slice."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
 
     phase(f"training BERT-base: 12 layers, batch {TRAIN_B}, seq {TRAIN_T}, "
           f"dropout 0.1, Adam, {TRAIN_STEPS} steps")
@@ -1010,9 +1068,32 @@ def training_phase(torch, smi):
                          f"{losses}")
     if launches != want:
         raise SystemExit(f"kernel launches {launches}, expected {want}")
-    profile_run(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
-                                       scope=scope),
-                f"one training step (batch {TRAIN_B}, seq {TRAIN_T})", smi)
+
+    def one_step():
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    busy = {False: profile_run(
+        torch, one_step, f"one training step (batch {TRAIN_B}, seq "
+        f"{TRAIN_T})", smi)["busy"]}
+    # the same step with every dropout through K10
+    n_drop = sum(op.type == "dropout" for op in main.global_block().ops)
+    fluid.set_flags({"use_fused_dropout": True})
+    one_step()
+    torch.cuda.synchronize()
+    dk.fused_dropout.launches = 0
+    one_step()
+    launches["dropout_bert"] = dk.fused_dropout.launches
+    busy[True] = profile_run(
+        torch, one_step, f"one training step with FLAGS_use_fused_dropout "
+        f"(batch {TRAIN_B}, seq {TRAIN_T})", smi)["busy"]
+    fluid.set_flags({"use_fused_dropout": False})
+    print(f"[{smi}] BERT-base step device busy: plain dropout "
+          f"{busy[False]:.6f} ms, K10 {busy[True]:.6f} ms; K10 launches a "
+          f"step {launches['dropout_bert']} ({n_drop} dropout ops, forward "
+          f"and backward)")
+    if launches["dropout_bert"] != 2 * n_drop:
+        raise SystemExit(f"fused_dropout ran {launches['dropout_bert']} "
+                         f"times in a BERT step, expected {2 * n_drop}")
     return launches
 
 
@@ -1631,6 +1712,440 @@ def ctr_training_phase(torch, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the NMT slice: K10, transformer-base NMT training, decode serving
+# ---------------------------------------------------------------------------
+
+def bits_equal(torch, a, b):
+    """Equal bit for bit (signed zeros and NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return torch.equal(a.contiguous().view(view[a.dtype]),
+                       b.contiguous().view(view[b.dtype]))
+
+
+def nmt_kernel_phase(torch):
+    """K10 against its plain version, bit for bit, Out and the input-grad
+    (the backward is K10 on the cotangent), at the dropout shapes of
+    BERT-base training and of NMT's three buckets and a ragged one, with
+    both implementations, p 0.1 and 0.5, fp32 and bf16; the keep rate
+    within 4 sigma of 1 - p; kernel, plain and F.dropout times (F.dropout
+    draws other bits: a yardstick of time only) against the bound (x
+    read once, out written once, over 3.35 TB/s).  Then K1, K2a and K2b
+    against their plain versions at NMT's attention shapes (D 64, 8
+    heads, T 16/32/64 at 4096 tokens, a full causal-and-padding bias,
+    attention dropout 0.1, no bias grad)."""
+    from paddle_tpu_torch.models.transformer import make_attn_biases
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+
+    phase("fused dropout kernel vs plain (K10); K1/K2 at the NMT shapes")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows = {}
+    for si, (name, shape) in enumerate(DROPOUT_SHAPES):
+        n = int(np.prod(shape))
+        checked, worst = [], 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            cot = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for p in (0.1, 0.5):
+                for upscale in (True, False):
+                    seed = SEED + 100 * si + int(p * 10) + 2 * upscale
+                    leaf = x.detach().requires_grad_()
+                    out = dk.fused_dropout(leaf, p, seed, upscale)
+                    (dx,) = torch.autograd.grad(out, leaf, cot)
+                    ref_leaf = x.detach().requires_grad_()
+                    ref = dk.fused_dropout_reference(ref_leaf, p, seed,
+                                                     upscale)
+                    (dref,) = torch.autograd.grad(ref, ref_leaf, cot)
+                    torch.cuda.synchronize()
+                    same = bits_equal(torch, out, ref) and \
+                        bits_equal(torch, dx, dref)
+                    errs = (max_err(torch, out, ref),
+                            max_err(torch, dx, dref))
+                    checked.append(same)
+                    worst = max(worst, *errs)
+                    if not same:
+                        raise SystemExit(
+                            f"fused_dropout disagrees with its plain "
+                            f"version on {name} {dtype} p {p} upscale "
+                            f"{upscale}: max_abs_err {errs[0]:.3e}, grad "
+                            f"{errs[1]:.3e}")
+        rates = []
+        for p in (0.1, 0.5):
+            keep = dk.fused_dropout_fwd(torch.ones(shape, device="cuda"), p,
+                                        SEED + si, upscale=False)
+            rate = keep.mean(dtype=torch.float64).item()
+            sigma = (p * (1 - p) / n) ** 0.5
+            rates.append(f"p {p}: keep rate {rate:.6f} "
+                         f"({(rate - (1 - p)) / sigma:+.2f} sigma)")
+            if abs(rate - (1 - p)) > 4 * sigma:
+                raise SystemExit(f"fused_dropout keep rate {rate} at p {p} "
+                                 f"on {name}: beyond 4 sigma of {1 - p}")
+        x = torch.randn(shape, generator=g, device="cuda")
+        row = {"max_abs_err": worst, **bound_row(2 * 4 * n, n),
+               "ms": time_ms(torch, lambda: dk.fused_dropout_fwd(
+                   x, 0.1, SEED, True)),
+               "plain_ms": time_ms(torch, lambda: dk.fused_dropout_reference(
+                   x, 0.1, SEED, True)),
+               "library_ms": time_ms(torch, lambda: torch.nn.functional
+                                     .dropout(x, 0.1, training=True))}
+        rows[name] = row
+        print(f"fused_dropout {name} {tuple(shape)}: {len(checked)} cases "
+              f"(fp32, bf16; p 0.1, 0.5; both implementations) equal bit "
+              f"for bit, Out and grad; {'; '.join(rates)}; fp32 p 0.1: "
+              f"kernel {row['ms']:.6f} ms plain {row['plain_ms']:.6f} ms "
+              f"F.dropout {row['library_ms']:.6f} ms bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
+
+    h, d = NMT["n_head"], NMT["d_model"] // NMT["n_head"]
+    for i, t in enumerate(NMT_BUCKETS):
+        b = NMT_TOKENS // t
+        lens = np.random.RandomState(SEED + i).randint(t // 2 + 1, t + 1, b)
+        _, trg_bias, _ = make_attn_biases(lens, lens, h, t, t)
+        bias = torch.from_numpy(trg_bias).cuda()
+        q, k, v = [torch.randn(b, h, t, d, generator=g, device="cuda")
+                   for _ in range(3)]
+        dout = torch.randn_like(q)
+        seed = SEED + 50 + i
+        args = (q, k, v, bias, False, d ** -0.5, 0.1, seed)
+        out, lse = ak.flash_attention_fwd(*args, with_lse=True)
+        delta = ak.attention_delta(dout, out)
+        bwd = (q, k, v, bias, dout, lse, delta, False, d ** -0.5, 0.1, seed)
+        dk_, dv = ak.flash_attention_bwd_dkv(*bwd)
+        dq, _ = ak.flash_attention_bwd_dq(*bwd)
+        out_r, lse_r = ak.flash_attention_reference(*args, return_lse=True)
+        dq_r, dk_r, dv_r, _ = ak.flash_attention_backward_reference(
+            q, k, v, bias, out, lse, dout, False, d ** -0.5, 0.1, seed)
+        torch.cuda.synchronize()
+        errs = {"out": max_err(torch, out, out_r),
+                "lse": max_err(torch, lse, lse_r),
+                "dq": max_err(torch, dq, dq_r),
+                "dk": max_err(torch, dk_, dk_r),
+                "dv": max_err(torch, dv, dv_r)}
+        tols = {"out": TRAIN_ATOL["out"]["float32"],
+                "lse": TRAIN_ATOL["lse"]}
+        tols.update((e, TRAIN_ATOL["grad"]["float32"])
+                    for e in ("dq", "dk", "dv"))
+        fwd_ms = time_ms(torch, lambda: ak.flash_attention_fwd(
+            *args, with_lse=True))
+        bwd_ms = time_ms(torch, lambda: (ak.flash_attention_bwd_dkv(*bwd),
+                                         ak.flash_attention_bwd_dq(*bwd)))
+        print(f"NMT attention T {t}: q {tuple(q.shape)} fp32, full bias "
+              f"{tuple(bias.shape)}, dropout 0.1: max_abs_err " +
+              " ".join(f"{e} {errs[e]:.3e} (atol {tols[e]:g})"
+                       for e in errs) +
+              f"; K1 {fwd_ms:.6f} ms, K2a + K2b {bwd_ms:.6f} ms", flush=True)
+        bad = [e for e in errs if not errs[e] <= tols[e]]
+        if bad:
+            raise SystemExit(f"K1/K2 disagree with their plain versions at "
+                             f"the NMT shape T {t}: "
+                             f"{ {e: errs[e] for e in bad} }")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def nmt_program(fluid, vocab, n_layer, n_head, d_model, d_inner):
+    """bench.py's NMT training program (transformer(...), label smoothing
+    0.1, dropout 0.1, Adam 2e-4) with seeds fixed to SEED: (main,
+    startup, loss, predict, infer).  `infer` is the forward cloned for
+    test before minimize, pruned to `predict`: the decode program."""
+    from paddle_tpu_torch.models.transformer import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        loss, predict, _ = transformer(
+            vocab, vocab, max(NMT_BUCKETS) + 1, n_layer, n_head,
+            d_model // n_head, d_model // n_head, d_model, d_inner,
+            dropout_rate=0.1, label_smooth_eps=0.1)
+        infer = main.clone(for_test=True)._prune([predict])
+        fluid.optimizer.Adam(learning_rate=2e-4).minimize(loss)
+    return main, startup, loss, predict, infer
+
+
+def nmt_batch(rng, t, vocab, n_head, tokens=NMT_TOKENS):
+    """bench.py's make_batch (bench.py:221-236): tokens // t sentences,
+    lengths in (t/2, t], padded to t; the real target tokens counted."""
+    from paddle_tpu_torch.models.transformer import make_attn_biases
+
+    b = max(1, tokens // t)
+    src_lens = rng.randint(t // 2 + 1, t + 1, b)
+    trg_lens = rng.randint(t // 2 + 1, t + 1, b)
+    sw = rng.randint(1, vocab, (b, t)).astype(np.int64)
+    tw = rng.randint(1, vocab, (b, t)).astype(np.int64)
+    pos = np.tile(np.arange(t, dtype=np.int64), (b, 1))
+    sb, tb, xb = make_attn_biases(src_lens, trg_lens, n_head, t, t)
+    lblw = (np.arange(t)[None, :] < trg_lens[:, None]).astype(
+        np.float32)[..., None]
+    return {"src_word": sw, "src_pos": pos, "trg_word": tw, "trg_pos": pos,
+            "src_slf_attn_bias": sb, "trg_slf_attn_bias": tb,
+            "trg_src_attn_bias": xb, "lbl_word": tw[..., None],
+            "lbl_weight": lblw}, int(trg_lens.sum())
+
+
+def nmt_parity_phase(torch):
+    """NMT at full width, 2 layers, dictionary 1000, dropout 0.1 with
+    FLAGS_use_fused_dropout on: 3 Adam steps on the card (every dropout
+    through K10) against 3 on the CPU (the plain version: the same
+    bits) from one state."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+
+    phase(f"NMT parity: {NMT_PARITY['n_layer']} layers, width "
+          f"{NMT_PARITY['d_model']}, dictionary {NMT_PARITY['vocab']}, "
+          f"dropout 0.1 through K10, card vs CPU")
+    fluid.set_flags({"use_fused_dropout": True})
+    main, startup, loss, _, _ = nmt_program(fluid, **NMT_PARITY)
+    n_drop = sum(op.type == "dropout" for op in main.global_block().ops)
+    feed, _ = nmt_batch(np.random.RandomState(SEED + 14), 32,
+                        NMT_PARITY["vocab"], NMT_PARITY["n_head"],
+                        tokens=512)
+    launches = card_vs_cpu(fluid, main, startup, loss, [feed] * 3,
+                           f"NMT {NMT_PARITY['n_layer']} layers, dropout 0.1",
+                           counters=(dk.fused_dropout,))
+    want = 2 * n_drop * 3
+    if launches["fused_dropout"] != want:
+        raise SystemExit(f"fused_dropout launches {launches}, expected "
+                         f"{want} (forward and backward of {n_drop} "
+                         f"dropout ops, 3 steps)")
+    fluid.set_flags({"use_fused_dropout": False})
+    torch.cuda.empty_cache()
+
+
+def nmt_training_phase(torch, smi):
+    """Transformer-base NMT trained on the card at bench.py's fp32
+    configuration, FLAGS_use_fused_dropout on: the main path of this
+    slice.  Two batches per bucket, each run once to warm its shape, then
+    once more timed with the kernels' launches counted."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+
+    phase(f"training NMT: transformer-base ({NMT['n_layer']} + "
+          f"{NMT['n_layer']} layers, d_model {NMT['d_model']}, d_inner "
+          f"{NMT['d_inner']}, vocabulary {NMT['vocab']}), {NMT_TOKENS} "
+          f"tokens a batch bucketed to T {NMT_BUCKETS}, label smoothing "
+          f"0.1, dropout 0.1 through K10, Adam 2e-4")
+    fluid.set_flags({"use_fused_dropout": True})
+    t0 = time.perf_counter()
+    main, startup, loss, predict, infer = nmt_program(fluid, **NMT)
+    ops = main.global_block().ops
+    n_drop = sum(op.type == "dropout" for op in ops)
+    n_attn = sum(op.type == "fused_attention" for op in ops)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    print(f"NMT: {n_params} parameters, {len(ops)} ops ({n_drop} dropout, "
+          f"{n_attn} fused_attention), built and started on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.RandomState(SEED + 15)
+    batches = [(t, *nmt_batch(rng, t, NMT["vocab"], NMT["n_head"]))
+               for t in NMT_BUCKETS for _ in range(NMT_BATCHES_PER_BUCKET)]
+
+    def step(feed):
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0])
+
+    warm = [step(feed) for _, feed, _ in batches]
+    counters = {"dropout": dk.fused_dropout, "fwd": ak.flash_attention,
+                "dkv": ak.flash_attention_bwd_dkv,
+                "dq": ak.flash_attention_bwd_dq}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, walls = [], {}
+    for t, feed, _ in batches:
+        t0 = time.perf_counter()
+        losses.append(step(feed))
+        walls.setdefault(t, []).append(time.perf_counter() - t0)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(batches)
+    # per step: every dropout op once forward and once on its cotangent;
+    # K1 in the forward op and again in the generic grad's recompute;
+    # K2a and K2b once per attention op
+    want = {"dropout": 2 * n_drop * steps, "fwd": 2 * n_attn * steps,
+            "dkv": n_attn * steps, "dq": n_attn * steps}
+    ntok = sum(n for _, _, n in batches)
+    total = sum(sum(w) for w in walls.values())
+    print(f"losses: warm pass {warm}, timed pass {losses}")
+    print(f"launches {launches} (expected {want}; per step "
+          f"{ {k: v // steps for k, v in launches.items()} })")
+    for t, w in walls.items():
+        b = NMT_TOKENS // t
+        print(f"[{smi}] bucket T {t} (batch {b}): step "
+              f"{statistics.median(w) * 1e3:.6f} ms (median of {len(w)})")
+    print(f"[{smi}] {ntok} real target tokens in {total:.6f} s: "
+          f"{ntok / total:.3f} target tokens/s; peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    if not np.isfinite(warm + losses).all() or \
+            not np.mean(losses) < np.mean(warm):
+        raise SystemExit(f"NMT losses are not finite and falling: warm "
+                         f"{warm}, then {losses}")
+    if launches != want:
+        raise SystemExit(f"NMT kernel launches {launches}, expected {want}")
+    feed32 = batches[2][1]
+    profile_run(torch, lambda: step(feed32),
+                f"one NMT training step (T 32, batch {NMT_TOKENS // 32})",
+                smi)
+    fluid.set_flags({"use_fused_dropout": False})
+    return launches["dropout"], (exe, scope, infer, predict)
+
+
+def nmt_decode_phase(torch, smi, trained):
+    """The trained NMT model decoded through ContinuousBatchingEngine over
+    the paged KV pool (bench.py:613-720's contract: make_program_step_fn
+    over the infer program, a feed_builder from lengths): greedy tokens
+    equal lockstep_decode's; a mixed run with sampled requests keeps the
+    greedy ones' tokens and a sampled request re-run with its seed gives
+    its tokens again; a speculative run (the target as its own draft,
+    k 2) accepts every draft and gives the greedy tokens; one step shape;
+    no block held after the drain."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import make_attn_biases
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+    from paddle_tpu_torch.serving.fleet import (
+        ContinuousBatchingEngine, ContinuousConfig, PagedKVConfig,
+        SpeculativeConfig, lockstep_decode, make_program_step_fn,
+        make_program_verify_fn)
+
+    exe, scope, infer, predict = trained
+    h, L, ts, vocab = NMT["n_head"], DEC_LEN, DEC_SRC, NMT["vocab"]
+    phase(f"decode NMT: ContinuousBatchingEngine over the paged KV pool, "
+          f"{DEC_SLOTS} slots, max_len {L}, source length {ts}, "
+          f"{DEC_GROUPS} groups of budgets {DEC_LONG} + {DEC_SHORT} x "
+          f"{DEC_SLOTS - 1}")
+
+    def feed_builder(prefix, lengths, context):
+        n = prefix.shape[0]
+        sb, tb, cb = make_attn_biases([ts] * n, [int(x) for x in lengths],
+                                      h, ts, L)
+        return {"src_word": context["src"],
+                "src_pos": np.tile(np.arange(ts), (n, 1)).astype(np.int64),
+                "trg_word": np.asarray(prefix)[:, :L],
+                "trg_pos": np.tile(np.arange(L), (n, 1)).astype(np.int64),
+                "src_slf_attn_bias": sb, "trg_slf_attn_bias": tb,
+                "trg_src_attn_bias": cb}
+
+    cfg = ContinuousConfig(
+        slots=DEC_SLOTS, max_len=L, bos_id=0, eos_id=-1,
+        context_spec={"src": ((ts,), np.int64)},
+        kv=PagedKVConfig(block_size=16))
+    rng = np.random.RandomState(SEED + 16)
+    budgets = ([DEC_LONG] + [DEC_SHORT] * (DEC_SLOTS - 1)) * DEC_GROUPS
+    srcs = [rng.randint(2, vocab, (ts,)).astype(np.int64) for _ in budgets]
+    sampled = {i: {"temperature": 0.8, "top_k": 40, "top_p": 0.9,
+                   "seed": SEED + i} for i in range(1, len(budgets), 2)}
+
+    def run(step, speculative=None, n=len(budgets), sampling=None):
+        eng = ContinuousBatchingEngine(step, cfg, speculative=speculative)
+        done = {}
+        try:
+            t0 = time.perf_counter()
+            reqs = []
+            for i in range(n):
+                r = eng.submit(DEC_SYS, context={"src": srcs[i]},
+                               max_new_tokens=budgets[i],
+                               sampling=(sampling or {}).get(i))
+                r.add_done_callback(
+                    lambda _r, i=i: done.setdefault(i, time.perf_counter()))
+                reqs.append(r)
+            outs = [r.result(600) for r in reqs]
+            wall = time.perf_counter() - t0
+            st = eng.stats()
+            eng._store.pool.check_invariants()
+        finally:
+            eng.stop()
+        per_tok = [(done[i] - t0) / budgets[i] * 1e3 for i in range(n)]
+        return outs, wall, st, per_tok
+
+    with fluid.scope_guard(scope):
+        step = make_program_step_fn(exe, infer, predict, feed_builder)
+        verify = make_program_verify_fn(exe, infer, predict, feed_builder,
+                                        k=2)
+        requests = [(DEC_SYS, {"src": s}, b) for s, b in zip(srcs, budgets)]
+        t0 = time.perf_counter()
+        lock, lock_steps = lockstep_decode(step, requests, cfg)
+        lock_s = time.perf_counter() - t0
+        counters = {"fwd": ak.flash_attention, "dropout": dk.fused_dropout}
+        for c in counters.values():
+            c.launches = 0
+        outs, wall, st, per_tok = run(step)
+        launches = {k: c.launches for k, c in counters.items()}
+        mixed, _, mst, _ = run(step, sampling=sampled)
+        first = min(sampled)
+        again, _, _, _ = run(step, n=first + 1, sampling={
+            first: sampled[first]})
+        spec, _, sst, _ = run(step, SpeculativeConfig(step, verify, k=2),
+                              n=DEC_SLOTS)
+        # one step's parts: the program's run, then the fetch of the
+        # whole [slots, L, V] probability tensor the step contract reads
+        probe = (np.zeros((DEC_SLOTS, L), np.int64),
+                 np.full(DEC_SLOTS, 8, np.int64),
+                 {"src": np.stack(srcs[:DEC_SLOTS])})
+        t0 = time.perf_counter()
+        (probs,) = exe.run(infer, feed=feed_builder(*probe),
+                           fetch_list=[predict], return_numpy=False)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        probs.cpu()
+        d2h_ms = (time.perf_counter() - t0) * 1e3
+        rows = profile_run(
+            torch, lambda: step(*probe),
+            f"one decode step ([{DEC_SLOTS}, {L}] prefix, "
+            f"[{DEC_SLOTS}, {L}, {vocab}] probabilities to the host)",
+            smi)["rows"]
+    dtoh = [(ms, c) for name, ms, c in rows if "DtoH" in name]
+    greedy_ok = all(np.array_equal(a, b) for a, b in zip(outs, lock))
+    mixed_ok = all(np.array_equal(mixed[i], lock[i])
+                   for i in range(len(budgets)) if i not in sampled)
+    reseed_ok = np.array_equal(again[first], mixed[first])
+    spec_ok = all(np.array_equal(a, b) for a, b in zip(spec, lock))
+    gen = sum(budgets)
+    kv = st["kv"]
+    held = kv["blocks_live"] - kv["blocks_cached"]
+    print(f"lockstep baseline: {lock_steps} steps in {lock_s:.6f} s")
+    print(f"[{smi}] continuous greedy: {gen} tokens in {wall:.6f} s, "
+          f"{gen / wall:.3f} tokens/s, {st['counters']['steps']} steps; "
+          f"per-token latency p50 {np.percentile(per_tok, 50):.6f} ms p99 "
+          f"{np.percentile(per_tok, 99):.6f} ms; step_ms {st['step_ms']}")
+    print(f"greedy tokens equal lockstep_decode's: {greedy_ok}; with "
+          f"{len(sampled)} sampled slot-mates the greedy ones unchanged: "
+          f"{mixed_ok}, sampled tokens {mst['counters']['sampled_tokens']};"
+          f" sampled request {first} re-run with its seed equal: "
+          f"{reseed_ok}; speculative (k 2, the target as draft) accept rate"
+          f" {sst['speculative']['accept_rate']}, tokens equal: {spec_ok}")
+    print(f"shape signatures: greedy {st['shape_signatures']}, mixed "
+          f"{mst['shape_signatures']}, speculative {sst['shape_signatures']};"
+          f" prefix hits {kv['counters']['prefix_hits']}, COW forks "
+          f"{kv['counters']['cow_forks']}, blocks held after the drain "
+          f"{held} ({kv['blocks_cached']} cached); decode launches "
+          f"{launches}")
+    print(f"[{smi}] decode step parts: infer program run {run_ms:.6f} ms; "
+          f"the [{DEC_SLOTS}, {L}, {vocab}] fp32 probabilities to the host "
+          f"{d2h_ms:.6f} ms (host clock); profiled DtoH copies {dtoh}")
+    if not (greedy_ok and mixed_ok and reseed_ok and spec_ok):
+        raise SystemExit("decode tokens disagree (see above)")
+    if sst["speculative"]["accept_rate"] != 1.0:
+        raise SystemExit("a target drafting for itself was not accepted")
+    if {st["shape_signatures"], mst["shape_signatures"],
+            sst["shape_signatures"]} != {1} or held != 0:
+        raise SystemExit("decode used more than one step shape or leaked "
+                         "KV blocks")
+    if launches["fwd"] != NMT["n_layer"] * 3 * st["counters"]["steps"] or \
+            launches["dropout"] != 0:
+        raise SystemExit(f"decode launches {launches}: expected K1 "
+                         f"{3 * NMT['n_layer']} times a step and no K10")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1660,6 +2175,11 @@ def main():
     gather_rows = ctr_kernel_phase(torch)
     ctr_parity_phase(torch)
     launches["gather"] = ctr_training_phase(torch, smi)
+    dropout_rows = nmt_kernel_phase(torch)
+    nmt_parity_phase(torch)
+    launches["dropout"], trained = nmt_training_phase(torch, smi)
+    decode = nmt_decode_phase(torch, smi, trained)
+    del trained
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -1674,6 +2194,11 @@ def main():
           f"{launches['softmax']}")
     print(f"gather_rows launches: CTR training {launches['gather']} over "
           f"{CTR_STEPS} steps")
+    nmt_steps = len(NMT_BUCKETS) * NMT_BATCHES_PER_BUCKET
+    print(f"fused_dropout launches: NMT training {launches['dropout']} over "
+          f"{nmt_steps} steps ({launches['dropout'] // nmt_steps} a step), "
+          f"BERT training {launches['dropout_bert']} in one step; "
+          f"flash_attention_fwd in NMT decode {decode['fwd']}")
     # the main paths' shapes: BERT-base training, fp32, dropout 0.1; and
     # the int8 serving batch's q/k/v/out projection (4 of 6 per layer)
     kernels = [dict(KERNELS[k], launches=launches[k],
@@ -1692,6 +2217,9 @@ def main():
     # the CTR slice's deep-table lookup on one shard
     kernels.append(dict(KERNELS["gather"], launches=launches["gather"],
                         **gather_rows["deep_n65536_d16_f32"]))
+    # the NMT slice's FFN-hidden dropout (T 32 bucket), fp32, p 0.1
+    kernels.append(dict(KERNELS["dropout"], launches=launches["dropout"],
+                        **dropout_rows["nmt_b128_t32_d2048"]))
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,8 @@ Entry points run on the card unless the caller asks for the CPU:
 instead of carrying on on the CPU.  Pass ``CPUPlace()`` to run on the CPU.
 """
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -180,6 +182,25 @@ def _block_io(block):
     return reads, writes
 
 
+def read_names(block, fetch_names=()):
+    """Every name an op of `block`, or of a block it holds, reads, plus
+    `fetch_names`: a kernel leaves out an optional output that is not
+    among them (``registry.output_read``; the dropout op's Mask).  A
+    ``generic_grad`` op's ``@FW_OUT`` inputs do not count: it recomputes
+    its forward and never reads them."""
+    reads = set(fetch_names)
+    stack = [block]
+    while stack:
+        for op in stack.pop().ops:
+            for slot, names in op.inputs.items():
+                if not (op.type == "generic_grad"
+                        and slot.endswith("@FW_OUT")):
+                    reads.update(names)
+            stack.extend(v for v in op.attrs.values()
+                         if isinstance(v, Block))
+    return reads
+
+
 def _run_block(block, env, read):
     """Run a block's ops in order.  `env` maps names to tensors; `read(n)`
     supplies a name the block reads before writing it (from the Scope).
@@ -193,6 +214,7 @@ def _run_block(block, env, read):
     from ..distributed import host_ops
 
     pending = {}                     # lookup output name -> collect()
+    ctx = registry.current()
     for op in block.ops:
         if op.type in ("feed", "fetch"):
             continue
@@ -218,8 +240,10 @@ def _run_block(block, env, read):
                 else:
                     host_ops.run_host_op(op, env)
                 continue
-            ins = {slot: [env[n] if n in env else read(n) for n in names]
+            ins = {slot: [env[n] if n in env else _absent(op, slot, n, read)
+                          for n in names]
                    for slot, names in op.inputs.items()}
+            ctx.op = op
             outs = registry.run_op(op.type, ins, op.attrs)
         except Exception as e:
             # PADDLE_ENFORCE-style context (enforce.h): name the op and
@@ -242,6 +266,15 @@ def _run_block(block, env, read):
         collect()                    # rows nobody read: land, surface errors
 
 
+def _absent(op, slot, name, read):
+    """A name the run has not written: from the Scope, or None for a
+    ``generic_grad`` op's forward output that was left out because
+    nothing reads it (see :func:`read_names`)."""
+    if op.type == "generic_grad" and slot.endswith("@FW_OUT"):
+        return None
+    return read(name)
+
+
 def _to_numpy(t):
     t = t.detach()
     if t.dtype == torch.bfloat16:
@@ -259,6 +292,9 @@ class Executor:
         # reseeded per random op from (program seed, op seed, step)
         self.generator = torch.Generator(device=self.device)
         self._step = 0
+        # read sets (read_names) by program, then by (its version, fetch
+        # list): the key the reference's executable cache uses
+        self._reads = weakref.WeakKeyDictionary()
         self._dist_endpoints = set()
         self._dist_trainer_id = 0
 
@@ -299,7 +335,8 @@ class Executor:
         ctx = registry.ExecContext(
             device=self.device, generator=self.generator,
             seed=program.random_seed, step=self._step,
-            is_test=program._is_test or registry.in_test_mode(), masks={})
+            is_test=program._is_test or registry.in_test_mode(), masks={},
+            reads=self._read_names(program, fetch_names))
         with torch.no_grad(), registry.exec_context(ctx):
             _run_block(block, env, read)
             fetches = [env[n] if n in env else read(n) for n in fetch_names]
@@ -311,6 +348,13 @@ class Executor:
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return fetches
+
+    def _read_names(self, program, fetch_names):
+        cache = self._reads.setdefault(program, {})
+        key = (program._version, tuple(fetch_names))
+        if key not in cache:
+            cache[key] = read_names(program.global_block(), fetch_names)
+        return cache[key]
 
     def _track_dist_endpoints(self, program):
         """Collect the shard endpoints of the engine's host ops, so

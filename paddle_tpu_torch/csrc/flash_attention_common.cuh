@@ -1,7 +1,8 @@
 // Pieces shared by the flash-attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu): tile sizes, fp32/bf16 loads and stores, the
 // additive bias as a pointer plus four element strides, and the dropout
-// arm's counter-based random bits.
+// arm's counter-based random bits (Philox, which fused_dropout.cu draws
+// from too).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,12 +35,11 @@ struct Bias {
   long long sb, sh, sq, sk;
 };
 
-// Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32), first
-// output word.  The counter is an element's coordinates, so every kernel
-// regenerates the same bit for the same (k, q, b*h) whatever its tiling.
-__device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
-                                                 uint32_t c2, uint32_t c3,
-                                                 uint32_t k0, uint32_t k1) {
+// Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32): the four
+// output words (registry.philox4x32 computes the same in torch).
+__device__ __forceinline__ uint4 philox4(uint32_t c0, uint32_t c1,
+                                         uint32_t c2, uint32_t c3,
+                                         uint32_t k0, uint32_t k1) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     if (r) {
@@ -53,7 +53,16 @@ __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
     c2 = hi0 ^ c3 ^ k1;
     c3 = lo0;
   }
-  return c0;
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// The first output word.  The counter is an element's coordinates, so
+// every kernel regenerates the same bit for the same (k, q, b*h) whatever
+// its tiling.
+__device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
+                                                 uint32_t c2, uint32_t c3,
+                                                 uint32_t k0, uint32_t k1) {
+  return philox4(c0, c1, c2, c3, k0, k1).x;
 }
 
 // Dropout on the softmax weights: element (q, k) of head bh is kept when

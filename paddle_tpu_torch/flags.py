@@ -47,6 +47,21 @@ _DEFAULTS = {
     # rows keep the dense path (sharding a tiny table costs an RPC per
     # batch for nothing); sparse.shard_program warns once per table
     "sparse_shard_min_rows": 512,
+    # training-mode dropout through the hand-written kernel K10
+    # (ops/dropout_kernels.py, csrc/fused_dropout.cu): the keep bits are
+    # drawn in registers and no mask tensor is written.  Off by default,
+    # as in the reference; with it on, a CUDA tensor launches K10 and a
+    # CPU tensor keeps the plain version (the same bits either way)
+    "use_fused_dropout": False,
+    # paged KV decode (serving.kv): tokens-per-block granularity of the
+    # block-table pool ContinuousBatchingEngine uses when
+    # ContinuousConfig(kv=...) is set
+    "kv_block_size": 16,
+    # total blocks in the paged KV arena, the pad block included.  0 =
+    # derive slots * ceil(max_len / block_size) + 1, the no-savings
+    # sizing; set it below that so occupancy is capped by tokens
+    # actually live, not by slot count
+    "kv_num_blocks": 0,
 }
 
 _overrides = {}

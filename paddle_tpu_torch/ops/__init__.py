@@ -8,3 +8,4 @@ from . import attention_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import rnn_ops       # noqa: F401
+from . import sampling_kernels  # noqa: F401

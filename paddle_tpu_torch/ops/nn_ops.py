@@ -1,9 +1,10 @@
-"""NN kernels on the BERT serving and training paths and the RNN slice
-(port of ``paddle_tpu/ops/nn_ops.py``): softmax, cross_entropy over
-probabilities (with its lod mask), softmax_with_cross_entropy with
-its fused grad, dropout, layer_norm with its analytic grad, lookup_table
-with its dense and SelectedRows grads, square_error_cost,
-sigmoid_cross_entropy_with_logits.
+"""NN kernels on the BERT serving and training paths, the RNN slice and
+transformer NMT (port of ``paddle_tpu/ops/nn_ops.py``): softmax,
+cross_entropy over probabilities (with its lod mask),
+softmax_with_cross_entropy with its fused grad, dropout, layer_norm with
+its analytic grad, lookup_table with its dense and SelectedRows grads,
+square_error_cost, sigmoid_cross_entropy_with_logits, one_hot and
+label_smooth.
 
 Reference semantics: ``softmax_op.cc``, ``cross_entropy_op.cc``,
 ``softmax_with_cross_entropy_op.cc``, ``dropout_op.cc`` (two
@@ -15,15 +16,22 @@ recipe (``registry.op_seed``: program seed, op seed, step) and draws it
 from counter-based Philox (``registry.dropout_keep``), so the generic
 grad's recompute in the same step draws the same mask (an Executor run
 reuses it), and the CPU and the card draw the same mask for the same op
-and step.
+and step.  Under ``FLAGS_use_fused_dropout`` a CUDA tensor takes the
+hand-written kernel K10 instead (``ops/dropout_kernels.py``: the same
+bits and the same arithmetic, drawn in registers), and the op's generic
+grad runs K10 once on the cotangent (:func:`dropout_vjp`) where the
+plain arm recomputes the forward.  Either arm makes the Mask output only
+when something reads it (``registry.output_read``).
 """
 
 import torch
 
 from ..core.selected_rows import SelectedRows
-from .registry import (register, register_grad, first, as_out, current,
-                       dropout_keep, generic_grad_kernel, has_out_grad,
-                       op_seed)
+from ..flags import get_flag
+from . import dropout_kernels
+from .registry import (register, register_grad, register_vjp, first, as_out,
+                       current, dropout_keep, generic_grad_kernel,
+                       has_out_grad, op_seed, output_read)
 from .sequence_kernels import length_mask
 from .tensor_ops import take_rows
 
@@ -33,33 +41,72 @@ def softmax(ins, attrs):
     return as_out(torch.softmax(first(ins, "X"), dim=attrs.get("axis", -1)))
 
 
+def _fused_dropout(x, attrs):
+    """Whether this dropout takes K10: in training, 0 < p < 1, the flag
+    on, and a tensor off the CPU (the wrapper launches on CUDA or
+    raises)."""
+    return not (attrs.get("is_test", False) or current().is_test) \
+        and 0.0 < attrs.get("dropout_prob", 0.5) < 1.0 \
+        and x.device.type != "cpu" and get_flag("use_fused_dropout")
+
+
 @register("dropout")
 def dropout(ins, attrs):
     x = first(ins, "X")
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    upscale = impl == "upscale_in_train"
     if attrs.get("is_test", False) or current().is_test:
         # downgrade_in_infer scales by the keep rate at inference;
         # upscale_in_train already scaled in training and is the identity
         out = x * (1.0 - p) if impl == "downgrade_in_infer" else x
-        return {"Out": [out], "Mask": [torch.ones_like(x)]}
+        return _with_mask(out, lambda: torch.ones_like(x))
+    if _fused_dropout(x, attrs):
+        seed = op_seed(attrs)
+        out = dropout_kernels.fused_dropout(x.contiguous(), p, seed, upscale)
+        return _with_mask(out, lambda: dropout_kernels.fused_dropout(
+            torch.ones_like(x), p, seed, upscale=False))
     if p >= 1.0:
-        mask = torch.zeros_like(x)
+        keep = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+        out = torch.zeros_like(x)
     elif p > 0.0:
         masks = current().masks
-        key = (op_seed(attrs), tuple(x.shape), p, x.device, x.dtype)
-        mask = None if masks is None else masks.get(key)
-        if mask is None:
-            mask = dropout_keep(key[0], key[1], p, x.device).to(x.dtype)
+        key = (op_seed(attrs), tuple(x.shape), p, x.device)
+        keep = None if masks is None else masks.get(key)
+        if keep is None:
+            keep = dropout_keep(key[0], key[1], p, x.device)
             if masks is not None:
-                masks[key] = mask
+                masks[key] = keep
+        out = dropout_kernels.fused_dropout_reference(x, p, key[0], upscale,
+                                                      keep=keep)
     else:
-        mask = torch.ones_like(x)
-    if impl == "upscale_in_train":
-        out = torch.zeros_like(x) if p >= 1.0 else x * mask / (1.0 - p)
-    else:
-        out = x * mask
-    return {"Out": [out], "Mask": [mask]}
+        keep, out = None, x
+    return _with_mask(out, lambda: torch.ones_like(x) if keep is None
+                      else keep.to(x.dtype))
+
+
+def _with_mask(out, mask):
+    """The op's outputs: Out, and Mask (`mask()`) only when it is read."""
+    if output_read("Mask"):
+        return {"Out": [out], "Mask": [mask()]}
+    return {"Out": [out]}
+
+
+@register_vjp("dropout")
+def dropout_vjp(ins, attrs):
+    """K10's arm of the dropout grad: dX = K10(dOut) under the forward's
+    seed, one launch (``_dropout_fused_bwd``, :1445).  None on the plain
+    arm, whose generic grad recomputes the forward over the run's cached
+    mask."""
+    fw = attrs["fw_attrs"]
+    x = first(ins, "X")
+    if not _fused_dropout(x, fw) or not has_out_grad(ins, "Out"):
+        return None
+    impl = fw.get("dropout_implementation", "downgrade_in_infer")
+    g = first(ins, "Out@GRAD_OUT").to(x.dtype).contiguous()
+    return {"X@GRAD": [dropout_kernels.fused_dropout(
+        g, fw.get("dropout_prob", 0.5), op_seed(fw),
+        upscale=impl == "upscale_in_train")]}
 
 
 def _labels(label):
@@ -289,6 +336,34 @@ def sigmoid_cross_entropy_with_logits(ins, attrs):
         norm = torch.clamp_min((label != ignore).to(x.dtype).sum(), 1.0)
         loss = loss / norm
     return as_out(loss)
+
+
+@register("one_hot", not_differentiable=True)
+def one_hot(ins, attrs):
+    """Ids [..., 1] or [...] -> float32 [..., depth] (the reference's
+    :584): one fp32 zero plane and a scatter of one value a row, so no
+    int64 or bool [..., depth] plane is made on the way; an id outside
+    [0, depth) gives a zero row, as jax.nn.one_hot does."""
+    x = first(ins, "X")
+    depth = attrs["depth"]
+    idx = (x.reshape(x.shape[:-1]) if x.shape[-1] == 1 else x).long()
+    valid = (idx >= 0) & (idx < depth)
+    out = torch.zeros(tuple(idx.shape) + (depth,), dtype=torch.float32,
+                      device=x.device)
+    return as_out(out.scatter_(-1, idx.clamp(0, depth - 1).unsqueeze(-1),
+                               valid.float().unsqueeze(-1)))
+
+
+@register("label_smooth")
+def label_smooth(ins, attrs):
+    """(1 - eps)·X + eps·PriorDist, or + eps / depth with no prior (the
+    reference's :593)."""
+    x = first(ins, "X")
+    eps = attrs.get("epsilon", 0.1)
+    dist = first(ins, "PriorDist")
+    if dist is not None:
+        return as_out((1 - eps) * x + eps * dist)
+    return as_out((1 - eps) * x + eps / x.shape[-1])
 
 
 @register("square_error_cost")

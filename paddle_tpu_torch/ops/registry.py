@@ -34,6 +34,7 @@ import torch
 
 _KERNELS = {}
 _CUSTOM_GRADS = {}
+_VJPS = {}
 _NOT_DIFFERENTIABLE = set()
 
 # The JAX package's bf16 AMP lists (paddle_tpu/ops/registry.py:82-97), as
@@ -53,16 +54,21 @@ class ExecContext:
     keeps each dropout mask the run draws, so the generic grad's
     recompute of a dropout op reuses the forward's mask instead of
     drawing the same bits again (the mask is a pure function of its
-    key, so this changes no result)."""
+    key, so this changes no result).  `reads`, when given, is the set of
+    names the run's ops read or its caller fetches, and `op` the op
+    running now: :func:`output_read` tells a kernel from them whether an
+    optional output is read at all."""
 
     def __init__(self, device=None, generator=None, seed=0, step=0,
-                 is_test=False, masks=None):
+                 is_test=False, masks=None, reads=None):
         self.device = device if device is not None else torch.device("cpu")
         self.generator = generator
         self.seed = seed            # program.random_seed
         self.step = step            # executor step counter
         self.is_test = is_test
         self.masks = masks
+        self.reads = reads
+        self.op = None
 
 
 _LOCAL = threading.local()
@@ -105,6 +111,17 @@ def in_test_mode():
     return getattr(_LOCAL, "test_mode", False)
 
 
+def output_read(slot):
+    """Whether output `slot` of the running op is read by another op or
+    fetched: True outside an Executor run (a direct :func:`run_op`
+    call), False for a slot the running op does not write (a grad op's
+    recompute of its forward)."""
+    ctx = current()
+    if ctx.reads is None or ctx.op is None:
+        return True
+    return any(n in ctx.reads for n in ctx.op.outputs.get(slot, ()))
+
+
 def op_seed(attrs):
     """Seed of one random op's draw: the reference's key recipe
     (``nn_ops._rng`` / ``_op_seed_scalar``) over (program seed, op seed,
@@ -124,7 +141,9 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 def philox4x32(ctr, key):
     """Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32) over
     int64 tensors holding 32-bit words: `ctr` [4, ...] counters, `key`
-    two Python ints.  Returns the four output words [4, ...].  The same
+    two Python ints (one key for every counter) or two int64 tensors
+    that broadcast against ``ctr[0]`` (a key per counter: the sampler's
+    per-row seeds).  Returns the four output words [4, ...].  The same
     bits on every device, and the same bits the port's CUDA kernels
     generate, so a mask drawn on the CPU equals the one drawn on the
     card.  Every product stays below 2**63: c·M is taken as 2·c·(M>>1)
@@ -135,7 +154,8 @@ def philox4x32(ctr, key):
     two = torch.arange(2, dtype=torch.int64, device=dev)
     half = (two * ((_PHILOX_M[1] >> 1) - (_PHILOX_M[0] >> 1))
             + (_PHILOX_M[0] >> 1)).reshape(shape)
-    rounds = torch.arange(10, dtype=torch.int64, device=dev)
+    rounds = torch.arange(10, dtype=torch.int64, device=dev).reshape(
+        (10,) + (1,) * (ctr.dim() - 1))
     keys = torch.stack([(rounds * w + (k & _MASK32)) & _MASK32
                         for w, k in zip(_PHILOX_W, key)], dim=1)
     a, b = ctr[0::2], ctr[1::2]                 # [c0, c2], [c1, c3]
@@ -144,7 +164,7 @@ def philox4x32(ctr, key):
         t = ((p & 0x7FFFFFFF) << 1) + a
         hi = (p >> 31) + (t >> 32)              # [hi(c0·M0), hi(c2·M1)]
         lo = (t & _MASK32).flip(0)              # [lo(c2·M1), lo(c0·M0)]
-        a = hi.flip(0) ^ b ^ keys[r].reshape(shape)
+        a = hi.flip(0) ^ b ^ keys[r]
         b = lo
     return torch.stack([a[0], b[0], a[1], b[1]])
 
@@ -203,6 +223,18 @@ def register_grad(op_type):
     return deco
 
 
+def register_vjp(op_type):
+    """Register a vector-Jacobian product the ``generic_grad`` op of
+    `op_type` runs in place of recomputing the forward, where it returns
+    a result (None: recompute).  Unlike :func:`register_grad` it leaves
+    the program as it is: ``append_backward`` still emits
+    ``generic_grad``, as the reference's does for that op."""
+    def deco(fn):
+        _VJPS[op_type] = fn
+        return fn
+    return deco
+
+
 def get_kernel(op_type, attrs=None):
     """The kernel of `op_type`.  An op the quantize pass annotated
     (``__quant__`` in `attrs`, passes/quantize.py) runs the quantized
@@ -257,6 +289,11 @@ def generic_grad_kernel(ins, attrs):
     from ..core.framework import Block
 
     fw_type = attrs["fw_type"]
+    vjp = _VJPS.get(fw_type)
+    if vjp is not None:
+        res = vjp(ins, attrs)
+        if res is not None:
+            return res
     fw_attrs = attrs["fw_attrs"]
     # Block-valued attrs (dynamic_rnn's step block) ride as top-level
     # grad-op attrs (core/backward.py); fold them back for the recompute

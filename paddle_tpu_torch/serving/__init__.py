@@ -18,6 +18,11 @@ from .buckets import (ExecutableCache, choose_bucket,  # noqa: F401
                       pad_seq, unpad_seq, signature)
 from .engine import ServingEngine, ServingConfig  # noqa: F401
 from .metrics import Histogram, ServingMetrics  # noqa: F401
+from . import fleet  # noqa: F401  (continuous-batching decode over the
+#                      paged KV pool — see fleet/, kv/)
+from . import sampling  # noqa: F401  (per-request decode control:
+#                      SamplingConfig, constraint steppers — see
+#                      sampling/)
 
 __all__ = [
     "ServingEngine", "ServingConfig", "Request", "ResolvableFuture",
@@ -26,5 +31,5 @@ __all__ = [
     "RequestCancelled", "EngineStopped", "ExecutableCache",
     "ServingMetrics", "Histogram", "choose_bucket",
     "default_batch_buckets", "pad_rows", "unpad_rows", "pad_seq",
-    "unpad_seq", "signature",
+    "unpad_seq", "signature", "fleet", "sampling",
 ]

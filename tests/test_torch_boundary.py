@@ -31,9 +31,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
     assert out.stdout.strip() == "[]"
 
 
-# the modules of the pass pipeline, the int8 serving path, the RNN slice
-# and the CTR slice, imported with jax and paddle_tpu made unimportable (a
-# None entry in sys.modules)
+# the modules of the pass pipeline, the int8 serving path, the RNN slice,
+# the CTR slice and the NMT slice (K10, decode serving), imported with
+# jax and paddle_tpu made unimportable (a None entry in sys.modules)
 NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.passes.quantize",
                "paddle_tpu_torch.ops.quant_kernels",
@@ -54,7 +54,17 @@ NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.resilience.breaker",
                "paddle_tpu_torch.core.selected_rows",
                "paddle_tpu_torch.observability.propagate",
-               "paddle_tpu_torch.models.ctr")
+               "paddle_tpu_torch.models.ctr",
+               "paddle_tpu_torch.models.transformer",
+               "paddle_tpu_torch.ops.dropout_kernels",
+               "paddle_tpu_torch.ops.sampling_kernels",
+               "paddle_tpu_torch.serving.kv",
+               "paddle_tpu_torch.serving.kv.pool",
+               "paddle_tpu_torch.serving.kv.speculative",
+               "paddle_tpu_torch.serving.sampling",
+               "paddle_tpu_torch.serving.sampling.sampler",
+               "paddle_tpu_torch.serving.fleet",
+               "paddle_tpu_torch.serving.fleet.continuous")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -127,3 +137,51 @@ def test_flags_define_only_what_the_port_reads(monkeypatch):
     finally:
         fluid.set_flags({"trace_sample_rate": 0.0})
     assert not trace.TRACER.enabled()
+
+
+@pytest.mark.parametrize("name,default", [("use_fused_dropout", False),
+                                          ("kv_block_size", 16),
+                                          ("kv_num_blocks", 0)])
+def test_nmt_slice_flags_have_the_reference_defaults(name, default,
+                                                     monkeypatch):
+    from paddle_tpu_torch import flags
+
+    monkeypatch.setattr(flags, "_overrides", {})
+    monkeypatch.delenv(f"FLAGS_{name}", raising=False)
+    assert fluid.get_flags(name) == {f"FLAGS_{name}": default}
+    monkeypatch.setenv(f"FLAGS_{name}", "1")
+    assert fluid.get_flags(name)[f"FLAGS_{name}"] == type(default)(1)
+
+
+def test_program_decode_step_runs_on_the_card_unless_asked(monkeypatch):
+    """The decode engine's program step runs through an Executor, which
+    means the card unless the caller passes CPUPlace(): without CUDA the
+    default raises, and with CPUPlace the engine decodes on the CPU."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving.fleet import (ContinuousBatchingEngine,
+                                                ContinuousConfig,
+                                                make_program_step_fn)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        fluid.Executor()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[-1, -1], dtype="int64",
+                                append_batch_size=False)
+        emb = fluid.layers.embedding(ids, size=[6, 4])
+        logits = fluid.layers.fc(emb, size=6, num_flatten_dims=2)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    with fluid.scope_guard(scope):
+        step = make_program_step_fn(exe, main, logits,
+                                    lambda p, n, c: {"ids": p})
+        eng = ContinuousBatchingEngine(step, ContinuousConfig(
+            slots=2, max_len=6, bos_id=0, eos_id=-1))
+        try:
+            out = eng.decode([0], max_new_tokens=3)
+        finally:
+            eng.stop()
+    assert out.shape == (4,) and out.dtype == np.int64

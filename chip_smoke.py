@@ -110,7 +110,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    speculative run accepts every draft, one step shape, no block held
    after the drain; tokens/s, per-token latency, the step's device-to-
    host copy.
-21. report: a "kernels" JSON line, then the result line
+21. paged attention kernel vs plain: K4 (float32 and bf16 arenas) and
+   K5 (int8 arenas with fp32 per-token scales), one CUDA loop, against
+   their plain versions at bench_kernels.py's decode shape (S 64, H 8,
+   D 128, blocks of 16, 16 a slot, 513 in the arena, lengths 192-256) and
+   at ragged and odd shapes (D 4, 8, 64, 100; blocks of 4 and 5; an empty
+   slot, a 1-token slot, a shared block): float32 and int8 within 2e-5,
+   bf16 within 2e-2, empty slots exactly 0; kernel, plain and two-call
+   yardstick (index_select + masked SDPA) times at the decode shape.
+22. disaggregated decode: the trained model behind a DisaggRouter: one
+   PrefillReplica whose prefill_fn runs the decode program over the
+   prompt and quantizes every decoder layer's self-attention K/V
+   (quantize_kv) into int8 arenas, kv_stream to two decode Replicas
+   (ContinuousBatchingEngine over int8 paged pools, a KVStreamServer
+   each); 8 long prompts take the split path, 8 short ones fall back;
+   split tokens equal lockstep_decode's, every streamed block a prefix
+   hit; K5 over the decode pools' arenas and K4 over float32 arenas of
+   the same chains against the program's own attention output (0.05,
+   1e-4); int8 and float32 wire bytes, per-request walls; every pool
+   audited and empty after the drain.
+23. report: a "kernels" JSON line, then the result line
    {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
@@ -123,6 +142,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -226,6 +246,12 @@ KERNELS = {
     "dropout": {"name": "fused_dropout", "route": "cuda",
                 "source": "paddle_tpu_torch/csrc/fused_dropout.cu",
                 "replaces": "paddle_tpu/ops/pallas_kernels.py:1405"},
+    "paged": {"name": "paged_attention", "route": "cuda",
+              "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+              "replaces": "paddle_tpu/ops/pallas_kernels.py:958"},
+    "paged_quant": {"name": "paged_attention_quant", "route": "cuda",
+                    "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+                    "replaces": "paddle_tpu/ops/quant_kernels.py:257"},
 }
 # the CTR slice: bench.py's CTR configuration (bench.py:268-316, Paddle's
 # CTR DNN on Criteo): 26 categorical slots through one shared deep table
@@ -260,6 +286,36 @@ DROPOUT_SHAPES = [("bert_b32_t128_d768", (32, 128, 768)),
 # of one long and seven short budgets
 DEC_SLOTS, DEC_LEN, DEC_SRC, DEC_GROUPS = 8, 64, 32, 4
 DEC_LONG, DEC_SHORT, DEC_SYS = 24, 3, [0, 3, 4, 5, 6]
+# the disaggregated tier over the same model: blocks of 16, prompts taking
+# the split path at 16 tokens and more; 8 long prompts of whole blocks (bos
+# included) and 8 short ones, greedy budgets of 8-24 (prompt + budget
+# within max_len 64); int8 K/V within 0.05 of the program's attention (the
+# JAX package's int8 bar, tests/test_paged_kv.py:652), float32 within 1e-4
+DISAGG_BLOCK, DISAGG_THRESHOLD, DISAGG_BLOCKS = 16, 16, 96
+DISAGG_LONG = [32, 48, 32, 48, 32, 48, 32, 48]
+DISAGG_LONG_BUDGETS = [24, 8, 16, 12, 20, 15, 8, 10]
+DISAGG_SHORT = [3, 4, 5, 3, 4, 5, 3, 4]
+DISAGG_SHORT_BUDGETS = [8, 24, 12, 16, 20, 10, 14, 18]
+DISAGG_INT8_ATOL, DISAGG_FP32_ATOL = 0.05, 1e-4
+# every request's deadline: the whole replay arrives at once, so the last
+# request waits for the others' steps (the "high" class default is 5 s)
+DISAGG_DEADLINE_MS = 300000
+
+
+# paged decode attention (K4, K5): bench_kernels.py's decode shape (S 64
+# slots, H 8, D 128, blocks of 16, 16 blocks a slot, an arena of 513 blocks,
+# lengths in [192, 256], random tables), then ragged and odd shapes: (name,
+# S, H, D, Bs, MB, N, lengths; shared: slot 1 starts with slot 0's block)
+PAGED_BENCH = ("bench_s64_h8_d128", 64, 8, 128, 16, 16, 513, None)
+PAGED_CASES = [PAGED_BENCH,
+               ("d4_bs4_empty_1tok", 3, 2, 4, 4, 3, 7, [5, 0, 1]),
+               ("d8_bs4_ragged", 4, 3, 8, 4, 5, 11, [17, 1, 0, 20]),
+               ("d64_bs16_nmt", 8, 8, 64, 16, 4, 40,
+                [48, 1, 0, 33, 64, 17, 16, 2]),
+               ("d100_bs5_odd", 3, 5, 100, 5, 4, 13, [19, 20, 0])]
+# kernel against its plain version on the same tensors: float32 and the
+# int8 arm (both dequantized in float32), bf16 (the output rounded to bf16)
+PAGED_ATOL = {"float32": 2e-5, "int8": 2e-5, "bfloat16": 2e-2}
 
 
 def phase(name):
@@ -1846,6 +1902,133 @@ def nmt_kernel_phase(torch):
     return rows
 
 
+def paged_operands(torch, case, kind, rng):
+    """(q, k, v, k_scale, v_scale, table, lengths) on the card for one
+    PAGED_CASES entry: float32 or bf16 arenas from normal draws, or the
+    int8 arm's arenas quantized from them with quantize_kv."""
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    _, s_, h, d, bs, mb, n, lens = case
+    if lens is None:
+        lens = rng.randint(3 * mb * bs // 4, mb * bs + 1, s_)
+    table = rng.randint(1, n, (s_, mb)).astype(np.int32)
+    table[1, 0] = table[0, 0]
+    q = rng.randn(s_, h, d).astype(np.float32)
+    k = rng.randn(n, bs, h, d).astype(np.float32)
+    v = rng.randn(n, bs, h, d).astype(np.float32)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    ks = vs = None
+    if kind == "int8":
+        (k, ks), (v, vs) = qk.quantize_kv(k), qk.quantize_kv(v)
+        ks, vs = dev(ks), dev(vs)
+    dt = torch.bfloat16 if kind == "bfloat16" else torch.float32
+    kv_dt = torch.int8 if kind == "int8" else dt
+    return (dev(q).to(dt), dev(k).to(kv_dt), dev(v).to(kv_dt), ks, vs,
+            dev(table), dev(np.asarray(lens, np.int32)))
+
+
+def paged_library(torch, q, k, v, ks, vs, table, lens):
+    """The two-call yardstick of paged attention: index_select of the
+    slots' blocks (K and V; dequantized by their scale rows in the int8
+    arm) and masked F.scaled_dot_product_attention over them.  Not the
+    port's code: a time to set beside the kernel's."""
+    import torch.nn.functional as F
+
+    s_, mb = table.shape
+    _, bs, h, d = k.shape
+    idx = table.reshape(-1).long()
+    mask = (torch.arange(mb * bs, device=q.device)[None, :] <
+            lens[:, None]).reshape(s_, 1, 1, mb * bs)
+
+    def run():
+        kk, vv = k.index_select(0, idx), v.index_select(0, idx)
+        if ks is not None:
+            kk = kk.float() * ks.index_select(0, idx)[..., None, None]
+            vv = vv.float() * vs.index_select(0, idx)[..., None, None]
+        kk = kk.reshape(s_, mb * bs, h, d).transpose(1, 2)
+        vv = vv.reshape(s_, mb * bs, h, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None, :], kk, vv,
+                                              attn_mask=mask)
+    return run
+
+
+def paged_bound(q, k, lens, quant):
+    """Bytes: every live token's K and V rows read once (int8: 1 B a value
+    and two fp32 scales a token), q and the block table and lengths read
+    once, out written once; operations: 4 a K/V value (the dot and the
+    weighted sum), at the fp32 rate."""
+    live = int(lens.sum().item())
+    s_, h, d = q.shape
+    nbytes = 2 * live * h * d * k.element_size() + \
+        2 * s_ * h * d * q.element_size() + 4 * (s_ + lens.numel())
+    if quant:
+        nbytes += 2 * 4 * live
+    return bound_row(nbytes, 4 * live * h * d)
+
+
+def paged_kernel_phase(torch):
+    """K4 (float32 and bf16 arenas) and K5 (int8 arenas with fp32 scale
+    rows) against their plain versions on the same tensors, at
+    bench_kernels.py's decode shape and at ragged and odd ones (D 4, 8,
+    64, 100; blocks of 4 and 5; an empty slot, a 1-token slot, a block
+    shared by two slots): within PAGED_ATOL, empty slots exactly zero.
+    At the decode shape: kernel, plain and two-call yardstick times
+    against the bound."""
+    from paddle_tpu_torch.ops import paged_kernels as pk
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    phase("paged attention kernel vs plain (K4 float32/bf16, K5 int8)")
+    rng = np.random.RandomState(SEED + 17)
+    rows = {}
+    for case in PAGED_CASES:
+        for kind in ("float32", "bfloat16", "int8"):
+            q, k, v, ks, vs, table, lens = paged_operands(torch, case, kind,
+                                                          rng)
+            if kind == "int8":
+                def fn():
+                    return qk.paged_attention_quant(q, k, v, ks, vs, table,
+                                                    lens)
+
+                def plain():
+                    return qk.paged_attention_quant_reference(
+                        q, k, v, ks, vs, table, lens,
+                        1.0 / q.shape[-1] ** 0.5)
+            else:
+                def fn():
+                    return pk.paged_attention(q, k, v, table, lens)
+
+                def plain():
+                    return pk.paged_attention_reference(
+                        q, k, v, table, lens, 1.0 / q.shape[-1] ** 0.5)
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            empty = lens == 0
+            zeros = bool((out[empty] == 0).all().item())
+            row = {"max_abs_err": err, **paged_bound(q, k, lens,
+                                                     kind == "int8")}
+            times = ""
+            if case is PAGED_BENCH:
+                row.update(ms=time_ms(torch, fn), plain_ms=time_ms(
+                    torch, plain), library_ms=time_ms(torch, paged_library(
+                        torch, q, k, v, ks, vs, table, lens)))
+                times = (f" kernel {row['ms']:.6f} ms plain "
+                         f"{row['plain_ms']:.6f} ms index_select + masked "
+                         f"SDPA {row['library_ms']:.6f} ms bound "
+                         f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+            rows[f"{case[0]}_{kind}"] = row
+            shown = lens.tolist() if case[7] else \
+                f"in [{lens.min().item()}, {lens.max().item()}]"
+            print(f"paged_attention {case[0]} {kind}: lengths {shown}"
+                  f" max_abs_err {err:.3e} (atol {PAGED_ATOL[kind]}), empty "
+                  f"slots zero {zeros}{times}", flush=True)
+            if not err <= PAGED_ATOL[kind] or not zeros:
+                raise SystemExit(f"paged attention ({kind}) disagrees with "
+                                 f"its plain version on {case[0]}: {err}, "
+                                 f"empty slots zero {zeros}")
+    return rows
+
+
 def nmt_program(fluid, vocab, n_layer, n_head, d_model, d_inner):
     """bench.py's NMT training program (transformer(...), label smoothing
     0.1, dropout 0.1, Adam 2e-4) with seeds fixed to SEED: (main,
@@ -2146,6 +2329,267 @@ def nmt_decode_phase(torch, smi, trained):
     return launches
 
 
+def wall_stats(walls):
+    """'p50 x ms p99 y ms' of per-request walls (seconds)."""
+    ms = np.asarray(walls) * 1e3
+    return (f"p50 {np.percentile(ms, 50):.6f} ms p99 "
+            f"{np.percentile(ms, 99):.6f} ms")
+
+
+def chain_slot(pool, prompt, n_blocks):
+    """Admit `prompt` on slot 0 of `pool` when the pool's prefix cache
+    holds its whole chain (every block a hit); True if it did.  On a
+    miss the slot is released again (the chain it cached holds no K/V
+    and is never read)."""
+    hits = pool.snapshot()["counters"]["prefix_hits"]
+    pool.admit(0, prompt)
+    if pool.snapshot()["counters"]["prefix_hits"] - hits == n_blocks:
+        return True
+    pool.release(0)
+    return False
+
+
+def disagg_phase(torch, smi, trained):
+    """The disaggregated tier at transformer-base width: one
+    PrefillReplica (prefill_fn: the trained decode program over the
+    phase's source sentence with the prompt as the target prefix, every
+    decoder layer's self-attention K/V quantized by quantize_kv into
+    kv_value_spec(8, 64)'s int8 layout), two decode Replicas
+    (ContinuousBatchingEngine over make_program_step_fn, int8 paged pools
+    of blocks of 16, a KVStreamServer on each), a DisaggRouter with
+    prefill_threshold 16.  16 greedy requests: 8 prompts of 32 or 48
+    tokens (whole blocks) take the split path, 8 of 3-5 tokens fall back
+    to co-located decode.  Then, per split prompt and layer, K5 over the
+    decode pool's streamed int8 arenas (the slot's table row from an
+    admit that hits the prefix cache for every block) against the
+    program's own attention output at the prompt's last position (within
+    DISAGG_INT8_ATOL), and K4 over a float32 pool the same chains were
+    streamed into (within DISAGG_FP32_ATOL).  Split tokens must equal
+    lockstep_decode's over the same step function, every transferred
+    block must be a decode-side prefix hit, no pool may hold a block after
+    the drain."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed.rpc import RPCClient
+    from paddle_tpu_torch.models import transformer as tr
+    from paddle_tpu_torch.models.transformer import make_attn_biases
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import paged_kernels as pk
+    from paddle_tpu_torch.ops import quant_kernels as qk
+    from paddle_tpu_torch.serving.disagg import (
+        DisaggConfig, DisaggRouter, KVStreamServer, PrefillReplica,
+        stream_slot)
+    from paddle_tpu_torch.serving.fleet import (
+        ContinuousConfig, PagedKVConfig, Replica, lockstep_decode,
+        make_program_step_fn)
+    from paddle_tpu_torch.serving.kv import KVBlockPool
+
+    _, scope, infer, predict = trained
+    h, L, ts, vocab = NMT["n_head"], DEC_LEN, DEC_SRC, NMT["vocab"]
+    d, layers, bs = NMT["d_model"] // h, NMT["n_layer"], DISAGG_BLOCK
+    phase(f"disaggregated decode: PrefillReplica -> kv_stream (int8) -> "
+          f"2 decode Replicas, DisaggRouter(prefill_threshold "
+          f"{DISAGG_THRESHOLD}); K5/K4 over the streamed arenas")
+    rng = np.random.RandomState(SEED + 18)
+    src = rng.randint(2, vocab, (ts,)).astype(np.int64)
+    longs = [np.concatenate([[0], rng.randint(2, vocab, (n - 1,))])
+             .astype(np.int64) for n in DISAGG_LONG]
+    shorts = [np.concatenate([[0], rng.randint(2, vocab, (n - 1,))])
+              .astype(np.int64) for n in DISAGG_SHORT]
+    ctx = {"src": src}
+
+    def feed_builder(prefix, lengths, context):
+        n = prefix.shape[0]
+        sb, tb, cb = make_attn_biases([ts] * n, [int(x) for x in lengths],
+                                      h, ts, L)
+        return {"src_word": context["src"],
+                "src_pos": np.tile(np.arange(ts), (n, 1)).astype(np.int64),
+                "trg_word": np.asarray(prefix)[:, :L],
+                "trg_pos": np.tile(np.arange(L), (n, 1)).astype(np.int64),
+                "src_slf_attn_bias": sb, "trg_slf_attn_bias": tb,
+                "trg_src_attn_bias": cb}
+
+    int8_spec = tr.layer_value_spec(PagedKVConfig(block_size=bs,
+                                                  kv_dtype="int8"),
+                                    layers, h, d)
+    fp32_spec = tr.layer_value_spec(PagedKVConfig(block_size=bs), layers,
+                                    h, d)
+    kv = dict(block_size=bs, num_blocks=DISAGG_BLOCKS, kv_dtype="int8",
+              value_spec=int8_spec)
+    cfg = ContinuousConfig(slots=DEC_SLOTS, max_len=L, bos_id=0, eos_id=-1,
+                           context_spec={"src": ((ts,), np.int64)},
+                           kv=PagedKVConfig(**kv))
+    counters = {"paged": pk.paged_attention,
+                "paged_quant": qk.paged_attention_quant,
+                "fwd": ak.flash_attention}
+    for c in counters.values():
+        c.launches = 0
+    walls = {"split": [], "colocated": []}
+    servers, pools = [], []
+    rpc = RPCClient()
+    with fluid.scope_guard(scope):
+        def executor():
+            return fluid.Executor(fluid.CUDAPlace(0))
+
+        router = DisaggRouter(DisaggConfig(
+            prefill_threshold=DISAGG_THRESHOLD, bos_id=0))
+        try:
+            for i in range(2):
+                r = Replica(f"d{i}")
+                eng = r.add_decode_model(
+                    "nmt", make_program_step_fn(executor(), infer, predict,
+                                                feed_builder), config=cfg)
+                pools.append(eng.kv_pool())
+                servers.append(KVStreamServer(pools[-1]))
+                router.add_replica(r, kv_endpoint=servers[-1].endpoint)
+            pf = PrefillReplica("p0")
+            pf_engine = pf.add_prefill_model(
+                "nmt", tr.make_prefill_fn(executor(), infer, src, h,
+                                          kv_dtype="int8"),
+                rpc, kv=dict(kv), slots=2, max_blocks=L // bs)
+            router.add_replica(pf)
+            jobs = [(p, b, "split") for p, b in zip(longs, DISAGG_LONG_BUDGETS)] \
+                + [(p, b, "colocated")
+                   for p, b in zip(shorts, DISAGG_SHORT_BUDGETS)]
+            outs = [None] * len(jobs)
+            errors = []
+
+            def client(i):
+                p, b, kind = jobs[i]
+                try:
+                    t0 = time.perf_counter()
+                    outs[i] = router.submit_disagg(
+                        "nmt", p, context=ctx, max_new_tokens=b,
+                        timeout_ms=DISAGG_DEADLINE_MS).result(600)
+                    walls[kind].append(time.perf_counter() - t0)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(jobs))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            wall = time.perf_counter() - t0
+            st = router.stats()
+        finally:
+            router.stop()
+            for srv in servers:
+                srv.shutdown()
+        if errors or any(t.is_alive() for t in threads):
+            raise SystemExit(f"disaggregated requests failed: {errors}")
+        lock, _ = lockstep_decode(
+            make_program_step_fn(executor(), infer, predict, feed_builder),
+            [(p, ctx, b) for p, b in zip(longs, DISAGG_LONG_BUDGETS)], cfg)
+        committed = sum(srv.ingestor.counters()["streams_committed"]
+                        for srv in servers)
+        hits = sum(pool.snapshot()["counters"]["prefix_hits"]
+                   for pool in pools)
+        streamed = sum(len(p) // bs for p in longs)
+        int8_bytes = pf_engine.stats()["streamed_bytes"]
+
+        # the same chains as float32 planes, streamed into a float32 pool
+        fp32_cfg = dict(block_size=bs, value_spec=fp32_spec)
+        stage = KVBlockPool(2, L // bs, PagedKVConfig(num_blocks=L // bs + 1,
+                                                      **fp32_cfg))
+        fp32 = KVBlockPool(2, L // bs, PagedKVConfig(
+            num_blocks=streamed + L // bs + 2, **fp32_cfg))
+        fp32_prefill = tr.make_prefill_fn(executor(), infer, src, h)
+        fp32_bytes = 0
+        with KVStreamServer(fp32) as srv:
+            for i, p in enumerate(longs):
+                stage.admit(0, p, values=fp32_prefill(p))
+                try:
+                    fp32_bytes += stream_slot(rpc, srv.endpoint, stage, 0,
+                                              f"fp32-{i}")["bytes"]
+                finally:
+                    stage.release(0)
+
+        err8 = err32 = 0.0
+        taps_exe = executor()
+        for p in longs:
+            taps = tr.attention_taps(taps_exe, infer, p, src, h)
+            pool = next((pl for pl in pools if chain_slot(pl, p, len(p) // bs)),
+                        None)
+            if pool is None or not chain_slot(fp32, p, len(p) // bs):
+                raise SystemExit("a streamed chain is missing from the "
+                                 "decode pools' prefix cache")
+            lens = torch.tensor([len(p)], dtype=torch.int32).cuda()
+            try:
+                for i, tap in enumerate(taps):
+                    q = torch.from_numpy(tap["q"][-1:]).cuda()
+                    want = torch.from_numpy(tap["out"][-1:]).cuda()
+                    got = qk.paged_attention_quant(
+                        q, pool.arena(f"l{i}_k"), pool.arena(f"l{i}_v"),
+                        pool.arena(f"l{i}_k_scale"),
+                        pool.arena(f"l{i}_v_scale"), pool.table_view()[:1],
+                        lens)
+                    err8 = max(err8, (got - want).abs().max().item())
+                    got = pk.paged_attention(
+                        q, fp32.arena(f"l{i}_k"), fp32.arena(f"l{i}_v"),
+                        fp32.table_view()[:1], lens)
+                    err32 = max(err32, (got - want).abs().max().item())
+            finally:
+                pool.release(0)
+                fp32.release(0)
+        torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    all_pools = pools + [pf_engine.pool, stage, fp32]
+    for pool in all_pools:
+        pool.check_invariants()
+    held = [pool.snapshot()["blocks_live"] - pool.snapshot()["blocks_cached"]
+            for pool in all_pools]
+    split = [outs[i] for i, job in enumerate(jobs) if job[2] == "split"]
+    tokens_ok = all(np.array_equal(a, b) for a, b in zip(split, lock))
+    dis = st["disagg"]
+    gen = sum(b for _, b, _ in jobs)
+    print(f"[{smi}] {len(jobs)} requests, {gen} tokens in {wall:.6f} s "
+          f"({gen / wall:.3f} tokens/s): split {dis['split']}, fallback "
+          f"short {dis['fallback_short']}, no prefill "
+          f"{dis['fallback_no_prefill']}, stream failed "
+          f"{dis['fallback_stream_failed']}, decode pin "
+          f"{dis['fallback_decode_pin']}")
+    print(f"[{smi}] per-request wall: split {wall_stats(walls['split'])}; "
+          f"co-located {wall_stats(walls['colocated'])}")
+    for name in ("d0", "d1"):
+        est = st["replicas"][name]["models"]["nmt"]["engine"]
+        print(f"[{smi}] decode replica {name}: {est['counters']['steps']} "
+              f"steps, step_ms {est['step_ms']}, completed "
+              f"{est['counters']['completed']}")
+    print(f"[{smi}] prefill replica: {pf_engine.stats()['prefills']} "
+          f"prefills, {int8_bytes} bytes streamed")
+    print(f"streams committed {committed}; decode-pool prefix hits {hits} "
+          f"for {streamed} streamed blocks; wire bytes int8 {int8_bytes}, "
+          f"float32 {fp32_bytes} (ratio {int8_bytes / fp32_bytes:.6f})")
+    print(f"split tokens equal lockstep_decode's: {tokens_ok}; attention "
+          f"over the streamed arenas against the program's at the "
+          f"prompt's last position: K5 (int8) max_abs_err {err8:.3e} "
+          f"(atol {DISAGG_INT8_ATOL}), K4 (float32) {err32:.3e} (atol "
+          f"{DISAGG_FP32_ATOL}); launches {launches}")
+    print(f"pools audited (check_invariants): {len(all_pools)}; blocks held "
+          f"after the drain {held}")
+    want = layers * len(longs)
+    if dis["split"] != len(longs) or dis["fallback_short"] != len(shorts):
+        raise SystemExit(f"split/fallback counts {dis}")
+    if committed != len(longs) or hits != streamed:
+        raise SystemExit(f"{committed} streams committed, {hits} prefix "
+                         f"hits for {streamed} streamed blocks")
+    if not tokens_ok:
+        raise SystemExit("split-path tokens differ from co-located decode")
+    if not (err8 < DISAGG_INT8_ATOL and err32 < DISAGG_FP32_ATOL):
+        raise SystemExit(f"paged attention over the streamed arenas: int8 "
+                         f"{err8}, float32 {err32}")
+    if any(held):
+        raise SystemExit(f"pools hold blocks after the drain: {held}")
+    if launches["paged"] != want or launches["paged_quant"] != want:
+        raise SystemExit(f"paged attention launches {launches}, expected "
+                         f"{want} each ({layers} layers x {len(longs)} "
+                         f"prompts)")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -2179,6 +2623,10 @@ def main():
     nmt_parity_phase(torch)
     launches["dropout"], trained = nmt_training_phase(torch, smi)
     decode = nmt_decode_phase(torch, smi, trained)
+    paged_rows = paged_kernel_phase(torch)
+    disagg = disagg_phase(torch, smi, trained)
+    launches["paged"] = disagg["paged"]
+    launches["paged_quant"] = disagg["paged_quant"]
     del trained
 
     phase("report")
@@ -2220,6 +2668,22 @@ def main():
     # the NMT slice's FFN-hidden dropout (T 32 bucket), fp32, p 0.1
     kernels.append(dict(KERNELS["dropout"], launches=launches["dropout"],
                         **dropout_rows["nmt_b128_t32_d2048"]))
+    # the decode shape of bench_kernels.py: K4 with float32 arenas (the
+    # disaggregated path's float32 pool; its bf16 arm beside it), K5 int8
+    bf16 = paged_rows[f"{PAGED_BENCH[0]}_bfloat16"]
+    kernels.append(dict(KERNELS["paged"], launches=launches["paged"],
+                        **paged_rows[f"{PAGED_BENCH[0]}_float32"],
+                        bf16_ms=bf16["ms"], bf16_plain_ms=bf16["plain_ms"],
+                        bf16_bound_ms=bf16["bound_ms"],
+                        bf16_library_ms=bf16["library_ms"],
+                        bf16_max_abs_err=bf16["max_abs_err"]))
+    kernels.append(dict(KERNELS["paged_quant"],
+                        launches=launches["paged_quant"],
+                        **paged_rows[f"{PAGED_BENCH[0]}_int8"]))
+    print(f"paged_attention launches: disaggregated decode "
+          f"{launches['paged']} (float32 pool), paged_attention_quant "
+          f"{launches['paged_quant']} (the decode pools' int8 arenas); "
+          f"flash_attention_fwd there {disagg['fwd']}")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

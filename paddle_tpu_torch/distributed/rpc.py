@@ -9,12 +9,15 @@ retry-with-backoff for idempotent methods and a per-endpoint circuit
 breaker.
 
 Copied: :class:`RetryPolicy` and :class:`RPCClient` with ``_call``,
-``sparse_lookup``, ``sparse_push``, ``ping`` and ``send_complete``.
-The parameter-server tier (``ParameterServer``, barriers, heartbeats,
-the elastic and ``kv_stream`` calls, the transpiler's send/get/prefetch)
-is queued (ROADMAP queue 1 item 11): those methods are absent here.
+``sparse_lookup``, ``sparse_push``, ``ping``, ``send_complete`` and
+``kv_stream`` (one chunk of a paged-KV transfer to a decode replica,
+``serving/disagg/kvstream.py``).  The parameter-server tier
+(``ParameterServer``, barriers, heartbeats, the elastic calls, the
+transpiler's send/get/prefetch) is queued (ROADMAP queue 1 item 11):
+those methods are absent here.
 """
 
+import json
 import random
 import threading
 import time
@@ -25,14 +28,22 @@ from . import transport
 from ..resilience import GLOBAL_METRICS
 from ..resilience.breaker import CircuitBreaker, CircuitOpenError
 
-# Per-method deadlines (ms) of the methods this client has.
+# Per-method deadlines (ms) of the methods this client has.  kv_stream:
+# one paged-KV chunk (<= chunk_bytes of arena planes) per frame — sized
+# for a slow link, not a whole transfer; the sender's per-chunk loop
+# re-arms it every frame.
 DEFAULT_DEADLINES_MS = {"sparse_lookup": 60000, "sparse_push": 60000,
-                        "ping": 3000, "complete": 10000}
+                        "ping": 3000, "complete": 10000,
+                        "kv_stream": 60000}
 
 # Methods safe to retry after a lost reply: reads and probes.  A grad
 # push (sparse_push) is NOT — a retried push whose first copy actually
-# landed would double-count the gradient.
-IDEMPOTENT_METHODS = frozenset({"sparse_lookup", "ping", "complete"})
+# landed would double-count the gradient.  kv_stream is: every chunk is
+# keyed (xfer, seq) and the receiver acks an already-applied seq WITHOUT
+# re-applying it (begin re-reserves nothing, commit/abort re-serve the
+# stored outcome), and crc'd payloads make a torn re-send detectable.
+IDEMPOTENT_METHODS = frozenset({"sparse_lookup", "ping", "complete",
+                                "kv_stream"})
 
 
 class RetryPolicy:
@@ -152,6 +163,25 @@ class RPCClient:
             # classify as not-alive — a probe never propagates parser
             # tracebacks
             return False
+
+    def kv_stream(self, endpoint, xfer, seq, header, payload=b"",
+                  trainer_id=0, timeout_ms=None):
+        """One chunk of a paged-KV transfer to a decode replica's
+        ingest listener (serving.disagg.kvstream).  `header` is the
+        chunk's JSON-able dict (kind/plane/block range/crc32), `payload`
+        the raw plane bytes.  Rides the full hardening stack: per-chunk
+        deadline, retry-with-backoff (chunks are (xfer, seq)-keyed and
+        re-delivery-safe), and the per-endpoint breaker."""
+        meta = np.frombuffer(json.dumps(header).encode(), np.uint8)
+        return self._call(endpoint, {"method": "kv_stream",
+                                     "name": str(xfer),
+                                     "extra": int(seq),
+                                     "meta": meta,
+                                     "value": np.frombuffer(
+                                         bytes(payload), np.uint8),
+                                     "trainer_id": trainer_id},
+                          timeout_ms=int(timeout_ms)
+                          if timeout_ms is not None else None)
 
     def send_complete(self, endpoint, trainer_id=0):
         """Executor.close() -> SendComplete (executor.cc:138)."""

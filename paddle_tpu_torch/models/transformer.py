@@ -246,3 +246,89 @@ def make_attn_biases(src_lens, trg_lens, n_head, t_src, t_trg, neg=-1e9):
                             (b, n_head, t_trg, t_src)).copy()
     return src_bias.astype(np.float32), trg_bias.astype(np.float32), \
         cross.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# The prefill leg of disaggregated decode: the decoder's self-attention K/V
+# of a prompt, as the per-token planes a paged pool stores
+# ---------------------------------------------------------------------------
+
+def self_attention_taps(program):
+    """``[(q, k, v, out)]`` variable names of each decoder layer's
+    self-attention ``fused_attention`` op (the ones whose bias is the
+    ``trg_slf_attn_bias`` feed), in layer order: Q, K and V as
+    ``[B, H, T, D]``, the attention output the same."""
+    taps = []
+    for op in program.global_block().ops:
+        if op.type == "fused_attention" and \
+                "trg_slf_attn_bias" in op.inputs.get("Bias", ()):
+            taps.append(tuple(op.inputs[s][0] for s in ("Q", "K", "V")) +
+                        (op.outputs["Out"][0],))
+    return taps
+
+
+def prefill_feed(tokens, src, n_head):
+    """The decode program's feed for one sentence: source `src` [Ts] and
+    target prefix `tokens` [T], positions and the three attention biases
+    (causal over the prefix)."""
+    tokens = np.asarray(tokens, np.int64).reshape(1, -1)
+    src = np.asarray(src, np.int64).reshape(1, -1)
+    ts, t = src.shape[1], tokens.shape[1]
+    sb, tb, cb = make_attn_biases([ts], [t], n_head, ts, t)
+    return {"src_word": src,
+            "src_pos": np.arange(ts, dtype=np.int64)[None],
+            "trg_word": tokens,
+            "trg_pos": np.arange(t, dtype=np.int64)[None],
+            "src_slf_attn_bias": sb, "trg_slf_attn_bias": tb,
+            "trg_src_attn_bias": cb}
+
+
+def attention_taps(executor, program, tokens, src, n_head, scope=None):
+    """Run the decode `program` (the forward cloned for test and pruned
+    to its prediction) over one sentence and return, per decoder layer,
+    ``{"q", "k", "v", "out"}`` of its self-attention as token-major
+    ``[T, H, D]`` float32 arrays.  The decoder is causal, so position t's
+    K and V depend on tokens 0..t only: they are what a decode step over
+    any longer prefix computes there."""
+    taps = self_attention_taps(program)
+    names = [n for tap in taps for n in tap]
+    got = executor.run(program, feed=prefill_feed(tokens, src, n_head),
+                       fetch_list=names, scope=scope)
+    planes = [np.ascontiguousarray(np.asarray(a, np.float32)[0]
+                                   .transpose(1, 0, 2)) for a in got]
+    return [dict(zip(("q", "k", "v", "out"), planes[4 * i:4 * i + 4]))
+            for i in range(len(taps))]
+
+
+def layer_value_spec(kv_config, n_layer, n_head, head_dim):
+    """A pool ``value_spec`` carrying every decoder layer's K/V arena:
+    ``kv_config.kv_value_spec(n_head, head_dim)``'s planes (``k``, ``v``
+    and, in int8 mode, ``k_scale``, ``v_scale``) once per layer, named
+    ``l{layer}_{plane}``."""
+    spec = kv_config.kv_value_spec(n_head, head_dim)
+    return {f"l{i}_{name}": s for i in range(n_layer)
+            for name, s in spec.items()}
+
+
+def make_prefill_fn(executor, program, src, n_head, kv_dtype=None,
+                    scope=None):
+    """``prefill_fn(tokens) -> {plane: [n, *tail]}`` for a
+    ``PrefillEngine``: the decoder self-attention K and V of the prompt
+    `tokens` against source sentence `src`, per layer, under
+    :func:`layer_value_spec`'s names; with ``kv_dtype="int8"`` each row
+    quantized by ``quantize_kv`` (int8 values, one fp32 scale a token)."""
+    from ..ops.quant_kernels import quantize_kv
+
+    def prefill_fn(tokens):
+        out = {}
+        for i, tap in enumerate(attention_taps(executor, program, tokens,
+                                               src, n_head, scope)):
+            for name in ("k", "v"):
+                if kv_dtype == "int8":
+                    out[f"l{i}_{name}"], out[f"l{i}_{name}_scale"] = \
+                        quantize_kv(tap[name])
+                else:
+                    out[f"l{i}_{name}"] = tap[name]
+        return out
+
+    return prefill_fn

@@ -1,7 +1,10 @@
-"""Quantized matmul — the port of the K6 half of
-``paddle_tpu/ops/quant_kernels.py``: the TPU kernel ``_quant_matmul_kernel``
-(:64, reached through ``_quant_matmul_call`` -> ``pl.pallas_call`` :82)
-becomes ``csrc/quant_matmul.cu``, written by hand for Hopper.
+"""Quantized kernels — the port of ``paddle_tpu/ops/quant_kernels.py``:
+the TPU kernel ``_quant_matmul_kernel`` (K6, :64, reached through
+``_quant_matmul_call`` -> ``pl.pallas_call`` :82) becomes
+``csrc/quant_matmul.cu``, and the int8 arm of paged attention (K5,
+``_paged_attn_quant_call`` :257 -> ``pl.pallas_call`` :299) runs the
+loop of ``csrc/paged_attention.cu`` that K4 runs, both written by hand
+for Hopper.
 
 - :func:`int8_matmul` ``(xq, wq, colscale)`` is the kernel's wrapper: the
   exact int32 product of int8 ``xq [M, K]`` and ``wq [K, N]``, converted to
@@ -16,17 +19,29 @@ becomes ``csrc/quant_matmul.cu``, written by hand for Hopper.
 - :func:`make_quant_kernel` is the ``__quant__`` dispatch target of
   ``registry.get_kernel``.
 
+- :func:`quantize_kv` is the reference's host numpy, byte for byte: one
+  symmetric int8 scale per token, the layout of a
+  ``PagedKVConfig(kv_dtype="int8")`` pool's planes.
+- :func:`paged_attention_quant` ``(q, k_arena, v_arena, k_scale,
+  v_scale, block_table, lengths)`` is K5's wrapper: paged attention over
+  int8 ``[N, Bs, H, D]`` arenas whose tokens are dequantized by their
+  fp32 ``[N, Bs]`` scale rows inside the kernel.  On a CUDA ``q`` it
+  launches the kernel (counted in ``paged_attention_quant.launches``) or
+  raises; on a CPU ``q`` it runs :func:`paged_attention_quant_reference`.
+  ``select``/``interpret`` change nothing (the reference composed unless
+  ``d % 128 == 0`` and ``bs % 8 == 0``, :363, and measured the rest).
+
 The weights' int8 codes and per-channel scales are never computed here:
 ``passes/quantize.apply_to_scope`` makes them once at Predictor load.
-``quantize_kv`` and the paged-attention half (K5) wait for the decode
-slice.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import cuda_build
+from . import paged_kernels
 from .registry import as_out, first
 
 _SOURCE = "quant_matmul"
@@ -179,3 +194,65 @@ def make_quant_kernel(op_type, spec):
         return as_out(out.to(out_dtype))
 
     return kernel
+
+
+# ---------------------------------------------------------------------------
+# Quantized paged attention (K5): int8 K/V arenas + fp32 scale planes
+# ---------------------------------------------------------------------------
+
+def quantize_kv(kv, bits=8):
+    """Per-token symmetric int8 quantization of K/V rows: ``kv``
+    ``[..., H, D]`` fp32 -> (int8 values, fp32 scale ``[...]``), one
+    scale per token (amax over the head and dim axes) — the planes of a
+    ``PagedKVConfig(kv_dtype="int8")`` pool.  Host numpy, as the
+    reference's (``np.round`` rounds half to even)."""
+    kv = np.asarray(kv, np.float32)
+    qmax = float((1 << (bits - 1)) - 1)
+    amax = np.max(np.abs(kv), axis=(-2, -1))
+    scale = np.maximum(amax / qmax, 1e-12).astype(np.float32)
+    q = np.clip(np.round(kv / scale[..., None, None]), -qmax, qmax)
+    return q.astype(np.int8), scale
+
+
+def _dequant_arena(arena, scale):
+    return arena.float() * scale[..., None, None]
+
+
+def paged_attention_quant_reference(q, k_arena, v_arena, k_scale, v_scale,
+                                    block_table, lengths, scale):
+    """Plain version of K5, the reference's
+    ``_paged_attn_quant_reference`` (:246): dequantize the whole arena,
+    then the plain K4."""
+    return paged_kernels.paged_attention_reference(
+        q, _dequant_arena(k_arena, k_scale),
+        _dequant_arena(v_arena, v_scale), block_table, lengths, scale)
+
+
+def paged_attention_quant(q, k_arena, v_arena, k_scale, v_scale,
+                          block_table, lengths, scale=None, select=True,
+                          interpret=None):
+    """Paged decode attention over int8 arenas (K5): ``q [S, H, D]``
+    float32 or bfloat16, ``k_arena``/``v_arena`` int8 ``[N, Bs, H, D]``,
+    ``k_scale``/``v_scale`` fp32 ``[N, Bs]``, ``block_table [S, MB]``,
+    ``lengths [S]`` -> ``[S, H, D]`` in q's dtype; ``scale`` defaults to
+    1/sqrt(D).  The kernel on a CUDA ``q``, the plain version on a CPU
+    ``q``; numpy operands move to q's device."""
+    del select, interpret
+    k, v, table, lens, (ks, vs) = paged_kernels.operands(
+        q, k_arena, v_arena, block_table, lengths, (k_scale, v_scale))
+    if k.dtype != torch.int8:
+        raise TypeError(f"paged_attention_quant takes int8 arenas, not "
+                        f"{k.dtype}")
+    scale = 1.0 / (q.shape[-1] ** 0.5) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return paged_attention_quant_reference(q, k, v, ks, vs, table,
+                                               lens, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_quant runs on CUDA or CPU "
+                         f"tensors, not {q.device}")
+    out = paged_kernels.launch(q, k, v, table, lens, scale, ks, vs)
+    paged_attention_quant.launches += 1
+    return out
+
+
+paged_attention_quant.launches = 0

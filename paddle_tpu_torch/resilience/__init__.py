@@ -1,8 +1,10 @@
 """paddle_tpu_torch.resilience — the part of the JAX package's
-``resilience/`` the RPC tier stands on: the per-endpoint circuit breaker
-(``breaker``) and the process-wide counters it and the RPC client bump
-(retries, breaker trips).  Step guards, preemption and fault plans are
-queued with the runtime services (ROADMAP queue 1 item 12).
+``resilience/`` the RPC and fleet tiers stand on: the per-endpoint
+circuit breaker (``breaker``), the process-wide counters it and the RPC
+client bump (retries, breaker trips), and deterministic fault injection
+(``faults``: :class:`FaultPlan` over the transport's fault hook and the
+replicas' dispatch seam).  Step guards and preemption are queued with
+the runtime services (ROADMAP queue 1 item 12).
 """
 
 import collections
@@ -40,3 +42,22 @@ GLOBAL_METRICS = ResilienceMetrics()
 from ..observability.registry import REGISTRY as _REGISTRY  # noqa: E402
 
 _REGISTRY.register("resilience", GLOBAL_METRICS.snapshot)
+
+_LAZY = {
+    "CircuitBreaker": ("breaker", "CircuitBreaker"),
+    "CircuitOpenError": ("breaker", "CircuitOpenError"),
+    "FaultPlan": ("faults", "FaultPlan"),
+    "FaultRule": ("faults", "FaultRule"),
+}
+
+__all__ = sorted(["ResilienceMetrics", "GLOBAL_METRICS"] + list(_LAZY))
+
+
+def __getattr__(name):                   # PEP 562 lazy re-exports
+    if name in _LAZY:
+        import importlib
+
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(f".{mod}", __name__),
+                       attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

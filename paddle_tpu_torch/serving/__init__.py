@@ -19,7 +19,10 @@ from .buckets import (ExecutableCache, choose_bucket,  # noqa: F401
 from .engine import ServingEngine, ServingConfig  # noqa: F401
 from .metrics import Histogram, ServingMetrics  # noqa: F401
 from . import fleet  # noqa: F401  (continuous-batching decode over the
-#                      paged KV pool — see fleet/, kv/)
+#                      paged KV pool, the multi-replica router — see
+#                      fleet/, kv/)
+from . import disagg  # noqa: F401  (disaggregated prefill/decode over
+#                      kv_stream — see disagg/)
 from . import sampling  # noqa: F401  (per-request decode control:
 #                      SamplingConfig, constraint steppers — see
 #                      sampling/)
@@ -31,5 +34,5 @@ __all__ = [
     "RequestCancelled", "EngineStopped", "ExecutableCache",
     "ServingMetrics", "Histogram", "choose_bucket",
     "default_batch_buckets", "pad_rows", "unpad_rows", "pad_seq",
-    "unpad_seq", "signature", "fleet", "sampling",
+    "unpad_seq", "signature", "disagg", "fleet", "sampling",
 ]

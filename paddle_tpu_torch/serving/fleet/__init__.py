@@ -1,5 +1,5 @@
-"""paddle_tpu_torch.serving.fleet — continuous-batching decode (port of
-``paddle_tpu.serving.fleet``, the parts a single engine stands on).
+"""paddle_tpu_torch.serving.fleet — continuous-batching decode and the
+multi-replica tier (port of ``paddle_tpu.serving.fleet``).
 
 :class:`ContinuousBatchingEngine` schedules autoregressive decode at
 token boundaries over a fixed-shape slot pool (Orca-style iteration-
@@ -17,8 +17,11 @@ decoder) onto its step contract.
                       max_new_tokens=24).result(30)
     eng.stop()
 
-The multi-replica tier of the reference (``FleetRouter``, ``Replica``)
-is not ported yet.
+:class:`FleetRouter` spreads requests over replicas (:class:`Replica`, each a
+named-model registry over ServingEngines and continuous engines) by least
+outstanding work, with SLA-class admission, a circuit breaker per
+replica and failover; ``submit_decode`` routes decode sequences through
+the same dispatch core.
 """
 
 from ..kv import (KVBlockPool, PagedKVConfig,  # noqa: F401
@@ -32,6 +35,9 @@ from .continuous import (ContinuousBatchingEngine,  # noqa: F401
                          EngineDraining, lockstep_decode,
                          make_program_step_fn, make_program_verify_fn)
 from .metrics import DecodeMetrics, FleetMetrics  # noqa: F401
+from .replica import ModelNotRoutable, Replica  # noqa: F401
+from .router import (FleetConfig, FleetRouter,  # noqa: F401
+                     NoReplicaAvailable, ReplicaRemoved)
 
 __all__ = [
     "AdmissionPolicy", "SlaClass", "DEFAULT_CLASSES", "default_classes",
@@ -39,6 +45,8 @@ __all__ = [
     "EngineDraining",
     "lockstep_decode", "make_program_step_fn", "make_program_verify_fn",
     "DecodeMetrics", "FleetMetrics", "KVBlockPool", "PagedKVConfig",
+    "FleetConfig", "FleetRouter", "ModelNotRoutable", "NoReplicaAvailable",
+    "Replica", "ReplicaRemoved",
     "PoolExhausted", "SpeculativeConfig",
     "SamplingConfig", "SamplingConfigError", "TokenDFA",
 ]

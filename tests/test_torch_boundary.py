@@ -32,7 +32,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
 
 
 # the modules of the pass pipeline, the int8 serving path, the RNN slice,
-# the CTR slice and the NMT slice (K10, decode serving), imported with
+# the CTR slice, the NMT slice (K10, decode serving) and the disaggregated
+# tier (K4, K5, fault plans, the fleet router, kv_stream), imported with
 # jax and paddle_tpu made unimportable (a None entry in sys.modules)
 NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.passes.quantize",
@@ -64,7 +65,15 @@ NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.serving.sampling",
                "paddle_tpu_torch.serving.sampling.sampler",
                "paddle_tpu_torch.serving.fleet",
-               "paddle_tpu_torch.serving.fleet.continuous")
+               "paddle_tpu_torch.serving.fleet.continuous",
+               "paddle_tpu_torch.ops.paged_kernels",
+               "paddle_tpu_torch.resilience.faults",
+               "paddle_tpu_torch.serving.fleet.replica",
+               "paddle_tpu_torch.serving.fleet.router",
+               "paddle_tpu_torch.serving.disagg",
+               "paddle_tpu_torch.serving.disagg.kvstream",
+               "paddle_tpu_torch.serving.disagg.prefill",
+               "paddle_tpu_torch.serving.disagg.router")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -147,8 +147,10 @@ def test_make_quant_kernel_through_registry(op):
 # ---------------------------------------------------------------------------
 
 def _mlp(fluid):
+    # a fresh name generator: the comparison below keys by parameter name,
+    # so the names must not depend on what an earlier test drew
     main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup):
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         x = fluid.layers.data(name="x", shape=[16], dtype="float32")
         h = fluid.layers.fc(input=x, size=32, act="relu")
         out = fluid.layers.fc(input=h, size=4, act="softmax")

@@ -129,7 +129,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same chains against the program's own attention output (0.05,
    1e-4); int8 and float32 wire bytes, per-request walls; every pool
    audited and empty after the drain.
-23. report: a "kernels" JSON line, then the result line
+23. K3 vs plain: flash_attention_with_lse (K1 with lse forward, K2a and
+   K2b with delta - dlse backward) at the ring's shard shape [B 4, H 12,
+   T/p 512, D 64] float32, causal and not, and a ragged shard of 500
+   rows: out, lse and dq, dk, dv under a random lse cotangent against
+   the plain versions (TRAIN_ATOL); forward and backward times beside the
+   bound, the plain versions and PyTorch's memory-efficient attention.
+24. ring: ring_attention on a 4-way seq mesh whose entries are all cuda:0
+   at T 2048 against full_attention on the card, causal and not: outputs
+   and grads, and K3, K2a and K2b launched once per computed (shard, step)
+   pair; a head dim K3 does not take, and FLAGS_ring_flash=false, raise
+   on the card rather than run the blocked torch path.
+25. sequence-parallel step: __graft_entry__._dryrun_one's dp x tp x sp x
+   pp training step (embedding, sharded QKV fc, ring attention, sharded
+   output fc, a 2-stage PipelineStack, Momentum) at BERT-base attention
+   width (d_model 768, 12 heads, seq 2048, batch 8) through
+   CompiledProgram over a data 2 x model 2 x seq 4 x pipe 2 mesh of
+   cuda:0 entries: losses within 1e-5 of the single-device run on the
+   card (K1) and on the CPU, K3 and K2 launch counts, step time, idle
+   share; then the dry run's BERT-block-shaped config (256, 4 heads)
+   against the card's single-device run.
+26. report: a "kernels" JSON line, then the result line
    {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
@@ -252,6 +272,12 @@ KERNELS = {
     "paged_quant": {"name": "paged_attention_quant", "route": "cuda",
                     "source": "paddle_tpu_torch/csrc/paged_attention.cu",
                     "replaces": "paddle_tpu/ops/quant_kernels.py:257"},
+    # K3: K1 with lse forward (flash_attention_fwd.cu); its backward is
+    # K2a + K2b with delta - dlse (flash_attention_bwd.cu)
+    "k3": {"name": "flash_attention_with_lse", "route": "cuda",
+           "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+           "bwd_source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "paddle_tpu/ops/pallas_kernels.py:883"},
 }
 # the CTR slice: bench.py's CTR configuration (bench.py:268-316, Paddle's
 # CTR DNN on Criteo): 26 categorical slots through one shared deep table
@@ -316,6 +342,28 @@ PAGED_CASES = [PAGED_BENCH,
 # kernel against its plain version on the same tensors: float32 and the
 # int8 arm (both dequantized in float32), bf16 (the output rounded to bf16)
 PAGED_ATOL = {"float32": 2e-5, "int8": 2e-5, "bfloat16": 2e-2}
+# the sequence-parallel slice (__graft_entry__.py:132-219, _dryrun_one):
+# K3 at the ring's shard shape [B 4, H 12, T/p 512, D 64] float32 (the
+# step's batch 8 cut over data 2), causal
+# (the ring's diagonal step) and not, and a ragged shard of 500 rows; the
+# ring on a 4-way seq mesh at T 2048 against full attention; the
+# dp x tp x sp x pp training step at BERT-base attention width (d_model
+# 768, 12 heads, D 64, seq 512 x sp, batch 4 x dp, 4 microbatches) over a
+# data 2 x model 2 x seq 4 x pipe 2 mesh whose 32 entries are all cuda:0,
+# against its single-device run on the card and on the CPU, and the dry
+# run's own BERT-block-shaped config (256, 4 heads).  The losses are held
+# at 1e-5 relative, not the dry run's 1e-3: a ring that drops a past shard
+# or leaks the diagonal's future moves the loss by less than 1e-3 at the
+# BERT-block-shaped config (tests/test_torch_parallel.py::
+# test_dryrun_loss_bar_catches_a_broken_ring), and both sides do the same
+# dense math
+SP_SHARD = (4, 12, 512, 64)
+SP_RAGGED_T = 500
+SP_RING = dict(b=4, t=2048, h=12, d=64, seq=4)
+SP_MESH = {"data": 2, "model": 2, "seq": 4, "pipe": 2}
+SP_CONFIGS = [("BERT-base attention width", 768, 12, 4, True),
+              ("BERT-block-shaped", 256, 4, 4, False)]
+SP_PARITY_STEPS, SP_TIMED_STEPS, SP_LOSS_RTOL = 2, 4, 1e-5
 
 
 def phase(name):
@@ -2590,6 +2638,338 @@ def disagg_phase(torch, smi, trained):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the sequence-parallel slice: K3, the ring, the dp x tp x sp x pp step
+# ---------------------------------------------------------------------------
+
+def k3_bounds_ms(q, causal):
+    """Least time of K3's forward and of its backward on an H100 SXM: q,
+    k, v (and dout, out, lse, dlse) read once and out, lse (dq, dk, dv)
+    written once over the memory rate, against 4 FLOP per unmasked (q,
+    k) pair and head dim forward and 2.5 times that backward over the
+    float32 peak."""
+    b, h, t, d = q.shape
+    pairs = t * (t + 1) // 2 if causal else t * t
+    n, rows = 4 * q.numel(), 4 * b * h * t
+    fwd = 4 * b * h * d * pairs
+    return {"fwd": bound_row(4 * n + rows, fwd),
+            "bwd": bound_row(8 * n + 2 * rows, 2.5 * fwd)}
+
+
+def k3_library(torch, q, k, v, dout, causal, scale):
+    """The yardstick: PyTorch's memory-efficient attention, which returns
+    (out, lse) in float32 as K3 does (forward), and its backward through
+    SDPA on that backend (which takes no lse cotangent).  (fwd, bwd)
+    callables, or None with the reason when this build has no such
+    kernel for these inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def fwd():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True, 0.0, causal, scale=scale)
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    try:
+        fwd()
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, is_causal=causal, scale=scale)
+    except RuntimeError as e:
+        print(f"  no library yardstick: {str(e).splitlines()[0][:120]}")
+        return None
+
+    def bwd():
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    return fwd, bwd
+
+
+def k3_kernel_phase(torch):
+    """K3 against its plain version at the ring's shard shapes, with
+    cotangents on out and on lse: out, lse, dq, dk, dv within TRAIN_ATOL;
+    forward and backward times beside the bound, the plain versions and
+    the library yardstick."""
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    phase("K3 (flash_attention_with_lse) vs plain at the ring's shard "
+          "shapes, with a nonzero lse cotangent")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    b, h, t, d = SP_SHARD
+    scale = d ** -0.5
+    rows = {}
+    for name, tt, causal in ((f"shard_b{b}_h{h}_t{t}_d{d}", t, False),
+                             (f"shard_b{b}_h{h}_t{t}_d{d}_causal", t, True),
+                             (f"ragged_t{SP_RAGGED_T}_causal", SP_RAGGED_T,
+                              True)):
+        q, k, v, dout = (torch.randn(b, h, tt, d, generator=g,
+                                     device="cuda") for _ in range(4))
+        dlse = torch.randn(b, h, tt, generator=g, device="cuda")
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out, lse = ak.flash_attention_with_lse(*leaves, causal=causal,
+                                               scale=scale)
+        grads = torch.autograd.grad((out, lse), leaves, (dout, dlse),
+                                    retain_graph=True)
+        out_r, lse_r = ak.flash_attention_reference(
+            q, k, v, None, causal, scale, return_lse=True)
+        # the backward's plain version on the kernel's forward outputs
+        ref = ak.flash_attention_backward_reference(
+            q, k, v, None, out.detach(), lse.detach(), dout, causal, scale,
+            dlse=dlse)
+        torch.cuda.synchronize()
+        errs = {"out": max_err(torch, out, out_r),
+                "lse": max_err(torch, lse, lse_r)}
+        errs.update((n, max_err(torch, a, r))
+                    for n, a, r in zip(("dq", "dk", "dv"), grads, ref))
+        tols = {"out": TRAIN_ATOL["out"]["float32"],
+                "lse": TRAIN_ATOL["lse"]}
+        tols.update((n, TRAIN_ATOL["grad"]["float32"])
+                    for n in ("dq", "dk", "dv"))
+        bounds = k3_bounds_ms(q, causal)
+        lib = k3_library(torch, q, k, v, dout, causal, scale)
+        row = {
+            "max_abs_err": max(errs["out"], errs["lse"]),
+            "ms": time_ms(torch, lambda: ak.flash_attention_with_lse(
+                q, k, v, causal=causal, scale=scale)),
+            "plain_ms": time_ms(torch, lambda: ak.flash_attention_reference(
+                q, k, v, None, causal, scale, return_lse=True)),
+            "library_ms": None if lib is None else time_ms(torch, lib[0]),
+            "bound_ms": bounds["fwd"]["bound_ms"],
+            "bound_by": bounds["fwd"]["bound_by"],
+            "bwd_max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
+            "bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                (out, lse), leaves, (dout, dlse), retain_graph=True)),
+            "bwd_plain_ms": time_ms(
+                torch, lambda: ak.flash_attention_backward_reference(
+                    q, k, v, None, out.detach(), lse.detach(), dout,
+                    causal, scale, dlse=dlse)),
+            "bwd_library_ms": None if lib is None else time_ms(torch,
+                                                               lib[1]),
+            "bwd_bound_ms": bounds["bwd"]["bound_ms"],
+            "bwd_bound_by": bounds["bwd"]["bound_by"]}
+        rows[name] = row
+        print(f"{name}: q {tuple(q.shape)} float32 causal {causal}")
+        print("  max_abs_err " + " ".join(
+            f"{e} {errs[e]:.3e} (atol {tols[e]:g})" for e in errs))
+        print("  max |kernel| " + " ".join(
+            f"{n} {x.abs().max().item():.3e}"
+            for n, x in zip(("dq", "dk", "dv"), grads)))
+        lib_txt = ("none" if lib is None else
+                   f"{row['library_ms']:.6f} ms / {row['bwd_library_ms']:.6f}"
+                   f" ms")
+        print(f"  forward: kernel {row['ms']:.6f} ms plain "
+              f"{row['plain_ms']:.6f} ms bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}); backward (K2a + K2b with delta - dlse):"
+              f" {row['bwd_ms']:.6f} ms plain {row['bwd_plain_ms']:.6f} ms "
+              f"bound {row['bwd_bound_ms']:.6f} ms ({row['bwd_bound_by']}); "
+              f"efficient-attention yardstick fwd / bwd {lib_txt}",
+              flush=True)
+        bad = [e for e in errs if not errs[e] <= tols[e]]
+        if bad:
+            raise SystemExit(f"K3 disagrees with its plain version on "
+                             f"{name}: { {e: errs[e] for e in bad} }")
+    return rows
+
+
+def ring_phase(torch):
+    """The ring on a 4-way seq mesh whose entries are all cuda:0, at T
+    2048, against full_attention on the card: outputs and grads, and K3
+    (and K2a, K2b) launched once per computed (shard, step) pair.  CUDA
+    shards never take the blocked torch path: a head dim K3 does not
+    take, and FLAGS_ring_flash=false, raise."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.parallel import ring_attention as ra
+
+    b, t, h, d, p = (SP_RING[k] for k in ("b", "t", "h", "d", "seq"))
+    phase(f"ring attention on a {p}-way seq mesh of cuda:0 at T {t} "
+          f"against full attention")
+    mesh = make_mesh({"seq": p}, devices=[torch.device("cuda", 0)] * p)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    q, k, v, w = (torch.randn(b, t, h, d, generator=g, device="cuda")
+                  for _ in range(4))
+    counters = {"k3": ak.flash_attention_with_lse,
+                "dkv": ak.flash_attention_bwd_dkv,
+                "dq": ak.flash_attention_bwd_dq}
+    out = {}
+    for causal in (False, True):
+        res = {}
+        for ring in (True, False):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            for c in counters.values():
+                c.launches = 0
+            o = ra.ring_attention(*leaves, mesh, causal=causal) if ring \
+                else ra.full_attention(*leaves, causal=causal)
+            res[ring] = [o] + list(torch.autograd.grad((o * w).sum(),
+                                                       leaves))
+            torch.cuda.synchronize()
+            if ring:
+                launches = {n: c.launches for n, c in counters.items()}
+        pairs = p * (p + 1) // 2 if causal else p * p
+        want = {n: pairs for n in counters}
+        errs = {n: max_err(torch, a, r) for n, a, r in
+                zip(("out", "dq", "dk", "dv"), res[True], res[False])}
+        tols = {"out": TRAIN_ATOL["out"]["float32"]}
+        tols.update((n, TRAIN_ATOL["grad"]["float32"])
+                    for n in ("dq", "dk", "dv"))
+        ring_ms = time_ms(torch, lambda: ra.ring_attention(
+            q, k, v, mesh, causal=causal), reps=10)
+        full_ms = time_ms(torch, lambda: ra.full_attention(
+            q, k, v, causal=causal), reps=10)
+        print(f"causal {causal}: max_abs_err " + " ".join(
+            f"{e} {errs[e]:.3e} (atol {tols[e]:g})" for e in errs) +
+            f"; launches {launches} (expected {want}); forward: ring "
+            f"{ring_ms:.6f} ms, full attention {full_ms:.6f} ms", flush=True)
+        if any(not errs[e] <= tols[e] for e in errs) or launches != want:
+            raise SystemExit(f"the ring departs from full attention "
+                             f"(causal {causal}): {errs}, launches "
+                             f"{launches}, expected {want}")
+        out[causal] = {"errs": errs, "launches": launches}
+    q80 = torch.zeros(1, 4 * p, 1, 80, device="cuda")
+    for what, ring_flash, shards, want_err in (
+            ("head dim 80", "auto", q80, "head dim"),
+            ("FLAGS_ring_flash=false", "false", q[:1, :4 * p], "CPU shards")):
+        flags.set_flags({"ring_flash": ring_flash})
+        try:
+            ra.ring_attention(shards, shards, shards, mesh)
+        except ValueError as e:
+            if want_err not in str(e):
+                raise
+            print(f"{what} on the card raises: {e}", flush=True)
+        else:
+            raise SystemExit(f"the ring ran {what} on the card")
+        finally:
+            flags.set_flags({"ring_flash": "auto"})
+    return out
+
+
+def dryrun_state(fluid, dryrun, d_model, heads, micro):
+    """(main, loss, startup state as numpy, feed) of the dry-run step at
+    seq 512 x sp and batch 4 x dp, its startup run on the card from
+    SEED."""
+    from paddle_tpu_torch.core import unique_name
+
+    dp, sp, pp = SP_MESH["data"], SP_MESH["seq"], SP_MESH["pipe"]
+    seq_len = 512 * sp
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        loss = dryrun.dryrun_program(fluid, d_model, heads, seq_len, pp,
+                                     micro)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=scope)
+    state = {n: x.cpu().numpy() for n, x in scope.vars.items()
+             if x is not None}
+    return main, loss, state, dryrun.dryrun_feed(4 * dp, seq_len, SEED)
+
+
+def sequence_parallel_phase(torch, smi):
+    """The dp x tp x sp x pp step of __graft_entry__._dryrun_one through
+    CompiledProgram over a mesh of cuda:0 entries: its losses within
+    SP_LOSS_RTOL of the single-device run on the card (ring attention
+    off the mesh: K1) and on the CPU; K3 and K2 launch counts, step
+    time and the idle share.  Returns the mesh run's launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import dryrun
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.parallel import make_mesh
+
+    dp, sp = SP_MESH["data"], SP_MESH["seq"]
+    n_dev = int(np.prod(list(SP_MESH.values())))
+    mesh = make_mesh(SP_MESH, devices=[torch.device("cuda", 0)] * n_dev)
+    counters = {"k3": ak.flash_attention_with_lse,
+                "fwd": ak.flash_attention,
+                "dkv": ak.flash_attention_bwd_dkv,
+                "dq": ak.flash_attention_bwd_dq}
+    result = {}
+    for label, d_model, heads, micro, with_cpu in SP_CONFIGS:
+        phase(f"dp x tp x sp x pp step ({label}: d_model {d_model}, "
+              f"{heads} heads) over {SP_MESH} on cuda:0, against one "
+              f"device")
+        main, loss, state, feed = dryrun_state(fluid, dryrun, d_model,
+                                               heads, micro)
+        places = [fluid.CUDAPlace(0)] + ([fluid.CPUPlace()] if with_cpu
+                                         else [])
+        runs = {}
+        for place, on_mesh in [(places[0], True)] + [(pl, False)
+                                                      for pl in places]:
+            scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                              place=place, main_program=main)
+            exe = fluid.Executor(place)
+            prog = main
+            if on_mesh:
+                prog = fluid.CompiledProgram(main).with_data_parallel(
+                    loss_name=loss.name)
+                prog._mesh = mesh
+            steps = SP_TIMED_STEPS if on_mesh else SP_PARITY_STEPS
+            on_card = isinstance(place, fluid.CUDAPlace)
+            if on_card:
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+            losses, walls = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(prog, feed=feed,
+                                            fetch_list=[loss],
+                                            scope=scope)[0]))
+                walls.append(time.perf_counter() - t0)
+            launches = {n: c.launches for n, c in counters.items()} \
+                if on_card else {}
+            key = ("mesh" if on_mesh else "card") if on_card else "cpu"
+            runs[key] = {"losses": losses, "walls": walls,
+                         "launches": launches, "exe": exe, "prog": prog,
+                         "scope": scope}
+            print(f"{key}: losses {losses}, step walls "
+                  f"{[round(w * 1e3, 3) for w in walls]} ms, launches "
+                  f"{launches}", flush=True)
+        mesh_losses = runs["mesh"]["losses"][:SP_PARITY_STEPS]
+        rel = {k: max(abs(a - b) / abs(b) for a, b in
+                      zip(mesh_losses, runs[k]["losses"]))
+               for k in runs if k != "mesh"}
+        pairs = dp * sp * (sp + 1) // 2       # causal (shard, step) pairs
+        steps = SP_TIMED_STEPS
+        # per step: the ring's K3 in the forward op and again in the
+        # generic grad's recompute; K2a and K2b once per pair
+        want = {"k3": 2 * pairs * steps, "fwd": 2 * pairs * steps,
+                "dkv": pairs * steps, "dq": pairs * steps}
+        want_card = {"k3": 0, "fwd": 2 * SP_PARITY_STEPS,
+                     "dkv": SP_PARITY_STEPS, "dq": SP_PARITY_STEPS}
+        step_ms = statistics.median(runs["mesh"]["walls"][1:]) * 1e3
+        print(f"[{smi}] {label}: mesh step {step_ms:.6f} ms (median of "
+              f"steps 2-{steps}; first {runs['mesh']['walls'][0] * 1e3:.6f}"
+              f" ms); single-device card step "
+              f"{statistics.median(runs['card']['walls'][1:]) * 1e3:.6f} ms"
+              f"; relative loss differences of the mesh run {rel} (bound "
+              f"{SP_LOSS_RTOL:g}); mesh launches {runs['mesh']['launches']}"
+              f" (expected {want}), card launches "
+              f"{runs['card']['launches']} (expected {want_card})",
+              flush=True)
+        finite = all(np.isfinite(r["losses"]).all() for r in runs.values())
+        if not finite or max(rel.values()) > SP_LOSS_RTOL:
+            raise SystemExit(f"{label}: the mesh step departs from one "
+                             f"device: {rel}")
+        if runs["mesh"]["launches"] != want or \
+                runs["card"]["launches"] != want_card:
+            raise SystemExit(f"{label}: launches {runs['mesh']['launches']}"
+                             f" / {runs['card']['launches']}, expected "
+                             f"{want} / {want_card}")
+        if with_cpu:
+            m = runs["mesh"]
+
+            def one_step():
+                m["exe"].run(m["prog"], feed=feed, fetch_list=[loss],
+                             scope=m["scope"])
+
+            prof = profile_run(torch, one_step, f"one dp x tp x sp x pp "
+                               f"step ({label})", smi)
+            result = {"launches": m["launches"], "step_ms": step_ms,
+                      "idle": 1.0 - prof["busy"] / prof["wall"]}
+        del runs
+        torch.cuda.empty_cache()
+    return result
+
+
 def main():
     import torch
 
@@ -2628,6 +3008,10 @@ def main():
     launches["paged"] = disagg["paged"]
     launches["paged_quant"] = disagg["paged_quant"]
     del trained
+    k3_rows = k3_kernel_phase(torch)
+    ring_phase(torch)
+    seqpar = sequence_parallel_phase(torch, smi)
+    launches["k3"] = seqpar["launches"]["k3"]
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -2684,6 +3068,15 @@ def main():
           f"{launches['paged']} (float32 pool), paged_attention_quant "
           f"{launches['paged_quant']} (the decode pools' int8 arenas); "
           f"flash_attention_fwd there {disagg['fwd']}")
+    # K3 at the ring's diagonal shard (causal), as the BERT-base-width
+    # step runs it; its backward's numbers beside
+    kernels.append(dict(KERNELS["k3"], launches=launches["k3"],
+                        **k3_rows[f"shard_b{SP_SHARD[0]}_h{SP_SHARD[1]}_t"
+                                  f"{SP_SHARD[2]}_d{SP_SHARD[3]}_causal"]))
+    print(f"flash_attention_with_lse launches: dp x tp x sp x pp step "
+          f"{launches['k3']} over {SP_TIMED_STEPS} steps (K2a/K2b "
+          f"{seqpar['launches']['dkv']}/{seqpar['launches']['dq']}); step "
+          f"{seqpar['step_ms']:.6f} ms, idle share {seqpar['idle']:.4f}")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -49,6 +49,11 @@ from .io import (save_vars, save_params, save_persistables,  # noqa: F401
                  load_vars, load_params, load_persistables,
                  save_inference_model, load_inference_model,
                  state_from_numpy)
+from . import compiler     # noqa: F401
+from .compiler import CompiledProgram  # noqa: F401
+from .parallel_executor import (ParallelExecutor,  # noqa: F401
+                                BuildStrategy, ExecutionStrategy)
+from . import parallel     # noqa: F401
 from . import profiler     # noqa: F401
 from . import observability  # noqa: F401
 from .flags import set_flags, get_flags  # noqa: F401

@@ -297,6 +297,9 @@ class Executor:
         self._reads = weakref.WeakKeyDictionary()
         self._dist_endpoints = set()
         self._dist_trainer_id = 0
+        # the reference's StepGuard verdict of the last run (None: the
+        # port has no StepGuard yet)
+        self.last_guard = None
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name=None, fetch_var_name=None, scope=None,
@@ -306,11 +309,25 @@ class Executor:
                 "Executor.run(feed_next=...): the prefetch-ahead of the "
                 "next step's sharded lookups is not ported yet (ROADMAP "
                 "queue 1 item 11)")
+        from ..compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed=feed, fetch_list=fetch_list,
+                                scope=scope, return_numpy=return_numpy)
         program = program if program is not None else default_main_program()
-        self._track_dist_endpoints(program)
         feed = _normalize_feed(program, dict(feed) if feed else {})
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
         scope = scope if scope is not None else global_scope()
+        return self._run_program(program, feed, fetch_names, scope,
+                                 return_numpy,
+                                 self._read_names(program, fetch_names))
+
+    def _run_program(self, program, feed, fetch_names, scope, return_numpy,
+                     reads, mesh=None):
+        """Run `program` once on normalized feeds: `reads` is its read set
+        (:func:`read_names`) and `mesh` the device mesh a
+        ``CompiledProgram`` runs it over (None: one device)."""
+        self._track_dist_endpoints(program)
         block = program.global_block()
 
         env = {}
@@ -336,7 +353,7 @@ class Executor:
             device=self.device, generator=self.generator,
             seed=program.random_seed, step=self._step,
             is_test=program._is_test or registry.in_test_mode(), masks={},
-            reads=self._read_names(program, fetch_names))
+            reads=reads, mesh=mesh)
         with torch.no_grad(), registry.exec_context(ctx):
             _run_block(block, env, read)
             fetches = [env[n] if n in env else read(n) for n in fetch_names]

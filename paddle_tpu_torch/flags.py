@@ -62,6 +62,11 @@ _DEFAULTS = {
     # sizing; set it below that so occupancy is capped by tokens
     # actually live, not by slot count
     "kv_num_blocks": 0,
+    # ring attention's in-shard tier on CPU shards: "auto" and false = the
+    # blocked torch path, true = K3's plain version.  CUDA shards always
+    # take K3 (ops/attention_kernels.flash_attention_with_lse), and raise
+    # under false
+    "ring_flash": "auto",
 }
 
 _overrides = {}

@@ -13,4 +13,4 @@ from .tensor import (create_tensor, create_global_var,  # noqa: F401
                      fill_constant, fill_constant_batch_size_like, cast,
                      concat, sums, assign, zeros, ones, zeros_like,
                      ones_like, argmax, argmin)
-from .control_flow import DynamicRNN  # noqa: F401
+from .control_flow import DynamicRNN, PipelineStack  # noqa: F401

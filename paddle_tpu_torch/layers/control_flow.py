@@ -1,5 +1,6 @@
-"""Control flow layers: ``DynamicRNN`` and the ``BlockGuard`` it records
-its step block with (a copy of part of ``paddle_tpu/layers/control_flow.py``;
+"""Control flow layers: ``DynamicRNN``, ``PipelineStack`` and the
+``BlockGuard`` they record their sub-blocks with (a copy of part of
+``paddle_tpu/layers/control_flow.py``;
 ``While``, ``cond_block``, the tensor arrays and the rank-table layers wait
 for a later slice of the port).
 
@@ -191,3 +192,164 @@ class DynamicRNN:
                              inputs={"X": [companions[0].name]},
                              outputs={"Out": [c.name]})
         self._stacked = stacked
+
+
+class PipelineStack:
+    """Pipeline parallelism over a homogeneous stage stack (SURVEY §2.4;
+    GPipe schedule).  The stage template is recorded ONCE into a
+    sub-block; every parameter it reads is hoisted to a stacked
+    ``[num_stages, ...]`` parameter sharded over the mesh's "pipe" axis,
+    and the ``gpipe`` op (``ops/pipeline_ops.py``) runs the GPipe schedule
+    over the mesh's pipe devices.  Off-mesh the same op runs the stages
+    in sequence, so pipeline-vs-serial equivalence holds.
+
+    Usage::
+
+        pipe = layers.PipelineStack(num_stages=4, num_microbatches=8)
+        with pipe.block():
+            h = pipe.stage_input(x)          # [B, D]
+            h = layers.fc(h, size=D, act="relu")
+            pipe.output(h)
+        y = pipe()                           # [B, D] after 4 stages
+
+    Stage input and output must have the same shape (the activation that
+    rotates through the ring).
+    """
+
+    def __init__(self, num_stages, num_microbatches, name=None):
+        self.helper = LayerHelper("pipeline", name=name)
+        self.num_stages = int(num_stages)
+        self.num_microbatches = int(num_microbatches)
+        self.sub_block = None
+        self._parent_block = None
+        self._in_outer = None
+        self._in_var = None
+        self._out_var = None
+        self._result = None
+
+    @contextlib.contextmanager
+    def block(self):
+        program = self.helper.main_program
+        self._parent_block = program.current_block()
+        guard = BlockGuard(program)
+        self.sub_block = guard.__enter__()
+        try:
+            yield
+        finally:
+            guard.__exit__()
+        self._complete()
+
+    def stage_input(self, x):
+        if self._in_var is not None:
+            raise ValueError("PipelineStack takes exactly one stage_input")
+        v = self.sub_block.create_var(
+            name=unique_name.generate(x.name + "@STAGE"), dtype=x.dtype)
+        v.shape = x.shape
+        self._in_outer, self._in_var = x, v
+        return v
+
+    def output(self, out):
+        self._out_var = out
+
+    def __call__(self):
+        if self._result is None:
+            raise ValueError("pipe() is only valid after pipe.block()")
+        return self._result
+
+    def _complete(self):
+        from ..core.executor import _block_io
+        from ..core.framework import Parameter, default_startup_program
+
+        if self._in_var is None or self._out_var is None:
+            raise ValueError(
+                "PipelineStack needs one stage_input and one output")
+        parent = self._parent_block
+        main_global = self.helper.main_program.global_block()
+        startup = default_startup_program().global_block()
+        s = self.num_stages
+
+        reads, writes = _block_io(self.sub_block)
+        param_names, static_names = [], []
+        for n in sorted(reads):
+            if n in writes or n == self._in_var.name:
+                continue
+            v = parent._find_var_recursive(n)
+            if v is None:
+                continue
+            if isinstance(v, Parameter):
+                param_names.append(n)
+            else:
+                static_names.append(n)
+
+        # hoist each template parameter to a stacked [S, ...] parameter
+        # sharded over "pipe"; retarget its startup init (each stage gets
+        # an independent random slice).  A param also read OUTSIDE the
+        # stage block can't be hoisted (weight tying across the pipeline
+        # boundary) — fail loudly instead of deleting it from under the
+        # outer reader.
+        def _collect_ops(blk, acc):
+            for op in blk.ops:
+                acc.add(id(op))
+                for v in op.attrs.values():
+                    if hasattr(v, "ops") and hasattr(v, "vars"):
+                        _collect_ops(v, acc)
+            return acc
+
+        sub_ops = _collect_ops(self.sub_block, set())
+        for blk in self.helper.main_program.blocks:
+            if blk is self.sub_block:
+                continue
+            for op in blk.ops:
+                if id(op) in sub_ops:
+                    continue
+                tied = set(op.input_arg_names) & set(param_names)
+                if tied:
+                    raise ValueError(
+                        f"parameter(s) {sorted(tied)} are used both "
+                        "inside a PipelineStack stage and outside it; "
+                        "weight tying across the pipeline boundary is "
+                        "not supported (the stage copy is hoisted to a "
+                        "stacked per-stage parameter)")
+        stacked_names = []
+        for n in param_names:
+            v = main_global.var(n)
+            sname = n + "@STACKED"
+            sv = main_global.create_parameter(
+                name=sname, shape=(s,) + tuple(v.shape), dtype=v.dtype,
+                trainable=getattr(v, "trainable", True))
+            sv.sharding = ("pipe",) + (None,) * len(v.shape)
+            for op in startup.ops:
+                if n in op.output_arg_names:
+                    op.outputs = {slot: [sname if x == n else x
+                                         for x in names]
+                                  for slot, names in op.outputs.items()}
+                    if op.attrs.get("shape") is not None:
+                        op.attrs = dict(op.attrs,
+                                        shape=[s] + list(op.attrs["shape"]))
+            if startup.has_var(n):
+                stv = startup.var(n)
+                startup.create_var(name=sname,
+                                   shape=(s,) + tuple(stv.shape or ()),
+                                   dtype=stv.dtype, persistable=True)
+                startup.vars.pop(n, None)
+            main_global.vars.pop(n, None)
+            stacked_names.append(sname)
+
+        out = parent.create_var(
+            name=unique_name.generate("gpipe_out"),
+            dtype=self._out_var.dtype)
+        out.shape = self._in_outer.shape
+        parent.append_op(
+            type="gpipe",
+            inputs={"X": [self._in_outer.name],
+                    "StackedParam": stacked_names,
+                    "Static": static_names},
+            outputs={"Out": [out.name]},
+            attrs={"sub_block": self.sub_block,
+                   "in_name": self._in_var.name,
+                   "out_name": self._out_var.name,
+                   "param_inner_names": param_names,
+                   "static_names": static_names,
+                   "num_stages": s,
+                   "num_microbatches": self.num_microbatches})
+        self._result = out

@@ -9,3 +9,4 @@ from . import optimizer_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import rnn_ops       # noqa: F401
 from . import sampling_kernels  # noqa: F401
+from . import pipeline_ops  # noqa: F401

@@ -7,7 +7,11 @@ TPU kernels of ``paddle_tpu/ops/pallas_kernels.py``:
 - K2a ``_flash_bwd_dkv_kernel`` (:558, ``pl.pallas_call`` :791) and K2b
   ``_flash_bwd_dq_kernel`` (:625, ``pl.pallas_call`` :835), the two
   backward kernels of ``_flash_bwd_impl`` (:733):
-  ``csrc/flash_attention_bwd.cu``.
+  ``csrc/flash_attention_bwd.cu``;
+- K3 ``flash_attention_with_lse`` (:883, K1's ``pl.pallas_call`` returning
+  (out, lse), with a custom_vjp that carries the lse cotangent into the
+  backward as ``delta - dlse``, :893-913): :func:`flash_attention_with_lse`,
+  the same two sources.
 
 :func:`flash_attention` is differentiable: under grad its forward asks
 K1 for the per-row lse and its backward launches K2a (dK, dV) and K2b
@@ -16,7 +20,8 @@ hand-written CUDA kernel on a CUDA tensor and takes its plain PyTorch
 version only for a CPU tensor; on a CUDA tensor it launches or raises,
 with no fallback.  ``flash_attention.launches``,
 ``flash_attention_bwd_dkv.launches`` and ``flash_attention_bwd_dq.
-launches`` count the kernels' launches.
+launches`` count the kernels' launches; ``flash_attention_with_lse.
+launches`` counts the forward launches made for K3.
 
 Dropout on the softmax weights draws its bits from counter-based Philox
 (Random123's philox4x32-10) keyed by (seed) with the element's
@@ -151,15 +156,18 @@ def attention_delta(dout, out):
 
 def flash_attention_backward_reference(q, k, v, bias, out, lse, dout,
                                        causal=False, scale=None,
-                                       dropout_p=0.0, seed=0):
+                                       dropout_p=0.0, seed=0, dlse=None):
     """Plain FlashAttention-2 backward: (dq, dk, dv, dbias) with dbias in
     the bias's shape (None without a bias).  `lse` is the forward's
-    [B, H, Tq] log-sum-exp."""
+    [B, H, Tq] log-sum-exp; `dlse`, a cotangent on it (K3's backward),
+    enters as delta - dlse."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    dq, dk, dv, ds = _backward_plain(q, k, v, bias, dout, lse,
-                                     attention_delta(dout, out), causal,
-                                     scale, dropout_p, seed)
+    delta = attention_delta(dout, out)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dq, dk, dv, ds = _backward_plain(q, k, v, bias, dout, lse, delta,
+                                     causal, scale, dropout_p, seed)
     return dq, dk, dv, None if bias is None else _unbroadcast(ds, bias)
 
 
@@ -404,6 +412,50 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
                                seed)
 
 
+class _FlashAttentionLse(torch.autograd.Function):
+    """K3: K1 with lse forward, returning (out, lse); backward K2a and K2b
+    with the lse cotangent folded into delta (the reference's
+    ``flash_attention_with_lse`` custom_vjp, :883-913)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, None, causal, scale,
+                                       with_lse=True)
+        if q.device.type == "cuda":
+            flash_attention_with_lse.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = torch.zeros_like(out) if dout is None else dout.contiguous()
+        # d lse_i / d s_ij = P_ij, so dS = P·(dP - delta + dlse): the
+        # kernels take delta - dlse where they took delta
+        delta = attention_delta(dout, out)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        args = (q, k, v, None, dout, lse, delta.contiguous(), *ctx.args)
+        dk, dv = flash_attention_bwd_dkv(*args)
+        dq, _ = flash_attention_bwd_dq(*args)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal=False, scale=None):
+    """K3: attention over [B,H,T,D] returning (out, lse [B,H,Tq] fp32),
+    with no bias and no dropout (ring attention's in-shard tier needs
+    neither).  Differentiable in q, k and v, through lse too: a None
+    lse cotangent counts as zero.  On a CUDA tensor the forward launches
+    K1 with lse (counted here and in ``flash_attention.launches``) and
+    the backward K2a and K2b; on a CPU tensor the plain versions run."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    return _FlashAttentionLse.apply(q, k, v, causal, scale)
+
+
 flash_attention.launches = 0
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dq.launches = 0
+flash_attention_with_lse.launches = 0

@@ -145,6 +145,7 @@ def _unary(fn):
 register("relu")(_unary(torch.relu))
 register("sigmoid")(_unary(torch.sigmoid))
 register("tanh")(_unary(torch.tanh))
+register("square")(_unary(torch.square))
 # exact erf form, as jax.nn.gelu(approximate=False) in the reference
 register("gelu")(_unary(
     lambda x: torch.nn.functional.gelu(x, approximate="none")))
@@ -178,3 +179,4 @@ def _reduce(fn):
 
 
 register("reduce_sum")(_reduce(torch.sum))
+register("reduce_mean")(_reduce(torch.mean))

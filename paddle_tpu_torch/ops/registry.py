@@ -57,10 +57,13 @@ class ExecContext:
     key, so this changes no result).  `reads`, when given, is the set of
     names the run's ops read or its caller fetches, and `op` the op
     running now: :func:`output_read` tells a kernel from them whether an
-    optional output is read at all."""
+    optional output is read at all.  `mesh` is the device mesh
+    (``parallel.mesh.Mesh``) of a ``CompiledProgram`` run and None for a
+    plain Executor run: the reference's ``TRACE_CTX.mesh``, which the
+    ring attention and gpipe ops read."""
 
     def __init__(self, device=None, generator=None, seed=0, step=0,
-                 is_test=False, masks=None, reads=None):
+                 is_test=False, masks=None, reads=None, mesh=None):
         self.device = device if device is not None else torch.device("cpu")
         self.generator = generator
         self.seed = seed            # program.random_seed
@@ -68,6 +71,7 @@ class ExecContext:
         self.is_test = is_test
         self.masks = masks
         self.reads = reads
+        self.mesh = mesh
         self.op = None
 
 

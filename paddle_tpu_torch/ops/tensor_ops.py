@@ -150,6 +150,22 @@ def concat(ins, attrs):
     return as_out(torch.cat(ins["X"], dim=attrs.get("axis", 0)))
 
 
+@register("split")
+def split(ins, attrs):
+    x = first(ins, "X")
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections", [])
+    if sections:
+        parts = torch.split(x, list(sections), dim=axis)
+    else:
+        num = attrs.get("num", 0)
+        if x.shape[axis] % num:
+            raise ValueError(f"split: dim {axis} of size {x.shape[axis]} "
+                             f"does not split into {num} equal parts")
+        parts = torch.split(x, x.shape[axis] // num, dim=axis)
+    return {"Out": list(parts)}
+
+
 @register("gather")
 def gather(ins, attrs):
     return as_out(take_rows(first(ins, "X"), first(ins, "Index")))

@@ -232,13 +232,13 @@ class PassManager:
 # -- the compile-seam entry point -------------------------------------------
 
 def apply_at_seam(program, feed_names=(), fetch_names=(),
-                  where="compile"):
+                  where="compile", mesh=None):
     """Transform `program` through the FLAGS_pass_pipeline pipeline,
-    memoized per (version, feeds, fetches, spec).  Returns the program
-    to run — the input object itself whenever the pipeline is off or
-    has nothing to do.  (The JAX package's `mesh` and `feed_shapes`
-    arguments feed auto_shard and the memory passes; the port's one
-    seam, the Predictor, runs on one card and has no memory passes.)"""
+    memoized per (version, feeds, fetches, spec, mesh axes).  Returns
+    the program to run — the input object itself whenever the pipeline
+    is off or has nothing to do.  `mesh` (``CompiledProgram``'s) lets
+    auto_shard see the model axis.  (The JAX package's `feed_shapes`
+    argument feeds the memory passes, which the port does not have.)"""
     from ..flags import get_flag
 
     spec = get_flag("pass_pipeline")
@@ -247,7 +247,7 @@ def apply_at_seam(program, feed_names=(), fetch_names=(),
     if not names:
         return program
     ctx = PassContext(feed_names=feed_names, fetch_names=fetch_names,
-                      where=where)
+                      mesh=mesh, where=where)
     key = (program._version, tuple(names)) + ctx.memo_key()
     memo = program.__dict__.setdefault("_pass_memo", {})
     hit = memo.get(key)

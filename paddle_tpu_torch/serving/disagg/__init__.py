@@ -20,9 +20,9 @@ streamed between them block-by-block:
   path is unroutable: degradation, never an outage.
 
 The reference's ``sharded`` module (``ShardedReplica``, ``ChipDown``: a
-replica-group over a mesh slice) needs ``parallel/mesh`` and
-``passes/sharding`` and waits for the multi-device slice (ROADMAP queue
-1 item 10); decode replicas here are plain ``fleet.Replica`` objects.
+replica-group over a mesh slice) needs one process per card and waits
+for the multi-process mesh (ROADMAP queue 1 item 15); decode replicas
+here are plain ``fleet.Replica`` objects.
 """
 
 from .kvstream import (KVIngestor, KVStreamError,  # noqa: F401

@@ -32,9 +32,11 @@ def test_import_leaves_jax_and_paddle_tpu_out():
 
 
 # the modules of the pass pipeline, the int8 serving path, the RNN slice,
-# the CTR slice, the NMT slice (K10, decode serving) and the disaggregated
-# tier (K4, K5, fault plans, the fleet router, kv_stream), imported with
-# jax and paddle_tpu made unimportable (a None entry in sys.modules)
+# the CTR slice, the NMT slice (K10, decode serving), the disaggregated
+# tier (K4, K5, fault plans, the fleet router, kv_stream) and the
+# sequence-parallel slice (the mesh, ring attention with K3, gpipe,
+# CompiledProgram), imported with jax and paddle_tpu made unimportable (a
+# None entry in sys.modules)
 NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.passes.quantize",
                "paddle_tpu_torch.ops.quant_kernels",
@@ -73,7 +75,15 @@ NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.serving.disagg",
                "paddle_tpu_torch.serving.disagg.kvstream",
                "paddle_tpu_torch.serving.disagg.prefill",
-               "paddle_tpu_torch.serving.disagg.router")
+               "paddle_tpu_torch.serving.disagg.router",
+               "paddle_tpu_torch.parallel",
+               "paddle_tpu_torch.parallel.mesh",
+               "paddle_tpu_torch.parallel.env",
+               "paddle_tpu_torch.parallel.ring_attention",
+               "paddle_tpu_torch.ops.pipeline_ops",
+               "paddle_tpu_torch.compiler",
+               "paddle_tpu_torch.parallel_executor",
+               "paddle_tpu_torch.models.dryrun")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -194,3 +204,26 @@ def test_program_decode_step_runs_on_the_card_unless_asked(monkeypatch):
         finally:
             eng.stop()
     assert out.shape == (4,) and out.dtype == np.int64
+
+
+def test_parallel_entry_points_run_on_the_card_unless_asked(monkeypatch):
+    """CompiledProgram.with_data_parallel, ParallelExecutor and make_mesh
+    mesh the CUDA devices: without one they raise instead of moving to
+    the CPU, and run on the CPU when the caller passes CPU places."""
+    from paddle_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    main = fluid.Program()
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        fluid.CompiledProgram(main).with_data_parallel()
+    with pytest.raises(RuntimeError, match="CPUPlace"):
+        fluid.ParallelExecutor(main_program=main)
+    with pytest.raises(ValueError, match="needs 2 devices, have 0"):
+        make_mesh({"seq": 2})
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        places=[fluid.CPUPlace()] * 2)
+    assert compiled._mesh.shape == {"data": 2}
+    assert {d.type for d in compiled._mesh.devices.flat} == {"cpu"}
+    pe = fluid.ParallelExecutor(use_cuda=False, main_program=main)
+    assert pe._exe.device == torch.device("cpu") and pe.device_count == 0

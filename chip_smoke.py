@@ -20,7 +20,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K1 with its lse and dropout, K2a (dK, dV) and K2b (dQ, dBias), with
    dropout on and off, against the plain forward and the plain
    FlashAttention-2 backward on the same tensors (the same Philox mask);
-   the dropout keep rate and the bits' determinism per seed.
+   the dropout keep rate and the bits' determinism per seed.  First the
+   built library's SASS: every instantiation of K2a and K2b must hold
+   tensor-core products (HMMA) and asynchronous copies (LDGSTS).  At the
+   BERT shape K2a/K2b's fp32 grads are also held against the plain
+   backward computed in float64 (GRAD64_FACTOR times the fp32 plain
+   version's own error), and K2a + K2b + attention_delta is timed beside
+   the library's backward there and at NMT's T 64 bucket.
 5. int8 kernel vs plain: K6 (quant_matmul) at the int8 serving path's
    shapes (M = 1024 with (K, N) in {(768, 768), (768, 3072), (3072,
    768)}, ragged M, the pooler's M = 8, the logits head's N = 2, and a
@@ -133,8 +139,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K2b with delta - dlse backward) at the ring's shard shape [B 4, H 12,
    T/p 512, D 64] float32, causal and not, and a ragged shard of 500
    rows: out, lse and dq, dk, dv under a random lse cotangent against
-   the plain versions (TRAIN_ATOL); forward and backward times beside the
-   bound, the plain versions and PyTorch's memory-efficient attention.
+   the plain versions (TRAIN_ATOL) and the grads against float64
+   (GRAD64_FACTOR); forward and backward times beside the bound, the
+   plain versions and PyTorch's memory-efficient attention, and K2a +
+   K2b + attention_delta beside its backward at the shard, causal and
+   not.
 24. ring: ring_attention on a 4-way seq mesh whose entries are all cuda:0
    at T 2048 against full_attention on the card, causal and not: outputs
    and grads, and K3, K2a and K2b launched once per computed (shard, step)
@@ -158,6 +167,8 @@ package is not beside this script.
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -170,7 +181,11 @@ import numpy as np
 SEED = 1234
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# "tf32x3": fp32 products on the tensor cores in the 3xTF32 scheme (K2a,
+# K2b): three TF32 products for each, so a third of the 495 TFLOP/s dense
+# TF32 peak of the same data sheet
+PEAK_FLOPS = {"float32": 67e12, "tf32x3": 495e12 / 3, "bfloat16": 989e12,
+              "int8": 1979e12}
 # fp32: the kernel and the plain version sum exps in another order; bf16:
 # the plain version rounds its output to bf16 from a different fp32 value
 ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -182,6 +197,14 @@ ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # dBias is summed by fp32 atomics, in another order on every run
 TRAIN_ATOL = {"out": {"float32": 2e-4, "bfloat16": 5e-2}, "lse": 2e-4,
               "grad": {"float32": 2e-3, "bfloat16": 5e-2}, "dbias": 2e-3}
+# the backward kernels' precision: their fp32 dq, dk, dv against a float64
+# answer computed on the card from the same inputs must be within
+# GRAD64_FACTOR times the error of the fp32 plain version against that
+# answer, or within GRAD64_FLOOR of the gradient's largest magnitude.  The
+# factor allows for another summation order and the tensor cores'
+# truncating sums; 3xTF32 keeps fp32's accuracy, while one TF32 product a
+# term (~1e-3 relative) is some 500 times worse and fails
+GRAD64_FACTOR, GRAD64_FLOOR = 10.0, 1e-6
 # keep rate of p=0.1 over the B*H*T*T draws of the BERT training shape
 # (6.3 M draws: one standard deviation is 1.2e-4)
 KEEP_RATE_TOL = 0.002
@@ -485,6 +508,17 @@ def attention_bound_ms(q, k, bias, causal):
                                  else "operations")
 
 
+def sdpa_mask(torch, q, k, bias, causal):
+    """(attn_mask, is_causal) for SDPA, the yardstick: it takes no mask
+    together with is_causal, so a causal mask is folded into the bias."""
+    mask = None if bias is None else bias.to(q.dtype)
+    if not (causal and mask is not None):
+        return mask, causal
+    keep = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool,
+                      device="cuda").tril()
+    return mask.masked_fill(~keep, float("-inf")), False
+
+
 def kernel_phase(torch):
     from paddle_tpu_torch.ops import attention_kernels as ak
 
@@ -499,12 +533,7 @@ def kernel_phase(torch):
         err = (out.float() - ref.float()).abs().max().item()
         dtype = str(q.dtype).replace("torch.", "")
         ok = err <= ATOL[dtype]
-        mask, is_causal = None if bias is None else bias.to(q.dtype), causal
-        if causal and mask is not None:
-            # SDPA takes no mask together with is_causal: fold it in
-            keep = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool,
-                              device="cuda").tril()
-            mask, is_causal = mask.masked_fill(~keep, float("-inf")), False
+        mask, is_causal = sdpa_mask(torch, q, k, bias, causal)
         row = {
             "max_abs_err": err,
             "ms": time_ms(torch, lambda: ak.flash_attention(
@@ -566,7 +595,13 @@ def train_attention_cases(torch):
         ("ragged_t100_f32_drop", *qkv(f32, t=100), pad_mask(100), False,
          0.1, False),
         ("d128_f32_drop", *qkv(f32, d=128), pad_mask(), False, 0.1, False),
+        ("d128_bf16_drop", *qkv(bf16, d=128), pad_mask(), False, 0.1,
+         False),
         ("masked_row_dbias_f32", *qkv(f32), masked, False, 0.0, True),
+        # 64 query rows over 128 keys, causal (top-left): the last K tile
+        # sees no query, every row sees a padded key
+        ("causal_tq64_tk128_row_dbias_f32", qkv(f32, t=64)[0],
+         *qkv(f32)[1:], pad_mask(), True, 0.1, True),
     ]
 
 
@@ -574,7 +609,11 @@ def train_bounds_ms(q, k, bias, causal, dbias):
     """Least time on an H100 SXM of K1 (with lse), K2a and K2b: each
     input read once and each output written once over the memory rate,
     against the products the unmasked (q, k) pairs need (4, 8 and 6
-    FLOP per pair and head dim) over the peak rate of the input type."""
+    FLOP per pair and head dim) over the peak rate of the input type.
+    K2a and K2b run fp32 on the tensor cores (3xTF32), so on fp32 inputs
+    their own bound takes the "tf32x3" rate, with the CUDA-core bound
+    (the fp32 rate) beside it.  {kernel: {"bound_ms", "bound_by"[,
+    "cuda_core_bound_ms", "cuda_core_bound_by"]}}."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     es = q.element_size()
@@ -584,16 +623,26 @@ def train_bounds_ms(q, k, bias, causal, dbias):
     ndbias = 0 if not dbias else 4 * (
         b * tk if bias.shape[1] == bias.shape[2] == 1 else b * h * tq * tk)
     pairs = sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
-    peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
+    dtype = str(q.dtype).replace("torch.", "")
     work = {"fwd": (2 * nq + 2 * nk + nbias + rows, 4),
             "dkv": (2 * nq + 4 * nk + nbias + 2 * rows, 8),
             "dq": (3 * nq + 2 * nk + nbias + 2 * rows + ndbias, 6)}
+
+    def bound(nbytes, flops, peak):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_FLOPS[peak] * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                     else "operations")
+
     out = {}
     for kern, (nbytes, per_pair) in work.items():
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = per_pair * b * h * d * pairs / peak * 1e3
-        out[kern] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes > t_ops else "operations")
+        flops = per_pair * b * h * d * pairs
+        tc = kern != "fwd" and dtype == "float32"
+        ms, by = bound(nbytes, flops, "tf32x3" if tc else dtype)
+        out[kern] = {"bound_ms": ms, "bound_by": by}
+        if tc:
+            ms, by = bound(nbytes, flops, dtype)
+            out[kern].update(cuda_core_bound_ms=ms, cuda_core_bound_by=by)
     return out
 
 
@@ -607,10 +656,139 @@ def max_err(torch, got, want):
     return (got - want).abs()[~inf].max().item()
 
 
+def sass_check():
+    """The backward kernels as built: every instantiation of K2a and K2b
+    (fp32 and bf16, D 64 and 128) must hold tensor-core products (HMMA)
+    and asynchronous copies (LDGSTS, or UTMALDG for TMA).  Prints the
+    counts of each; raises SystemExit when one is missing."""
+    from paddle_tpu_torch.ops import cuda_build
+
+    cuda_build.load("flash_attention_bwd")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", cuda_build.lib_path("flash_attention_bwd")],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    ops = ("HMMA", "LDGSTS", "UTMALDG")
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(ops, 0)
+        elif name is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    found = {kern: {n: c for n, c in counts.items() if kern in n}
+             for kern in ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
+    bad = []
+    for kern, insts in found.items():
+        for n, c in sorted(insts.items()):
+            m = re.search(r"ILi(\d+)E(f|13__nv_bfloat16)E", n)
+            inst = (f"D {m.group(1)} "
+                    f"{'float32' if m.group(2) == 'f' else 'bfloat16'}"
+                    if m else n)
+            print(f"  SASS {kern} {inst}: " +
+                  " ".join(f"{op} {c[op]}" for op in ops))
+            if not c["HMMA"] or not (c["LDGSTS"] or c["UTMALDG"]):
+                bad.append(n)
+        if len(insts) != 4:
+            bad.append(f"{kern}: {len(insts)} instantiations, not 4")
+    if bad:
+        raise SystemExit(f"backward kernels without tensor-core products "
+                         f"or asynchronous copies: {bad}")
+
+
+def grad64_check(torch, ak, name, bwd, got):
+    """The backward kernels' fp32 (dq, dk, dv) `got` from the inputs `bwd`
+    (q, k, v, bias, dout, lse, delta, causal, scale, p, seed) against the
+    plain version computed in float64 on the card from the same inputs,
+    beside the fp32 plain version's own error (GRAD64_FACTOR,
+    GRAD64_FLOOR)."""
+    tensors, rest = bwd[:7], bwd[7:]
+    plain = ak._backward_plain(*bwd)[:3]
+    exact = ak._backward_plain(
+        *[None if x is None else x.double() for x in tensors], *rest,
+        dtype=torch.float64)[:3]
+    parts, bad = [], {}
+    for n, g, pl, ex in zip(("dq", "dk", "dv"), got, plain, exact):
+        e_k = (g.double() - ex).abs().max().item()
+        e_p = (pl.double() - ex).abs().max().item()
+        bar = max(GRAD64_FACTOR * e_p, GRAD64_FLOOR * ex.abs().max().item())
+        ratio = e_k / e_p if e_p else float("inf")
+        parts.append(f"{n} kernel {e_k:.3e} plain {e_p:.3e} "
+                     f"(x{ratio:.3f}) bar {bar:.3e}")
+        if not e_k <= bar:
+            bad[n] = (e_k, bar)
+    print("  against float64: " + "; ".join(parts), flush=True)
+    if bad:
+        raise SystemExit(f"backward kernels miss the float64 precision bar "
+                         f"on {name}: {bad}")
+
+
+def backward_vs_library(torch, ak, label, fwd_args, dout, out, lse, lib_bwd,
+                        dlse=None):
+    """One line: K2a + K2b + attention_delta (delta - dlse under an lse
+    cotangent) against one library backward call on the same inputs."""
+    q, k, v, bias, causal, scale, p, seed = fwd_args
+
+    def ours():
+        delta = ak.attention_delta(dout, out)
+        if dlse is not None:
+            delta = delta - dlse
+        args = (q, k, v, bias, dout, lse, delta, causal, scale, p, seed)
+        ak.flash_attention_bwd_dkv(*args)
+        ak.flash_attention_bwd_dq(*args)
+
+    ms, lib_ms = time_ms(torch, ours), time_ms(torch, lib_bwd)
+    print(f"  backward vs library at {label}: K2a + K2b + attention_delta "
+          f"{ms:.6f} ms, library backward {lib_ms:.6f} ms ({ms / lib_ms:.3f}"
+          f"x: {'no slower' if ms <= lib_ms else 'slower'})", flush=True)
+
+
+def nmt_backward_vs_library(torch, ak):
+    """backward_vs_library at NMT's T 64 bucket: [64, 8, 64, 64] fp32, the
+    decoder self-attention's full causal-and-padding bias, dropout 0.1
+    (nmt_kernel_phase's case), against SDPA's backward; K2a's and K2b's
+    own times beside their bounds."""
+    from paddle_tpu_torch.models.transformer import make_attn_biases
+
+    t = 64
+    b, h, d = NMT_TOKENS // t, NMT["n_head"], NMT["d_model"] // NMT["n_head"]
+    i = NMT_BUCKETS.index(t)
+    lens = np.random.RandomState(SEED + i).randint(t // 2 + 1, t + 1, b)
+    bias = torch.from_numpy(make_attn_biases(lens, lens, h, t, t)[1]).cuda()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50 + i)
+    q, k, v, dout = (torch.randn(b, h, t, d, generator=g, device="cuda")
+                     for _ in range(4))
+    args = (q, k, v, bias, False, d ** -0.5, 0.1, SEED + 50 + i)
+    out, lse = ak.flash_attention_fwd(*args, with_lse=True)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=bias, dropout_p=0.1, scale=d ** -0.5)
+    backward_vs_library(
+        torch, ak, f"NMT T {t} {tuple(q.shape)} full bias dropout 0.1",
+        args, dout, out, lse, lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True))
+    delta = ak.attention_delta(dout, out)
+    bwd = (q, k, v, bias, dout, lse, delta, *args[4:])
+    bounds = train_bounds_ms(q, k, bias, False, False)
+    for kern, fn in (("dkv", ak.flash_attention_bwd_dkv),
+                     ("dq", ak.flash_attention_bwd_dq)):
+        b_ = bounds[kern]
+        print(f"  {KERNELS[kern]['name']}: kernel "
+              f"{time_ms(torch, lambda: fn(*bwd)):.6f} ms bound "
+              f"{b_['bound_ms']:.6f} ms ({b_['bound_by']}); CUDA-core bound "
+              f"{b_['cuda_core_bound_ms']:.6f} ms "
+              f"({b_['cuda_core_bound_by']})", flush=True)
+
+
 def train_kernel_phase(torch):
     from paddle_tpu_torch.ops import attention_kernels as ak
 
     phase("training kernels vs plain (K1 with lse and dropout, K2a, K2b)")
+    sass_check()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {"fwd": {}, "dkv": {}, "dq": {}}
     for i, (name, q, k, v, bias, causal, p, dbias) in enumerate(
@@ -646,8 +824,8 @@ def train_kernel_phase(torch):
         # the library yardstick: SDPA forward, and its backward under
         # torch.autograd.grad (math/efficient backends; the port never
         # calls it)
-        fwd_mask = None if bias is None else bias.to(q.dtype)
-        mask, is_causal = fwd_mask, causal
+        fwd_mask, lib_causal = sdpa_mask(torch, q, k, bias, causal)
+        mask, is_causal = fwd_mask, lib_causal
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         if dbias:
             mask = mask.detach().requires_grad_()
@@ -665,7 +843,7 @@ def train_kernel_phase(torch):
                     lambda: ak.flash_attention_reference(
                         *args, return_lse=True),
                     lambda: sdpa(q, k, v, attn_mask=fwd_mask,
-                                 is_causal=causal, dropout_p=p,
+                                 is_causal=lib_causal, dropout_p=p,
                                  scale=scale)),
             "dkv": (lambda: ak.flash_attention_bwd_dkv(*bwd), None, None),
             "dq": (lambda: ak.flash_attention_bwd_dq(*bwd, dbias=dbias),
@@ -681,32 +859,40 @@ def train_kernel_phase(torch):
                 "plain_ms": time_ms(torch, plain) if plain else
                 plain_bwd_ms,
                 "library_ms": time_ms(torch, lib) if lib else lib_bwd_ms,
-                "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1]}
+                **bounds[kern]}
         print(f"{name}: q {tuple(q.shape)} {dtype} dropout {p} causal "
               f"{causal} bias {None if bias is None else tuple(bias.shape)}"
               f" dbias {dbias}", flush=True)
         print("  max_abs_err " + " ".join(
             f"{e} {errs[e]:.3e} (atol {tols[e]:g})" for e in errs))
-        # the plain versions repeat the kernels' products in the same
-        # order, so fp32 errors may be exactly 0: the sizes show the
-        # comparison is not of zeros
+        # the sizes show the comparison is not of zeros
         print("  max |kernel| " + " ".join(
             f"{e} {t.float().abs().max().item():.3e}" for e, t in
             (("dq", dq), ("dk", dk), ("dv", dv), ("dbias", db))
             if t is not None))
         for kern, r in rows.items():
             r = r[name]
+            cc = (f"; CUDA-core bound {r['cuda_core_bound_ms']:.6f} ms "
+                  f"({r['cuda_core_bound_by']})"
+                  if "cuda_core_bound_ms" in r else "")
             print(f"  {KERNELS[kern]['name']}: kernel {r['ms']:.6f} ms "
                   f"plain {r['plain_ms']:.6f} ms sdpa {r['library_ms']:.6f}"
-                  f" ms bound {r['bound_ms']:.6f} ms ({r['bound_by']})",
+                  f" ms bound {r['bound_ms']:.6f} ms ({r['bound_by']}){cc}",
                   flush=True)
         bad = [e for e in errs if not errs[e] <= tols[e]]
         if bad:
             raise SystemExit(f"training kernels disagree with their plain "
                              f"versions on {name}: "
                              f"{ {e: errs[e] for e in bad} }")
+        if name in ("bert_row_f32", "bert_row_f32_drop"):
+            grad64_check(torch, ak, name, bwd, (dq, dk, dv))
         if name == "bert_row_f32_drop":
             dropout_checks(torch, ak, args, seed)
+            backward_vs_library(
+                torch, ak, f"BERT {tuple(q.shape)} row bias dropout {p}",
+                args, dout, out, lse, lambda: torch.autograd.grad(
+                    lib_out, leaves, dout, retain_graph=True))
+    nmt_backward_vs_library(torch, ak)
     return rows
 
 
@@ -1253,9 +1439,9 @@ def grads_err(torch, fn, plain, inputs, cots):
     return max((a - b).abs().max().item() for a, b in zip(*res))
 
 
-def bound_row(nbytes, flops):
+def bound_row(nbytes, flops, peak="float32"):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations"}
 
@@ -2647,13 +2833,15 @@ def k3_bounds_ms(q, causal):
     k, v (and dout, out, lse, dlse) read once and out, lse (dq, dk, dv)
     written once over the memory rate, against 4 FLOP per unmasked (q,
     k) pair and head dim forward and 2.5 times that backward over the
-    float32 peak."""
+    float32 peak; the backward (K2a, K2b on the tensor cores) also over
+    the 3xTF32 rate ("bwd_tc", its own bound)."""
     b, h, t, d = q.shape
     pairs = t * (t + 1) // 2 if causal else t * t
     n, rows = 4 * q.numel(), 4 * b * h * t
     fwd = 4 * b * h * d * pairs
     return {"fwd": bound_row(4 * n + rows, fwd),
-            "bwd": bound_row(8 * n + 2 * rows, 2.5 * fwd)}
+            "bwd": bound_row(8 * n + 2 * rows, 2.5 * fwd),
+            "bwd_tc": bound_row(8 * n + 2 * rows, 2.5 * fwd, "tf32x3")}
 
 
 def k3_library(torch, q, k, v, dout, causal, scale):
@@ -2720,6 +2908,9 @@ def k3_kernel_phase(torch):
                 "lse": max_err(torch, lse, lse_r)}
         errs.update((n, max_err(torch, a, r))
                     for n, a, r in zip(("dq", "dk", "dv"), grads, ref))
+        # the kernels' inputs as the backward formed them: delta - dlse
+        out_d, lse_d = out.detach(), lse.detach()
+        delta = ak.attention_delta(dout, out_d) - dlse
         tols = {"out": TRAIN_ATOL["out"]["float32"],
                 "lse": TRAIN_ATOL["lse"]}
         tols.update((n, TRAIN_ATOL["grad"]["float32"])
@@ -2744,8 +2935,10 @@ def k3_kernel_phase(torch):
                     causal, scale, dlse=dlse)),
             "bwd_library_ms": None if lib is None else time_ms(torch,
                                                                lib[1]),
-            "bwd_bound_ms": bounds["bwd"]["bound_ms"],
-            "bwd_bound_by": bounds["bwd"]["bound_by"]}
+            "bwd_bound_ms": bounds["bwd_tc"]["bound_ms"],
+            "bwd_bound_by": bounds["bwd_tc"]["bound_by"],
+            "bwd_cuda_core_bound_ms": bounds["bwd"]["bound_ms"],
+            "bwd_cuda_core_bound_by": bounds["bwd"]["bound_by"]}
         rows[name] = row
         print(f"{name}: q {tuple(q.shape)} float32 causal {causal}")
         print("  max_abs_err " + " ".join(
@@ -2760,13 +2953,21 @@ def k3_kernel_phase(torch):
               f"{row['plain_ms']:.6f} ms bound {row['bound_ms']:.6f} ms "
               f"({row['bound_by']}); backward (K2a + K2b with delta - dlse):"
               f" {row['bwd_ms']:.6f} ms plain {row['bwd_plain_ms']:.6f} ms "
-              f"bound {row['bwd_bound_ms']:.6f} ms ({row['bwd_bound_by']}); "
+              f"bound {row['bwd_bound_ms']:.6f} ms ({row['bwd_bound_by']}; "
+              f"CUDA-core bound {row['bwd_cuda_core_bound_ms']:.6f} ms); "
               f"efficient-attention yardstick fwd / bwd {lib_txt}",
               flush=True)
         bad = [e for e in errs if not errs[e] <= tols[e]]
         if bad:
             raise SystemExit(f"K3 disagrees with its plain version on "
                              f"{name}: { {e: errs[e] for e in bad} }")
+        grad64_check(torch, ak, name, (q, k, v, None, dout, lse_d, delta,
+                                       causal, scale, 0.0, 0), grads)
+        if tt == t and lib is not None:
+            backward_vs_library(
+                torch, ak, f"ring shard {tuple(q.shape)} causal {causal}",
+                (q, k, v, None, causal, scale, 0.0, 0), dout, out_d, lse_d,
+                lib[1], dlse=dlse)
     return rows
 
 

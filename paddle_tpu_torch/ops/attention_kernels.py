@@ -62,11 +62,12 @@ def philox_keep_mask(seed, bh, tq, tk, p, device=None):
     return philox4x32(ctr, seed_key(seed))[0] < keep_threshold(p)
 
 
-def _scores(q, k, bias, causal, scale):
-    """fp32 scores q·kᵀ·scale + bias with the causal mask at -inf."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+def _scores(q, k, bias, causal, scale, dtype=torch.float32):
+    """Scores q·kᵀ·scale + bias in `dtype` (fp32 unless a caller asks for
+    a wider answer) with the causal mask at -inf."""
+    s = torch.matmul(q.to(dtype), k.to(dtype).transpose(-1, -2)) * scale
     if bias is not None:
-        s = s + bias.float()
+        s = s + bias.to(dtype)
     if causal:
         tq, tk = s.shape[-2], s.shape[-1]
         keep = torch.ones(tq, tk, dtype=torch.bool, device=s.device).tril()
@@ -119,20 +120,22 @@ def _unbroadcast(dbias, bias):
 
 
 def _backward_plain(q, k, v, bias, dout, lse, delta, causal, scale,
-                    dropout_p, seed):
+                    dropout_p, seed, dtype=torch.float32):
     """The FlashAttention-2 backward from the forward's lse, step by step
     (``_flash_bwd_dkv_kernel`` / ``_flash_bwd_dq_kernel``): P = exp(S -
     lse), dP = dO·Vᵀ, dV = drop(P)ᵀ·dO, dS = P·(drop(dP) - delta),
-    dK = dSᵀ·Q·scale, dQ = dS·K·scale, dBias = dS.  Returns dq, dk, dv
-    in the input dtype and dS [B, H, Tq, Tk] in fp32."""
-    s = _scores(q, k, bias, causal, scale)
-    lse = lse.unsqueeze(-1)
+    dK = dSᵀ·Q·scale, dQ = dS·K·scale, dBias = dS, computed in `dtype`
+    (fp32; float64 inputs with float64 give the kernels' precision
+    check its answer).  Returns dq, dk, dv in the input dtype and dS
+    [B, H, Tq, Tk] in `dtype`."""
+    s = _scores(q, k, bias, causal, scale, dtype)
+    lse = lse.to(dtype).unsqueeze(-1)
     lse_fin = torch.isfinite(lse)
     lse_safe = torch.where(lse_fin, lse, torch.zeros_like(lse))
     p = torch.where(torch.isfinite(s) & lse_fin, torch.exp(s - lse_safe),
                     torch.zeros_like(s))
-    do = dout.float()
-    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    do = dout.to(dtype)
+    dp = torch.matmul(do, v.to(dtype).transpose(-1, -2))
     if dropout_p:
         keep = _keep(q, k, dropout_p, seed)
         inv = 1.0 / (1.0 - dropout_p)
@@ -141,10 +144,10 @@ def _backward_plain(q, k, v, bias, dout, lse, delta, causal, scale,
         dp = torch.where(keep, dp, zero) * inv
     else:
         pd = p
-    ds = p * (dp - delta.unsqueeze(-1))
+    ds = p * (dp - delta.to(dtype).unsqueeze(-1))
     dv = torch.matmul(pd.transpose(-1, -2), do)
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
-    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(dtype)) * scale
+    dq = torch.matmul(ds, k.to(dtype)) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
 
 

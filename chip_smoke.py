@@ -21,12 +21,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dropout on and off, against the plain forward and the plain
    FlashAttention-2 backward on the same tensors (the same Philox mask);
    the dropout keep rate and the bits' determinism per seed.  First the
-   built library's SASS: every instantiation of K2a and K2b must hold
-   tensor-core products (HMMA) and asynchronous copies (LDGSTS).  At the
-   BERT shape K2a/K2b's fp32 grads are also held against the plain
-   backward computed in float64 (GRAD64_FACTOR times the fp32 plain
-   version's own error), and K2a + K2b + attention_delta is timed beside
-   the library's backward there and at NMT's T 64 bucket.
+   built libraries' SASS: every instantiation of K1, K2a and K2b (fp32
+   and bf16 at each width the C entries dispatch over, 32, 64, 128,
+   256) must hold tensor-core products (HMMA) and asynchronous copies
+   (LDGSTS), and K1 and the fp32 K2a, K2b at width 64 no register spills
+   (LDL/STL).  At the BERT shape K2a/K2b's fp32 grads
+   and K1's fp32 out and lse are also held against the plain versions
+   computed in float64 (GRAD64_FACTOR times the fp32 plain version's own
+   error), and K2a + K2b + attention_delta is timed beside the library's
+   backward there and at NMT's T 64 bucket.  Then K1, K2a and K2b at head
+   dims 8, 16, 80 and 256 (and 33 fp32, 100 bf16, which the wrapper pads
+   to whole 16-byte chunks) against their plain versions, each timed
+   beside its plain version and SDPA.
 5. int8 kernel vs plain: K6 (quant_matmul) at the int8 serving path's
    shapes (M = 1024 with (K, N) in {(768, 768), (768, 3072), (3072,
    768)}, ragged M, the pooler's M = 8, the logits head's N = 2, and a
@@ -49,7 +55,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. training parity: BERT-base width with 2 layers, batch 8, seq 128,
    Adam, from one startup state, 3 steps on the card against 3 steps on
    the CPU, with dropout 0 and with dropout 0.1 (the same Philox masks
-   on both devices).
+   on both devices); then the reference zoo's transformer (d_key 8) and
+   bert_pretrain (hidden 32 over 2 heads: D 16), built with the port's
+   model builders, 3 Adam steps card vs CPU with K1/K2 launched.
 9. training: BERT-base pretraining (12 layers, dropout 0.1, batch 32,
    seq 128, 20 masked positions per sequence, Adam 1e-4, random weights
    from a seed) for 6 steps on the card through Executor.run: finite
@@ -147,7 +155,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 24. ring: ring_attention on a 4-way seq mesh whose entries are all cuda:0
    at T 2048 against full_attention on the card, causal and not: outputs
    and grads, and K3, K2a and K2b launched once per computed (shard, step)
-   pair; a head dim K3 does not take, and FLAGS_ring_flash=false, raise
+   pair; the same at head dim 80 (T 1024); FLAGS_ring_flash=false raises
    on the card rather than run the blocked torch path.
 25. sequence-parallel step: __graft_entry__._dryrun_one's dp x tp x sp x
    pp training step (embedding, sharded QKV fc, ring attention, sharded
@@ -181,9 +189,9 @@ import numpy as np
 SEED = 1234
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
-# "tf32x3": fp32 products on the tensor cores in the 3xTF32 scheme (K2a,
-# K2b): three TF32 products for each, so a third of the 495 TFLOP/s dense
-# TF32 peak of the same data sheet
+# "tf32x3": fp32 products on the tensor cores in the 3xTF32 scheme (K1,
+# K2a, K2b): three TF32 products for each, so a third of the 495 TFLOP/s
+# dense TF32 peak of the same data sheet
 PEAK_FLOPS = {"float32": 67e12, "tf32x3": 495e12 / 3, "bfloat16": 989e12,
               "int8": 1979e12}
 # fp32: the kernel and the plain version sum exps in another order; bf16:
@@ -197,10 +205,11 @@ ATOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # dBias is summed by fp32 atomics, in another order on every run
 TRAIN_ATOL = {"out": {"float32": 2e-4, "bfloat16": 5e-2}, "lse": 2e-4,
               "grad": {"float32": 2e-3, "bfloat16": 5e-2}, "dbias": 2e-3}
-# the backward kernels' precision: their fp32 dq, dk, dv against a float64
-# answer computed on the card from the same inputs must be within
-# GRAD64_FACTOR times the error of the fp32 plain version against that
-# answer, or within GRAD64_FLOOR of the gradient's largest magnitude.  The
+# the flash-attention kernels' precision: their fp32 dq, dk, dv (and K1's
+# out and lse) against a float64 answer computed on the card from the same
+# inputs must be within GRAD64_FACTOR times the error of the fp32 plain
+# version against that answer, or within GRAD64_FLOOR of the answer's
+# largest magnitude.  The
 # factor allows for another summation order and the tensor cores'
 # truncating sums; 3xTF32 keeps fp32's accuracy, while one TF32 product a
 # term (~1e-3 relative) is some 500 times worse and fails
@@ -347,7 +356,11 @@ DISAGG_SHORT = [3, 4, 5, 3, 4, 5, 3, 4]
 DISAGG_SHORT_BUDGETS = [8, 24, 12, 16, 20, 10, 14, 18]
 DISAGG_INT8_ATOL, DISAGG_FP32_ATOL = 0.05, 1e-4
 # every request's deadline: the whole replay arrives at once, so the last
-# request waits for the others' steps (the "high" class default is 5 s)
+# request waits for the others' steps (the "high" class default is 5 s).
+# It also bounds the wait for the prefill leg (the router's default is
+# 30 s): the eight long prompts queue at one serial prefill worker, and on
+# a loaded host the last of them waited past 30 s and fell back to
+# co-located decode, which this phase counts as a failure
 DISAGG_DEADLINE_MS = 300000
 
 
@@ -382,7 +395,15 @@ PAGED_ATOL = {"float32": 2e-5, "int8": 2e-5, "bfloat16": 2e-2}
 # dense math
 SP_SHARD = (4, 12, 512, 64)
 SP_RAGGED_T = 500
+# K1 and K2 at head dims off BERT's 64: the reference zoo's transformer
+# (d_key 8) and BERT (16), a D 80 model, the largest the kernels take
+# (256); and two that are not whole 16-byte chunks (fp32 33, bf16 100)
+HEAD_DIMS = (8, 16, 80, 256)
+HEAD_DIMS_PADDED = ((33, "float32"), (100, "bfloat16"))
 SP_RING = dict(b=4, t=2048, h=12, d=64, seq=4)
+# a ring at a head dim off the BERT widths (the zoo's and users' models
+# are not all D 64): it must run on the card and equal full attention
+SP_RING_D80 = dict(b=1, t=1024, h=4, d=80)
 SP_MESH = {"data": 2, "model": 2, "seq": 4, "pipe": 2}
 SP_CONFIGS = [("BERT-base attention width", 768, 12, 4, True),
               ("BERT-block-shaped", 256, 4, 4, False)]
@@ -490,10 +511,27 @@ def attention_cases(torch):
     ]
 
 
+def attention_bound_row(nbytes, flops, dtype):
+    """bound_row of an attention kernel on inputs of `dtype`: fp32 runs
+    on the tensor cores in 3xTF32 (K1, K2a, K2b), so its bound takes the
+    "tf32x3" rate, with the CUDA-core bound (the fp32 rate) beside it as
+    "cuda_core_bound_ms" and "cuda_core_bound_by"."""
+    if dtype != "float32":
+        return bound_row(nbytes, flops, dtype)
+    cc = bound_row(nbytes, flops)
+    return dict(bound_row(nbytes, flops, "tf32x3"),
+                cuda_core_bound_ms=cc["bound_ms"],
+                cuda_core_bound_by=cc["bound_by"])
+
+
 def attention_bound_ms(q, k, bias, causal):
-    """Least time on an H100 SXM: bytes moved (q, k, v, bias read once,
-    out written once) over the memory rate, against the operations the
-    unmasked (q, k) pairs need over the peak rate of the input type."""
+    """Least time of K1 on an H100 SXM: bytes moved (q, k, v, bias read
+    once, out written once) over the memory rate, against the operations
+    the unmasked (q, k) pairs need over the peak rate of the input type;
+    fp32 runs on the tensor cores in 3xTF32, so its bound takes the
+    "tf32x3" rate, with the CUDA-core bound (the fp32 rate) beside it.
+    {"bound_ms", "bound_by"[, "cuda_core_bound_ms",
+    "cuda_core_bound_by"]}."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
@@ -501,11 +539,8 @@ def attention_bound_ms(q, k, bias, causal):
         nbytes += bias.element_size() * bias.numel()
     pairs = sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
     flops = 4 * b * h * d * pairs
-    dtype = str(q.dtype).replace("torch.", "")
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                 else "operations")
+    return attention_bound_row(nbytes, flops,
+                               str(q.dtype).replace("torch.", ""))
 
 
 def sdpa_mask(torch, q, k, bias, causal):
@@ -543,14 +578,13 @@ def kernel_phase(torch):
             "library_ms": time_ms(torch, lambda: sdpa(
                 q, k, v, attn_mask=mask, is_causal=is_causal, scale=scale)),
         }
-        row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, bias,
-                                                              causal)
+        row.update(attention_bound_ms(q, k, bias, causal))
         rows[name] = row
         print(f"{name}: shape {tuple(q.shape)} {dtype} max_abs_err {err:.3e}"
               f" (atol {ATOL[dtype]:g}) kernel {row['ms']:.6f} ms plain "
               f"{row['plain_ms']:.6f} ms sdpa {row['library_ms']:.6f} ms "
-              f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})",
-              flush=True)
+              f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})"
+              f"{cuda_core_note(row)}", flush=True)
         if not ok:
             raise SystemExit(f"flash_attention_fwd disagrees with its plain "
                              f"version on {name}: {err} > {ATOL[dtype]}")
@@ -610,7 +644,7 @@ def train_bounds_ms(q, k, bias, causal, dbias):
     input read once and each output written once over the memory rate,
     against the products the unmasked (q, k) pairs need (4, 8 and 6
     FLOP per pair and head dim) over the peak rate of the input type.
-    K2a and K2b run fp32 on the tensor cores (3xTF32), so on fp32 inputs
+    All three run fp32 on the tensor cores (3xTF32), so on fp32 inputs
     their own bound takes the "tf32x3" rate, with the CUDA-core bound
     (the fp32 rate) beside it.  {kernel: {"bound_ms", "bound_by"[,
     "cuda_core_bound_ms", "cuda_core_bound_by"]}}."""
@@ -627,23 +661,15 @@ def train_bounds_ms(q, k, bias, causal, dbias):
     work = {"fwd": (2 * nq + 2 * nk + nbias + rows, 4),
             "dkv": (2 * nq + 4 * nk + nbias + 2 * rows, 8),
             "dq": (3 * nq + 2 * nk + nbias + 2 * rows + ndbias, 6)}
+    return {kern: attention_bound_row(nbytes, per_pair * b * h * d * pairs,
+                                      dtype)
+            for kern, (nbytes, per_pair) in work.items()}
 
-    def bound(nbytes, flops, peak):
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS[peak] * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
-                                     else "operations")
 
-    out = {}
-    for kern, (nbytes, per_pair) in work.items():
-        flops = per_pair * b * h * d * pairs
-        tc = kern != "fwd" and dtype == "float32"
-        ms, by = bound(nbytes, flops, "tf32x3" if tc else dtype)
-        out[kern] = {"bound_ms": ms, "bound_by": by}
-        if tc:
-            ms, by = bound(nbytes, flops, dtype)
-            out[kern].update(cuda_core_bound_ms=ms, cuda_core_bound_by=by)
-    return out
+def cuda_core_note(row):
+    return (f"; CUDA-core bound {row['cuda_core_bound_ms']:.6f} ms "
+            f"({row['cuda_core_bound_by']})" if "cuda_core_bound_ms" in row
+            else "")
 
 
 def max_err(torch, got, want):
@@ -657,74 +683,137 @@ def max_err(torch, got, want):
 
 
 def sass_check():
-    """The backward kernels as built: every instantiation of K2a and K2b
-    (fp32 and bf16, D 64 and 128) must hold tensor-core products (HMMA)
-    and asynchronous copies (LDGSTS, or UTMALDG for TMA).  Prints the
-    counts of each; raises SystemExit when one is missing."""
+    """The flash-attention kernels as built: K1, K2a and K2b must each be
+    instantiated at exactly the widths the C entries dispatch over
+    (``HeadWidths`` of csrc/flash_attention_mma.cuh) in fp32 and bf16;
+    every instantiation must hold tensor-core products (HMMA) and
+    asynchronous copies (LDGSTS, or UTMALDG for TMA); and at width 64
+    (BERT's, NMT's and the ring's head dim) K1 and the fp32 K2a and K2b,
+    the main paths' kernels, no local-memory traffic (LDL, STL: register
+    spills).  Prints the counts of each; raises SystemExit when one is
+    missing."""
+    from paddle_tpu_torch.ops import attention_kernels as ak
     from paddle_tpu_torch.ops import cuda_build
 
-    cuda_build.load("flash_attention_bwd")
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run(
-        [tool, "-sass", cuda_build.lib_path("flash_attention_bwd")],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    ops = ("HMMA", "LDGSTS", "UTMALDG")
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            counts[name] = dict.fromkeys(ops, 0)
-        elif name is not None:
-            for op in ops:
-                if re.search(rf"\b{op}\b", line):
-                    counts[name][op] += 1
-    found = {kern: {n: c for n, c in counts.items() if kern in n}
-             for kern in ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
+    ops = ("HMMA", "LDGSTS", "UTMALDG", "LDL", "STL")
+    want = {(w, dt) for w in ak.kernel_widths()
+            for dt in ("float32", "bfloat16")}
     bad = []
-    for kern, insts in found.items():
-        for n, c in sorted(insts.items()):
-            m = re.search(r"ILi(\d+)E(f|13__nv_bfloat16)E", n)
-            inst = (f"D {m.group(1)} "
-                    f"{'float32' if m.group(2) == 'f' else 'bfloat16'}"
-                    if m else n)
-            print(f"  SASS {kern} {inst}: " +
-                  " ".join(f"{op} {c[op]}" for op in ops))
-            if not c["HMMA"] or not (c["LDGSTS"] or c["UTMALDG"]):
-                bad.append(n)
-        if len(insts) != 4:
-            bad.append(f"{kern}: {len(insts)} instantiations, not 4")
+    for source, kernels in (
+            ("flash_attention_fwd", ("flash_fwd_kernel",)),
+            ("flash_attention_bwd", ("flash_bwd_dkv_kernel",
+                                     "flash_bwd_dq_kernel"))):
+        cuda_build.load(source)
+        sass = subprocess.run(
+            [tool, "-sass", cuda_build.lib_path(source)],
+            capture_output=True, text=True, check=True,
+            timeout=300).stdout
+        counts, name = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                counts[name] = dict.fromkeys(ops + ("instructions",), 0)
+            elif name is not None:
+                counts[name]["instructions"] += bool(
+                    re.search(r"/\*[0-9a-f]{4,}\*/", line))
+                for op in ops:
+                    if re.search(rf"\b{op}\b", line):
+                        counts[name][op] += 1
+        for kern in kernels:
+            found = set()
+            for n, c in sorted(counts.items()):
+                if kern not in n:
+                    continue
+                m = re.search(r"ILi(\d+)E(f|13__nv_bfloat16)E", n)
+                inst = (int(m.group(1)),
+                        "float32" if m.group(2) == "f" else "bfloat16") \
+                    if m else (None, n)
+                found.add(inst)
+                print(f"  SASS {kern} W {inst[0]} {inst[1]}: "
+                      f"{c['instructions']} instructions, " +
+                      " ".join(f"{op} {c[op]}" for op in ops))
+                if not c["HMMA"] or not (c["LDGSTS"] or c["UTMALDG"]):
+                    bad.append(n)
+                main_path = inst[0] == 64 and (
+                    kern == "flash_fwd_kernel" or inst[1] == "float32")
+                if main_path and (c["LDL"] or c["STL"]):
+                    bad.append(f"{n}: spills")
+            if found != want:
+                bad.append(f"{kern}: instantiations {sorted(found, key=str)}"
+                           f", not {sorted(want)}")
     if bad:
-        raise SystemExit(f"backward kernels without tensor-core products "
-                         f"or asynchronous copies: {bad}")
+        raise SystemExit(f"flash-attention kernels without tensor-core "
+                         f"products or asynchronous copies, spilling, or "
+                         f"not at the dispatched widths: {bad}")
+
+
+def float64_bar(torch, got, plain, exact):
+    """(printed parts, failures) of outputs `got` (name -> tensor) held
+    against their float64 answers `exact` beside the fp32 plain
+    versions' errors `plain`: within GRAD64_FACTOR times the plain
+    error or GRAD64_FLOOR of the answer's largest magnitude; entries
+    that are -inf in the answer (lse of a masked row) must be -inf in
+    both."""
+    parts, bad = [], {}
+    for n in got:
+        ex = exact[n]
+        fin = torch.isfinite(ex)
+        errs = []
+        for x in (got[n], plain[n]):
+            same_inf = torch.equal(torch.isinf(x) & ~fin, ~fin)
+            errs.append((x.double() - ex)[fin].abs().max().item()
+                        if same_inf else float("inf"))
+        e_k, e_p = errs
+        bar = max(GRAD64_FACTOR * e_p,
+                  GRAD64_FLOOR * ex[fin].abs().max().item())
+        ratio = e_k / e_p if e_p else float("inf")
+        parts.append(f"{n} kernel {e_k:.3e} plain {e_p:.3e} "
+                     f"(x{ratio:.3f}) bar {bar:.3e}")
+        if not e_k <= bar:
+            bad[n] = (e_k, bar)
+    return parts, bad
 
 
 def grad64_check(torch, ak, name, bwd, got):
     """The backward kernels' fp32 (dq, dk, dv) `got` from the inputs `bwd`
     (q, k, v, bias, dout, lse, delta, causal, scale, p, seed) against the
     plain version computed in float64 on the card from the same inputs,
-    beside the fp32 plain version's own error (GRAD64_FACTOR,
-    GRAD64_FLOOR)."""
+    beside the fp32 plain version's own error (float64_bar)."""
     tensors, rest = bwd[:7], bwd[7:]
     plain = ak._backward_plain(*bwd)[:3]
     exact = ak._backward_plain(
         *[None if x is None else x.double() for x in tensors], *rest,
         dtype=torch.float64)[:3]
-    parts, bad = [], {}
-    for n, g, pl, ex in zip(("dq", "dk", "dv"), got, plain, exact):
-        e_k = (g.double() - ex).abs().max().item()
-        e_p = (pl.double() - ex).abs().max().item()
-        bar = max(GRAD64_FACTOR * e_p, GRAD64_FLOOR * ex.abs().max().item())
-        ratio = e_k / e_p if e_p else float("inf")
-        parts.append(f"{n} kernel {e_k:.3e} plain {e_p:.3e} "
-                     f"(x{ratio:.3f}) bar {bar:.3e}")
-        if not e_k <= bar:
-            bad[n] = (e_k, bar)
+    names = ("dq", "dk", "dv")
+    parts, bad = float64_bar(torch, dict(zip(names, got)),
+                             dict(zip(names, plain)),
+                             dict(zip(names, exact)))
     print("  against float64: " + "; ".join(parts), flush=True)
     if bad:
         raise SystemExit(f"backward kernels miss the float64 precision bar "
                          f"on {name}: {bad}")
+
+
+def fwd64_check(torch, ak, name, args, out, lse):
+    """K1's fp32 out and lse from the forward inputs `args` (q, k, v,
+    bias, causal, scale, p, seed) against the plain forward computed in
+    float64 on the card from the same inputs (the same dropout bits),
+    beside the fp32 plain version's own error (float64_bar)."""
+    plain = ak.flash_attention_reference(*args, return_lse=True)
+    exact = ak.flash_attention_reference(
+        *[None if x is None else x.double() for x in args[:4]], *args[4:],
+        return_lse=True, dtype=torch.float64)
+    names = ("out", "lse")
+    parts, bad = float64_bar(torch, dict(zip(names, (out, lse))),
+                             dict(zip(names, plain)),
+                             dict(zip(names, exact)))
+    print("  forward against float64: " + "; ".join(parts), flush=True)
+    if bad:
+        raise SystemExit(f"flash_attention_fwd misses the float64 precision"
+                         f" bar on {name}: {bad}")
 
 
 def backward_vs_library(torch, ak, label, fwd_args, dout, out, lse, lib_bwd,
@@ -783,116 +872,214 @@ def nmt_backward_vs_library(torch, ak):
               f"{b_['cuda_core_bound_ms']:.6f} ms "
               f"({b_['cuda_core_bound_by']})", flush=True)
 
+    # the line's pieces on the device (each kernel twice in a row beside
+    # the two in turn), and the host's time a pair of wrapper calls
+    def pair(first, second):
+        return lambda: (first(*bwd), second(*bwd))
+
+    dkv, dq = ak.flash_attention_bwd_dkv, ak.flash_attention_bwd_dq
+    pieces = {"attention_delta": lambda: ak.attention_delta(dout, out),
+              "K2a then K2b": pair(dkv, dq), "K2a twice": pair(dkv, dkv),
+              "K2b twice": pair(dq, dq)}
+    print("  its pieces: " + ", ".join(
+        f"{n} {time_ms(torch, fn):.6f} ms" for n, fn in pieces.items()) +
+        f"; host {host_ms(torch, pair(dkv, dq)):.6f} ms a K2a + K2b pair of "
+        f"wrapper calls", flush=True)
+
+
+def host_ms(torch, fn, reps=100):
+    """Mean host time of one fn() call, the card kept busy by a spin
+    kernel so that no call waits on it (the wrappers' Python and launch
+    cost, which host-bound steps pay for every call)."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e8))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def attention_case(torch, ak, case, seed, rows):
+    """One case of train_attention_cases' form on the card: K1 with lse,
+    K2a and K2b against the plain forward and backward on the same
+    tensors (TRAIN_ATOL), each kernel timed beside its plain version, the
+    library call and its bound (into rows[kernel][name]).  Returns what
+    the case's further checks need."""
+    name, q, k, v, bias, causal, p, dbias = case
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = q.shape[-1] ** -0.5
+    dtype = str(q.dtype).replace("torch.", "")
+    dout = torch.randn_like(q)
+    args = (q, k, v, bias, causal, scale, p, seed)
+    out, lse = ak.flash_attention_fwd(*args, with_lse=True)
+    delta = ak.attention_delta(dout, out)
+    bwd = (q, k, v, bias, dout, lse, delta, causal, scale, p, seed)
+    dk, dv = ak.flash_attention_bwd_dkv(*bwd)
+    dq, db = ak.flash_attention_bwd_dq(*bwd, dbias=dbias)
+    out_r, lse_r = ak.flash_attention_reference(*args, return_lse=True)
+    # the backward's plain version on the backward kernels' inputs
+    dq_r, dk_r, dv_r, db_r = ak.flash_attention_backward_reference(
+        q, k, v, bias, out, lse, dout, causal, scale, p, seed)
+    torch.cuda.synchronize()
+    errs = {"out": max_err(torch, out, out_r),
+            "lse": max_err(torch, lse, lse_r),
+            "dq": max_err(torch, dq, dq_r),
+            "dk": max_err(torch, dk, dk_r),
+            "dv": max_err(torch, dv, dv_r)}
+    tols = {"out": TRAIN_ATOL["out"][dtype], "lse": TRAIN_ATOL["lse"],
+            "dq": TRAIN_ATOL["grad"][dtype],
+            "dk": TRAIN_ATOL["grad"][dtype],
+            "dv": TRAIN_ATOL["grad"][dtype]}
+    if dbias:
+        errs["dbias"] = max_err(torch, db, db_r)
+        tols["dbias"] = TRAIN_ATOL["dbias"]
+
+    # the library yardstick: SDPA forward, and its backward under
+    # torch.autograd.grad (math/efficient backends; the port never
+    # calls it)
+    fwd_mask, lib_causal = sdpa_mask(torch, q, k, bias, causal)
+    mask, is_causal = fwd_mask, lib_causal
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    if dbias:
+        mask = mask.detach().requires_grad_()
+        leaves.append(mask)
+    lib_out = sdpa(*leaves[:3], attn_mask=mask, is_causal=is_causal,
+                   dropout_p=p, scale=scale)
+    bounds = train_bounds_ms(q, k, bias, causal, dbias)
+    plain_bwd_ms = time_ms(torch, lambda: (
+        ak.flash_attention_backward_reference(
+            q, k, v, bias, out, lse, dout, causal, scale, p, seed)))
+    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, leaves, dout, retain_graph=True))
+    timed = {
+        "fwd": (lambda: ak.flash_attention_fwd(*args, with_lse=True),
+                lambda: ak.flash_attention_reference(
+                    *args, return_lse=True),
+                lambda: sdpa(q, k, v, attn_mask=fwd_mask,
+                             is_causal=lib_causal, dropout_p=p,
+                             scale=scale)),
+        "dkv": (lambda: ak.flash_attention_bwd_dkv(*bwd), None, None),
+        "dq": (lambda: ak.flash_attention_bwd_dq(*bwd, dbias=dbias),
+               None, None),
+    }
+    errs_of = {"fwd": ("out", "lse"), "dkv": ("dk", "dv"),
+               "dq": ("dq", "dbias")}
+    for kern, (fn, plain, lib) in timed.items():
+        rows[kern][name] = {
+            "max_abs_err": max(errs[e] for e in errs_of[kern]
+                               if e in errs),
+            "ms": time_ms(torch, fn),
+            "plain_ms": time_ms(torch, plain) if plain else
+            plain_bwd_ms,
+            "library_ms": time_ms(torch, lib) if lib else lib_bwd_ms,
+            **bounds[kern]}
+    print(f"{name}: q {tuple(q.shape)} {dtype} dropout {p} causal "
+          f"{causal} bias {None if bias is None else tuple(bias.shape)}"
+          f" dbias {dbias}", flush=True)
+    print("  max_abs_err " + " ".join(
+        f"{e} {errs[e]:.3e} (atol {tols[e]:g})" for e in errs))
+    # the sizes show the comparison is not of zeros
+    print("  max |kernel| " + " ".join(
+        f"{e} {t.float().abs().max().item():.3e}" for e, t in
+        (("dq", dq), ("dk", dk), ("dv", dv), ("dbias", db))
+        if t is not None))
+    for kern, r in rows.items():
+        r = r[name]
+        print(f"  {KERNELS[kern]['name']}: kernel {r['ms']:.6f} ms "
+              f"plain {r['plain_ms']:.6f} ms sdpa {r['library_ms']:.6f}"
+              f" ms bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+              f"{cuda_core_note(r)}", flush=True)
+    bad = [e for e in errs if not errs[e] <= tols[e]]
+    if bad:
+        raise SystemExit(f"training kernels disagree with their plain "
+                         f"versions on {name}: "
+                         f"{ {e: errs[e] for e in bad} }")
+    return {"args": args, "bwd": bwd, "out": out, "lse": lse, "dout": dout,
+            "grads": (dq, dk, dv), "lib_bwd": lambda: torch.autograd.grad(
+                lib_out, leaves, dout, retain_graph=True)}
+
 
 def train_kernel_phase(torch):
     from paddle_tpu_torch.ops import attention_kernels as ak
 
     phase("training kernels vs plain (K1 with lse and dropout, K2a, K2b)")
     sass_check()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {"fwd": {}, "dkv": {}, "dq": {}}
-    for i, (name, q, k, v, bias, causal, p, dbias) in enumerate(
-            train_attention_cases(torch)):
-        scale = q.shape[-1] ** -0.5
-        seed = SEED + i
-        dtype = str(q.dtype).replace("torch.", "")
-        dout = torch.randn_like(q)
-        args = (q, k, v, bias, causal, scale, p, seed)
-        out, lse = ak.flash_attention_fwd(*args, with_lse=True)
-        delta = ak.attention_delta(dout, out)
-        bwd = (q, k, v, bias, dout, lse, delta, causal, scale, p, seed)
-        dk, dv = ak.flash_attention_bwd_dkv(*bwd)
-        dq, db = ak.flash_attention_bwd_dq(*bwd, dbias=dbias)
-        out_r, lse_r = ak.flash_attention_reference(*args, return_lse=True)
-        # the backward's plain version on the backward kernels' inputs
-        dq_r, dk_r, dv_r, db_r = ak.flash_attention_backward_reference(
-            q, k, v, bias, out, lse, dout, causal, scale, p, seed)
-        torch.cuda.synchronize()
-        errs = {"out": max_err(torch, out, out_r),
-                "lse": max_err(torch, lse, lse_r),
-                "dq": max_err(torch, dq, dq_r),
-                "dk": max_err(torch, dk, dk_r),
-                "dv": max_err(torch, dv, dv_r)}
-        tols = {"out": TRAIN_ATOL["out"][dtype], "lse": TRAIN_ATOL["lse"],
-                "dq": TRAIN_ATOL["grad"][dtype],
-                "dk": TRAIN_ATOL["grad"][dtype],
-                "dv": TRAIN_ATOL["grad"][dtype]}
-        if dbias:
-            errs["dbias"] = max_err(torch, db, db_r)
-            tols["dbias"] = TRAIN_ATOL["dbias"]
-
-        # the library yardstick: SDPA forward, and its backward under
-        # torch.autograd.grad (math/efficient backends; the port never
-        # calls it)
-        fwd_mask, lib_causal = sdpa_mask(torch, q, k, bias, causal)
-        mask, is_causal = fwd_mask, lib_causal
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        if dbias:
-            mask = mask.detach().requires_grad_()
-            leaves.append(mask)
-        lib_out = sdpa(*leaves[:3], attn_mask=mask, is_causal=is_causal,
-                       dropout_p=p, scale=scale)
-        bounds = train_bounds_ms(q, k, bias, causal, dbias)
-        plain_bwd_ms = time_ms(torch, lambda: (
-            ak.flash_attention_backward_reference(
-                q, k, v, bias, out, lse, dout, causal, scale, p, seed)))
-        lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-            lib_out, leaves, dout, retain_graph=True))
-        timed = {
-            "fwd": (lambda: ak.flash_attention_fwd(*args, with_lse=True),
-                    lambda: ak.flash_attention_reference(
-                        *args, return_lse=True),
-                    lambda: sdpa(q, k, v, attn_mask=fwd_mask,
-                                 is_causal=lib_causal, dropout_p=p,
-                                 scale=scale)),
-            "dkv": (lambda: ak.flash_attention_bwd_dkv(*bwd), None, None),
-            "dq": (lambda: ak.flash_attention_bwd_dq(*bwd, dbias=dbias),
-                   None, None),
-        }
-        errs_of = {"fwd": ("out", "lse"), "dkv": ("dk", "dv"),
-                   "dq": ("dq", "dbias")}
-        for kern, (fn, plain, lib) in timed.items():
-            rows[kern][name] = {
-                "max_abs_err": max(errs[e] for e in errs_of[kern]
-                                   if e in errs),
-                "ms": time_ms(torch, fn),
-                "plain_ms": time_ms(torch, plain) if plain else
-                plain_bwd_ms,
-                "library_ms": time_ms(torch, lib) if lib else lib_bwd_ms,
-                **bounds[kern]}
-        print(f"{name}: q {tuple(q.shape)} {dtype} dropout {p} causal "
-              f"{causal} bias {None if bias is None else tuple(bias.shape)}"
-              f" dbias {dbias}", flush=True)
-        print("  max_abs_err " + " ".join(
-            f"{e} {errs[e]:.3e} (atol {tols[e]:g})" for e in errs))
-        # the sizes show the comparison is not of zeros
-        print("  max |kernel| " + " ".join(
-            f"{e} {t.float().abs().max().item():.3e}" for e, t in
-            (("dq", dq), ("dk", dk), ("dv", dv), ("dbias", db))
-            if t is not None))
-        for kern, r in rows.items():
-            r = r[name]
-            cc = (f"; CUDA-core bound {r['cuda_core_bound_ms']:.6f} ms "
-                  f"({r['cuda_core_bound_by']})"
-                  if "cuda_core_bound_ms" in r else "")
-            print(f"  {KERNELS[kern]['name']}: kernel {r['ms']:.6f} ms "
-                  f"plain {r['plain_ms']:.6f} ms sdpa {r['library_ms']:.6f}"
-                  f" ms bound {r['bound_ms']:.6f} ms ({r['bound_by']}){cc}",
-                  flush=True)
-        bad = [e for e in errs if not errs[e] <= tols[e]]
-        if bad:
-            raise SystemExit(f"training kernels disagree with their plain "
-                             f"versions on {name}: "
-                             f"{ {e: errs[e] for e in bad} }")
+    for i, case in enumerate(train_attention_cases(torch)):
+        name, seed = case[0], SEED + i
+        c = attention_case(torch, ak, case, seed, rows)
         if name in ("bert_row_f32", "bert_row_f32_drop"):
-            grad64_check(torch, ak, name, bwd, (dq, dk, dv))
+            grad64_check(torch, ak, name, c["bwd"], c["grads"])
+            fwd64_check(torch, ak, name, c["args"], c["out"], c["lse"])
         if name == "bert_row_f32_drop":
-            dropout_checks(torch, ak, args, seed)
+            dropout_checks(torch, ak, c["args"], seed)
             backward_vs_library(
-                torch, ak, f"BERT {tuple(q.shape)} row bias dropout {p}",
-                args, dout, out, lse, lambda: torch.autograd.grad(
-                    lib_out, leaves, dout, retain_graph=True))
+                torch, ak, f"BERT {tuple(case[1].shape)} row bias dropout "
+                f"{case[6]}", c["args"], c["dout"], c["out"], c["lse"],
+                c["lib_bwd"])
     nmt_backward_vs_library(torch, ak)
+    return rows
+
+
+def head_dim_cases(torch):
+    """(name, q, k, v, bias, causal, dropout_p, dbias) on the card, made
+    from SEED: K1 and K2 at the head dims of HEAD_DIMS, [B 8, H 12, T 128,
+    D] with BERT's padding mask (fp32 with dropout 0.1, and bf16), and
+    causal at a ragged T 200 with a full bias and its grad; then the head
+    dims of HEAD_DIMS_PADDED, which the wrapper pads to whole 16-byte
+    chunks with zero columns."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    b, h, t = 8, 12, 128
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def qkv(d, dtype, t=t):
+        return [torch.randn(b, h, t, d, generator=g, device="cuda")
+                .to(dtypes[dtype]) for _ in range(3)]
+
+    def pad_mask(t=t):
+        lens = torch.randint(t // 4, t + 1, (b,), generator=g,
+                             device="cuda")
+        pad = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+        return (pad.float() * -10000.0).reshape(b, 1, 1, t)
+
+    cases = []
+    for d in HEAD_DIMS:
+        cases += [
+            (f"d{d}_row_f32_drop", *qkv(d, "float32"), pad_mask(), False,
+             0.1, False),
+            (f"d{d}_row_bf16", *qkv(d, "bfloat16"), pad_mask(), False, 0.0,
+             False),
+            (f"d{d}_causal_t200_full_dbias_f32", *qkv(d, "float32", 200),
+             torch.randn(b, h, 200, 200, generator=g, device="cuda") * 0.5,
+             True, 0.0, True)]
+    for d, dtype in HEAD_DIMS_PADDED:
+        cases.append((f"d{d}_row_{dtype}_drop", *qkv(d, dtype), pad_mask(),
+                      False, 0.1, False))
+    return cases
+
+
+def head_dim_phase(torch):
+    """K1, K2a and K2b at head dims off BERT's 64 against their plain
+    versions (TRAIN_ATOL), each timed beside its plain version and SDPA;
+    the launch counts show the kernels ran."""
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    phase(f"K1, K2a, K2b vs plain at head dims {HEAD_DIMS} and (padded) "
+          f"{[d for d, _ in HEAD_DIMS_PADDED]}")
+    rows = {"fwd": {}, "dkv": {}, "dq": {}}
+    counters = (ak.flash_attention, ak.flash_attention_bwd_dkv,
+                ak.flash_attention_bwd_dq)
+    for i, case in enumerate(head_dim_cases(torch)):
+        for c in counters:
+            c.launches = 0
+        attention_case(torch, ak, case, SEED + 100 + i, rows)
+        if not all(c.launches for c in counters):
+            raise SystemExit(f"{case[0]}: a kernel did not launch: "
+                             f"{[c.launches for c in counters]}")
     return rows
 
 
@@ -1272,13 +1459,12 @@ def pretrain_program(fluid, num_layers, dropout):
     return main, startup, loss
 
 
-def pretrain_feed(b, t, m, seed):
+def pretrain_feed(b, t, m, seed, vocab=BERT_BASE["vocab_size"]):
     """A pretraining batch from a numpy seed: token ids, padding masks,
     two segments, `m` masked positions per sequence (absolute flattened
     indices inside each sequence's length) with their labels, NSP
     labels."""
     rng = np.random.RandomState(seed)
-    vocab = BERT_BASE["vocab_size"]
     lens = rng.randint(t // 2, t + 1, b)
     bias = np.zeros((b, 1, 1, t), np.float32)
     sent = np.zeros((b, t), np.int64)
@@ -1306,6 +1492,52 @@ def training_parity_phase(torch):
         main, startup, loss = pretrain_program(fluid, 2, dropout)
         card_vs_cpu(fluid, main, startup, loss, [feed] * 3,
                     f"dropout {dropout}")
+    torch.cuda.empty_cache()
+
+
+def narrow_heads_phase(torch):
+    """The reference zoo's two configurations whose head dims the
+    attention kernels used not to take, built with the port's own model
+    builders (paddle_tpu/models/zoo.py's `transformer`: d_key = d_value
+    = 8; its `bert_pretrain`: hidden 32 over 2 heads, D 16): 3 Adam steps
+    on the card against 3 on the CPU from one state (PARITY_RTOL), with
+    K1, K2a and K2b launched on the card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.bert import BertConfig, bert_pretrain
+    from paddle_tpu_torch.models.transformer import transformer
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    phase("narrow heads: the zoo's transformer (d_key 8) and bert_pretrain "
+          "(D 16), card vs CPU")
+    counters = (ak.flash_attention, ak.flash_attention_bwd_dkv,
+                ak.flash_attention_bwd_dq)
+
+    def program(build, lr):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = SEED
+        with fluid.program_guard(main, startup):
+            loss = build()
+            fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+        return main, startup, loss
+
+    cfg = BertConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                     num_heads=2, intermediate_size=64, max_position=32,
+                     type_vocab_size=2, dropout=0.1)
+    runs = [
+        ("transformer d_key 8",
+         program(lambda: transformer(32, 32, 16, 1, 2, 8, 8, 16, 32,
+                                     dropout_rate=0.1)[0], 1e-3),
+         nmt_batch(np.random.RandomState(SEED + 20), 8, 32, 2,
+                   tokens=16)[0]),
+        ("bert_pretrain D 16",
+         program(lambda: bert_pretrain(cfg, 16)[0], 1e-4),
+         pretrain_feed(2, 16, 3, SEED + 21, vocab=64))]
+    for label, (main, startup, loss), feed in runs:
+        launches = card_vs_cpu(fluid, main, startup, loss, [feed] * 3,
+                               label, counters=counters)
+        if not all(launches.values()):
+            raise SystemExit(f"{label}: the attention kernels did not all "
+                             f"run on the card: {launches}")
     torch.cuda.empty_cache()
 
 
@@ -2665,7 +2897,8 @@ def disagg_phase(torch, smi, trained):
             return fluid.Executor(fluid.CUDAPlace(0))
 
         router = DisaggRouter(DisaggConfig(
-            prefill_threshold=DISAGG_THRESHOLD, bos_id=0))
+            prefill_threshold=DISAGG_THRESHOLD, bos_id=0,
+            prefill_timeout_s=DISAGG_DEADLINE_MS / 1000))
         try:
             for i in range(2):
                 r = Replica(f"d{i}")
@@ -2722,6 +2955,17 @@ def disagg_phase(torch, smi, trained):
                    for pool in pools)
         streamed = sum(len(p) // bs for p in longs)
         int8_bytes = pf_engine.stats()["streamed_bytes"]
+        # every long prompt took the split path and its chain reached a
+        # decode pool's prefix cache; else say which leg fell short
+        dis = st["disagg"]
+        if dis["split"] != len(longs) or \
+                dis["fallback_short"] != len(shorts) or \
+                committed != len(longs) or hits != streamed:
+            ingests = [srv.ingestor.counters() for srv in servers]
+            raise SystemExit(
+                f"split path short: {dis}; {committed} streams committed, "
+                f"{hits} prefix hits for {streamed} streamed blocks; "
+                f"prefill {pf_engine.stats()}; ingestors {ingests}")
 
         # the same chains as float32 planes, streamed into a float32 pool
         fp32_cfg = dict(block_size=bs, value_spec=fp32_spec)
@@ -2776,7 +3020,6 @@ def disagg_phase(torch, smi, trained):
             for pool in all_pools]
     split = [outs[i] for i, job in enumerate(jobs) if job[2] == "split"]
     tokens_ok = all(np.array_equal(a, b) for a, b in zip(split, lock))
-    dis = st["disagg"]
     gen = sum(b for _, b, _ in jobs)
     print(f"[{smi}] {len(jobs)} requests, {gen} tokens in {wall:.6f} s "
           f"({gen / wall:.3f} tokens/s): split {dis['split']}, fallback "
@@ -2804,11 +3047,6 @@ def disagg_phase(torch, smi, trained):
     print(f"pools audited (check_invariants): {len(all_pools)}; blocks held "
           f"after the drain {held}")
     want = layers * len(longs)
-    if dis["split"] != len(longs) or dis["fallback_short"] != len(shorts):
-        raise SystemExit(f"split/fallback counts {dis}")
-    if committed != len(longs) or hits != streamed:
-        raise SystemExit(f"{committed} streams committed, {hits} prefix "
-                         f"hits for {streamed} streamed blocks")
     if not tokens_ok:
         raise SystemExit("split-path tokens differ from co-located decode")
     if not (err8 < DISAGG_INT8_ATOL and err32 < DISAGG_FP32_ATOL):
@@ -2833,15 +3071,15 @@ def k3_bounds_ms(q, causal):
     k, v (and dout, out, lse, dlse) read once and out, lse (dq, dk, dv)
     written once over the memory rate, against 4 FLOP per unmasked (q,
     k) pair and head dim forward and 2.5 times that backward over the
-    float32 peak; the backward (K2a, K2b on the tensor cores) also over
-    the 3xTF32 rate ("bwd_tc", its own bound)."""
+    3xTF32 rate (K1, K2a, K2b run on the tensor cores), with the bound at
+    the float32 peak beside (attention_bound_row)."""
     b, h, t, d = q.shape
     pairs = t * (t + 1) // 2 if causal else t * t
     n, rows = 4 * q.numel(), 4 * b * h * t
     fwd = 4 * b * h * d * pairs
-    return {"fwd": bound_row(4 * n + rows, fwd),
-            "bwd": bound_row(8 * n + 2 * rows, 2.5 * fwd),
-            "bwd_tc": bound_row(8 * n + 2 * rows, 2.5 * fwd, "tf32x3")}
+    return {"fwd": attention_bound_row(4 * n + rows, fwd, "float32"),
+            "bwd": attention_bound_row(8 * n + 2 * rows, 2.5 * fwd,
+                                       "float32")}
 
 
 def k3_library(torch, q, k, v, dout, causal, scale):
@@ -2924,8 +3162,7 @@ def k3_kernel_phase(torch):
             "plain_ms": time_ms(torch, lambda: ak.flash_attention_reference(
                 q, k, v, None, causal, scale, return_lse=True)),
             "library_ms": None if lib is None else time_ms(torch, lib[0]),
-            "bound_ms": bounds["fwd"]["bound_ms"],
-            "bound_by": bounds["fwd"]["bound_by"],
+            **bounds["fwd"],
             "bwd_max_abs_err": max(errs[n] for n in ("dq", "dk", "dv")),
             "bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
                 (out, lse), leaves, (dout, dlse), retain_graph=True)),
@@ -2935,10 +3172,10 @@ def k3_kernel_phase(torch):
                     causal, scale, dlse=dlse)),
             "bwd_library_ms": None if lib is None else time_ms(torch,
                                                                lib[1]),
-            "bwd_bound_ms": bounds["bwd_tc"]["bound_ms"],
-            "bwd_bound_by": bounds["bwd_tc"]["bound_by"],
-            "bwd_cuda_core_bound_ms": bounds["bwd"]["bound_ms"],
-            "bwd_cuda_core_bound_by": bounds["bwd"]["bound_by"]}
+            "bwd_bound_ms": bounds["bwd"]["bound_ms"],
+            "bwd_bound_by": bounds["bwd"]["bound_by"],
+            "bwd_cuda_core_bound_ms": bounds["bwd"]["cuda_core_bound_ms"],
+            "bwd_cuda_core_bound_by": bounds["bwd"]["cuda_core_bound_by"]}
         rows[name] = row
         print(f"{name}: q {tuple(q.shape)} float32 causal {causal}")
         print("  max_abs_err " + " ".join(
@@ -2951,7 +3188,8 @@ def k3_kernel_phase(torch):
                    f" ms")
         print(f"  forward: kernel {row['ms']:.6f} ms plain "
               f"{row['plain_ms']:.6f} ms bound {row['bound_ms']:.6f} ms "
-              f"({row['bound_by']}); backward (K2a + K2b with delta - dlse):"
+              f"({row['bound_by']}{cuda_core_note(row)}); backward (K2a + "
+              f"K2b with delta - dlse):"
               f" {row['bwd_ms']:.6f} ms plain {row['bwd_plain_ms']:.6f} ms "
               f"bound {row['bwd_bound_ms']:.6f} ms ({row['bwd_bound_by']}; "
               f"CUDA-core bound {row['bwd_cuda_core_bound_ms']:.6f} ms); "
@@ -2963,6 +3201,9 @@ def k3_kernel_phase(torch):
                              f"{name}: { {e: errs[e] for e in bad} }")
         grad64_check(torch, ak, name, (q, k, v, None, dout, lse_d, delta,
                                        causal, scale, 0.0, 0), grads)
+        if tt == t:
+            fwd64_check(torch, ak, name, (q, k, v, None, causal, scale, 0.0,
+                                          0), out_d, lse_d)
         if tt == t and lib is not None:
             backward_vs_library(
                 torch, ak, f"ring shard {tuple(q.shape)} causal {causal}",
@@ -2974,73 +3215,76 @@ def k3_kernel_phase(torch):
 def ring_phase(torch):
     """The ring on a 4-way seq mesh whose entries are all cuda:0, at T
     2048, against full_attention on the card: outputs and grads, and K3
-    (and K2a, K2b) launched once per computed (shard, step) pair.  CUDA
-    shards never take the blocked torch path: a head dim K3 does not
-    take, and FLAGS_ring_flash=false, raise."""
+    (and K2a, K2b) launched once per computed (shard, step) pair; the
+    same at head dim SP_RING_D80's (K3 takes every head dim up to 256).
+    CUDA shards never take the blocked torch path: FLAGS_ring_flash=false
+    raises."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.ops import attention_kernels as ak
     from paddle_tpu_torch.parallel import make_mesh
     from paddle_tpu_torch.parallel import ring_attention as ra
 
-    b, t, h, d, p = (SP_RING[k] for k in ("b", "t", "h", "d", "seq"))
-    phase(f"ring attention on a {p}-way seq mesh of cuda:0 at T {t} "
-          f"against full attention")
+    p = SP_RING["seq"]
     mesh = make_mesh({"seq": p}, devices=[torch.device("cuda", 0)] * p)
     g = torch.Generator(device="cuda").manual_seed(SEED + 81)
-    q, k, v, w = (torch.randn(b, t, h, d, generator=g, device="cuda")
-                  for _ in range(4))
     counters = {"k3": ak.flash_attention_with_lse,
                 "dkv": ak.flash_attention_bwd_dkv,
                 "dq": ak.flash_attention_bwd_dq}
     out = {}
-    for causal in (False, True):
-        res = {}
-        for ring in (True, False):
-            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-            for c in counters.values():
-                c.launches = 0
-            o = ra.ring_attention(*leaves, mesh, causal=causal) if ring \
-                else ra.full_attention(*leaves, causal=causal)
-            res[ring] = [o] + list(torch.autograd.grad((o * w).sum(),
-                                                       leaves))
-            torch.cuda.synchronize()
-            if ring:
-                launches = {n: c.launches for n, c in counters.items()}
-        pairs = p * (p + 1) // 2 if causal else p * p
-        want = {n: pairs for n in counters}
-        errs = {n: max_err(torch, a, r) for n, a, r in
-                zip(("out", "dq", "dk", "dv"), res[True], res[False])}
-        tols = {"out": TRAIN_ATOL["out"]["float32"]}
-        tols.update((n, TRAIN_ATOL["grad"]["float32"])
-                    for n in ("dq", "dk", "dv"))
-        ring_ms = time_ms(torch, lambda: ra.ring_attention(
-            q, k, v, mesh, causal=causal), reps=10)
-        full_ms = time_ms(torch, lambda: ra.full_attention(
-            q, k, v, causal=causal), reps=10)
-        print(f"causal {causal}: max_abs_err " + " ".join(
-            f"{e} {errs[e]:.3e} (atol {tols[e]:g})" for e in errs) +
-            f"; launches {launches} (expected {want}); forward: ring "
-            f"{ring_ms:.6f} ms, full attention {full_ms:.6f} ms", flush=True)
-        if any(not errs[e] <= tols[e] for e in errs) or launches != want:
-            raise SystemExit(f"the ring departs from full attention "
-                             f"(causal {causal}): {errs}, launches "
-                             f"{launches}, expected {want}")
-        out[causal] = {"errs": errs, "launches": launches}
-    q80 = torch.zeros(1, 4 * p, 1, 80, device="cuda")
-    for what, ring_flash, shards, want_err in (
-            ("head dim 80", "auto", q80, "head dim"),
-            ("FLAGS_ring_flash=false", "false", q[:1, :4 * p], "CPU shards")):
-        flags.set_flags({"ring_flash": ring_flash})
-        try:
-            ra.ring_attention(shards, shards, shards, mesh)
-        except ValueError as e:
-            if want_err not in str(e):
-                raise
-            print(f"{what} on the card raises: {e}", flush=True)
-        else:
-            raise SystemExit(f"the ring ran {what} on the card")
-        finally:
-            flags.set_flags({"ring_flash": "auto"})
+    for ring_cfg, timed in ((SP_RING, True), (SP_RING_D80, False)):
+        b, t, h, d = (ring_cfg[k] for k in ("b", "t", "h", "d"))
+        phase(f"ring attention on a {p}-way seq mesh of cuda:0 at T {t}, "
+              f"head dim {d}, against full attention")
+        q, k, v, w = (torch.randn(b, t, h, d, generator=g, device="cuda")
+                      for _ in range(4))
+        for causal in (False, True):
+            res = {}
+            for ring in (True, False):
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                for c in counters.values():
+                    c.launches = 0
+                o = ra.ring_attention(*leaves, mesh, causal=causal) if ring \
+                    else ra.full_attention(*leaves, causal=causal)
+                res[ring] = [o] + list(torch.autograd.grad((o * w).sum(),
+                                                           leaves))
+                torch.cuda.synchronize()
+                if ring:
+                    launches = {n: c.launches for n, c in counters.items()}
+            pairs = p * (p + 1) // 2 if causal else p * p
+            want = {n: pairs for n in counters}
+            errs = {n: max_err(torch, a, r) for n, a, r in
+                    zip(("out", "dq", "dk", "dv"), res[True], res[False])}
+            tols = {"out": TRAIN_ATOL["out"]["float32"]}
+            tols.update((n, TRAIN_ATOL["grad"]["float32"])
+                        for n in ("dq", "dk", "dv"))
+            times = ""
+            if timed:
+                ring_ms = time_ms(torch, lambda: ra.ring_attention(
+                    q, k, v, mesh, causal=causal), reps=10)
+                full_ms = time_ms(torch, lambda: ra.full_attention(
+                    q, k, v, causal=causal), reps=10)
+                times = (f"; forward: ring {ring_ms:.6f} ms, full attention "
+                         f"{full_ms:.6f} ms")
+            print(f"causal {causal}: max_abs_err " + " ".join(
+                f"{e} {errs[e]:.3e} (atol {tols[e]:g})" for e in errs) +
+                f"; launches {launches} (expected {want}){times}",
+                flush=True)
+            if any(not errs[e] <= tols[e] for e in errs) or launches != want:
+                raise SystemExit(f"the ring departs from full attention "
+                                 f"(head dim {d}, causal {causal}): {errs}, "
+                                 f"launches {launches}, expected {want}")
+            out[(d, causal)] = {"errs": errs, "launches": launches}
+    flags.set_flags({"ring_flash": "false"})
+    try:
+        ra.ring_attention(q[:1, :4 * p], q[:1, :4 * p], q[:1, :4 * p], mesh)
+    except ValueError as e:
+        if "CPU shards" not in str(e):
+            raise
+        print(f"FLAGS_ring_flash=false on the card raises: {e}", flush=True)
+    else:
+        raise SystemExit("the ring ran FLAGS_ring_flash=false on the card")
+    finally:
+        flags.set_flags({"ring_flash": "auto"})
     return out
 
 
@@ -3188,11 +3432,13 @@ def main():
     build_phase()
     kernel_phase(torch)
     train_rows = train_kernel_phase(torch)
+    head_dim_phase(torch)
     quant_rows = quant_kernel_phase(torch)
     fp32 = serving_phase(torch, smi)
     quant = quant_serving_phase(torch, smi, fp32)
     rnn_rows = rnn_kernel_phase(torch)
     training_parity_phase(torch)
+    narrow_heads_phase(torch)
     launches = training_phase(torch, smi)
     seq2seq_parity_phase(torch)
     launches["lstm"] = seq2seq_training_phase(torch, smi)

@@ -83,221 +83,63 @@
 //     D 64 fp32, so three CTAs (12 warps) share an SM and the ring shard's
 //     384 CTAs fit one wave; a causal K2a's grid starts with the longest K
 //     tiles and a causal K2b's with the longest Q tiles.
+//   * Head dims: every d <= 256, at the instantiated widths
+//     (flash_attention_mma.cuh's HeadWidths: columns past d zero-filled on
+//     load and not written; the products run over all W columns: a
+//     runtime bound on them costs registers, and the W 64 kernels would
+//     spill).  At W 256 a streamed tile has 16 rows, so resident and
+//     streamed tiles fit 203 KB of shared memory, and two CTAs split the
+//     gradient columns.
 //   * Two kernels, no atomics on dQ: dQ, dK and dV are deterministic.
 
-#include <type_traits>
-
-#include "flash_attention_common.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace {
 
-using flash::Bias;
-using flash::Dropout;
-using flash::to_float;
+using namespace flash;
 
 constexpr int WARPS = 4;
 constexpr int NTHREADS = 32 * WARPS;
 constexpr int BM = 16 * WARPS;  // resident rows a CTA: 16 a warp
-constexpr int BN = 32;          // rows of a streamed tile
 
-// A shared row: D elements and 8 more (32 bytes of fp32, 16 of bf16).
-template <int D>
-__host__ __device__ constexpr int ld() {
-  return D + 8;
+// Rows of a streamed tile: 32, and 16 at W 256, where resident and
+// streamed rows of 264 elements would not fit shared memory otherwise.
+template <int W>
+__host__ __device__ constexpr int bn() {
+  return W > 128 ? 16 : 32;
+}
+
+// The gradient columns a CTA owns: all of them up to W 128; at W 256 two
+// CTAs share a tile, 128 columns each (accumulators of 256 columns would
+// not fit the registers: K2a holds dK and dV), and each recomputes S and
+// dP; K2b's second CTA writes no dBias.
+template <int W>
+__host__ __device__ constexpr int out_cols() {
+  return W > 128 ? 128 : W;
 }
 
 // Resident [BM] rows of two tensors, two stages of [BN] rows of two
 // tensors, and 4*BN floats (K2a: lse and delta, two stages; K2b: the
 // row-dBias partials of four warps).
-template <typename T, int D>
+template <typename T, int W>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(T) * (size_t)(2 * BM + 4 * BN) * ld<D>() +
-         sizeof(float) * 4 * BN;
-}
-
-// Element (r, c) of a shared tile [.][LD].  fp32 rows are 72 or 136 words,
-// 8 banks apart, and their columns are XOR-swizzled by 8 on rows with bit
-// 2 set: the float2 fragment loads (rows g, columns 2t) and the scalar
-// ones (rows 2t and 2t+1, columns g) then hit 32 distinct banks.  bf16
-// rows (36 or 68 words) need no swizzle.
-template <typename T, int LD>
-__device__ __forceinline__ int at(int r, int c) {
-  return r * LD + (sizeof(T) == 4 ? c ^ ((r & 4) << 1) : c);
-}
-
-// ---------------------------------------------------------------------------
-// asynchronous copies
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zeros when !full.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [r0, r0 + ROWS) of a row-major [n, D] tensor into a shared tile,
-// rows past n as zeros.
-template <int ROWS, int D, typename T>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
-                                      int r0, int n) {
-  constexpr int PER = 16 / sizeof(T);  // elements a 16-byte chunk
-  constexpr int CPR = D / PER;         // chunks a row
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NTHREADS) {
-    const int r = i / CPR, c = (i % CPR) * PER;
-    const bool in = r0 + r < n;
-    cp16(dst + at<T, ld<D>()>(r, c), src + (size_t)(in ? r0 + r : 0) * D + c,
-         in);
-  }
-}
-
-// Entry r0 + i of a fp32 row of n into dst[i], zero past n.
-__device__ __forceinline__ void stage_entry(float* dst,
-                                            const float* __restrict__ src,
-                                            int r0, int n, int i) {
-  const bool in = r0 + i < n;
-  cp4(dst + i, src + (in ? r0 + i : 0), in);
-}
-
-// ---------------------------------------------------------------------------
-// tensor-core products
-// ---------------------------------------------------------------------------
-
-// hi = x rounded to TF32, to nearest with ties away from zero (the
-// rounding of cvt.rna.tf32.f32 for finite x), lo = x - hi, exact; the
-// tensor core reads the top 19 bits of each.  Without SPLIT, x is exact
-// in TF32 (a bf16 value): hi = x.
-template <bool SPLIT, int N>
-__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&hi)[N],
-                                      uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (SPLIT) {
-      hi[i] = (__float_as_uint(x[i]) + 0x1000u) & 0xffffe000u;
-      lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i]));
-    } else {
-      hi[i] = __float_as_uint(x[i]);
-    }
-  }
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a.b and d += e.f over one m16n8k8 step, the two chains interleaved:
-// the small terms (a_lo.b_hi, a_hi.b_lo where the operands carry them)
-// first, then hi.hi.
-template <bool A_LO, bool B_LO>
-__device__ __forceinline__ void mma2x3(
-    float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-    const uint32_t (&bh)[2], const uint32_t (&bl)[2], float (&d)[4],
-    const uint32_t (&eh)[4], const uint32_t (&el)[4],
-    const uint32_t (&fh)[2], const uint32_t (&fl)[2]) {
-  if (A_LO) {
-    mma(c, al, bh);
-    mma(d, el, fh);
-  }
-  if (B_LO) {
-    mma(c, ah, bl);
-    mma(d, eh, fl);
-  }
-  mma(c, ah, bh);
-  mma(d, eh, fh);
-}
-
-template <typename T>
-__device__ __forceinline__ float2 ld2(const T* p);
-template <>
-__device__ __forceinline__ float2 ld2<float>(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-template <>
-__device__ __forceinline__ float2 ld2<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// Fragment loads from a shared tile, g = lane / 4, t = lane % 4, k
-// permuted as above.  A (16 x 8) of rows r0.. and columns c0..
-template <int LD, typename T>
-__device__ __forceinline__ void load_a(float (&a)[4], const T* X, int r0,
-                                       int c0, int g, int t) {
-  const float2 x0 = ld2(X + at<T, LD>(r0 + g, c0 + 2 * t));
-  const float2 x1 = ld2(X + at<T, LD>(r0 + g + 8, c0 + 2 * t));
-  a[0] = x0.x;
-  a[1] = x1.x;
-  a[2] = x0.y;
-  a[3] = x1.y;
-}
-
-// B (8 x 8, k x n) = X^T for X stored [n][k]: rows n0.., columns k0..
-template <int LD, typename T>
-__device__ __forceinline__ void load_bt(float (&b)[2], const T* X, int n0,
-                                        int k0, int g, int t) {
-  const float2 x = ld2(X + at<T, LD>(n0 + g, k0 + 2 * t));
-  b[0] = x.x;
-  b[1] = x.y;
-}
-
-// B (8 x 8) of X stored [k][n]: rows k0 + 2t and k0 + 2t + 1, column n0 + g.
-template <int LD, typename T>
-__device__ __forceinline__ void load_bp(float (&b)[2], const T* X, int k0,
-                                        int n0, int g, int t) {
-  b[0] = to_float(X[at<T, LD>(k0 + 2 * t, n0 + g)]);
-  b[1] = to_float(X[at<T, LD>(k0 + 2 * t + 1, n0 + g)]);
-}
-
-// The accumulators of a 16 x (8*NJ) tile as NJ A fragments (16 x 8 each,
-// k permuted as load_bp expects), split for 3xTF32.
-template <int NJ>
-__device__ __forceinline__ void as_a(const float (&c)[NJ][4],
-                                     uint32_t (&hi)[NJ][4],
-                                     uint32_t (&lo)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const float a[4] = {c[j][0], c[j][2], c[j][1], c[j][3]};
-    split<true>(a, hi[j], lo[j]);
-  }
+  return sizeof(T) * (size_t)(2 * BM + 4 * bn<W>()) * ld<W>() +
+         sizeof(float) * 4 * bn<W>();
 }
 
 // c1 = A1.B1^T and c2 = A2.B2^T for the warp's 16 rows r0.. of the
-// resident A1, A2 and the BN rows of the streamed B1, B2 (S and dP).
-template <int D, int NJ, typename T>
+// resident A1, A2 and the BN rows of the streamed B1, B2 (S and dP), over
+// all W columns (those past d are zero).
+template <int W, int NJ, typename T>
 __device__ __forceinline__ void two_products(const T* A1, const T* A2,
                                              const T* B1, const T* B2,
                                              int r0, int g, int t,
                                              float (&c1)[NJ][4],
                                              float (&c2)[NJ][4]) {
-  constexpr int LD = ld<D>();
+  constexpr int LD = ld<W>();
   constexpr bool SPLIT = std::is_same<T, float>::value;
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
+  for (int kk = 0; kk < W / 8; ++kk) {
     float a1[4], a2[4];
     uint32_t a1h[4], a1l[4], a2h[4], a2l[4];
     load_a<LD>(a1, A1, r0, 8 * kk, g, t);
@@ -318,13 +160,6 @@ __device__ __forceinline__ void two_products(const T* A1, const T* A2,
   }
 }
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // exp(x - lse), 0 where the row's lse is -inf (every score masked) or x
 // is -inf.
 __device__ __forceinline__ float exp_lse(float x, float lse) {
@@ -335,19 +170,20 @@ __device__ __forceinline__ float exp_lse(float x, float lse) {
 // K2a: dK, dV
 // ---------------------------------------------------------------------------
 
-template <int D, typename T>
-__global__ void __launch_bounds__(NTHREADS, D == 64 ? 3 : 1)
+template <int W, typename T>
+__global__ void __launch_bounds__(NTHREADS, W <= 64 ? 3 : 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, Bias bias,
                      const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Tq, int Tk, float scale,
-                     int causal, Dropout drop) {
-  constexpr int LD = ld<D>();
+                     T* __restrict__ dv, int H, int Tq, int Tk, int d,
+                     float scale, int causal, Dropout drop) {
+  constexpr int LD = ld<W>();
+  constexpr int BN = bn<W>();
   constexpr bool SPLIT = std::is_same<T, float>::value;
-  constexpr int NJ = BN / 8;  // 8-column blocks of S^T (q) a tile
-  constexpr int ND = D / 8;   // 8-column blocks of dK, dV
+  constexpr int NJ = BN / 8;              // 8-column blocks of S^T (q) a tile
+  constexpr int ND = out_cols<W>() / 8;   // 8-column blocks of dK, dV
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);  // [BM][LD]
   T* Vs = Ks + BM * LD;                // [BM][LD]
@@ -361,18 +197,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
   const int k0 = blockIdx.y * BM;
-  const T* qb = q + (size_t)bh * Tq * D;
-  const T* dob = dout + (size_t)bh * Tq * D;
+  // this CTA's dK, dV columns: 0 up to W 128 (one CTA holds them all)
+  const int c0 = W > 128 ? blockIdx.z * out_cols<W>() : 0;
+  const T* qb = q + (size_t)bh * Tq * d;
+  const T* dob = dout + (size_t)bh * Tq * d;
   const float* lseb = lse + (size_t)bh * Tq;
   const float* dlb = delta + (size_t)bh * Tq;
-  const size_t kv_base = (size_t)bh * Tk * D;
+  const size_t kv_base = (size_t)bh * Tk * d;
   const float* brow = bias.ptr ? bias.ptr + b * bias.sb + h * bias.sh
                                : nullptr;
 
   auto stage_q = [&](int tile, int st) {
     const int q0 = tile * BN;
-    stage<BN, D>(Qs + st * BN * LD, qb, q0, Tq);
-    stage<BN, D>(dOs + st * BN * LD, dob, q0, Tq);
+    stage<BN, W, NTHREADS>(Qs + st * BN * LD, qb, q0, Tq, d);
+    stage<BN, W, NTHREADS>(dOs + st * BN * LD, dob, q0, Tq, d);
     if (threadIdx.x < BN)
       stage_entry(lse_s + st * BN, lseb, q0, Tq, threadIdx.x);
     else if (threadIdx.x < 2 * BN)
@@ -382,8 +220,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // causal: q tiles wholly above this K tile's first key see none of it
   const int t0 = causal ? k0 / BN : 0;
   const int nt = (Tq + BN - 1) / BN;
-  stage<BM, D>(Ks, k + kv_base, k0, Tk);
-  stage<BM, D>(Vs, v + kv_base, k0, Tk);
+  stage<BM, W, NTHREADS>(Ks, k + kv_base, k0, Tk, d);
+  stage<BM, W, NTHREADS>(Vs, v + kv_base, k0, Tk, d);
   if (t0 < nt) stage_q(t0, 0);
   cp_commit();
 
@@ -412,7 +250,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // S^T = K Q^T and dP^T = V dO^T: 16 K rows x BN q columns a warp
     float s[NJ][4] = {}, dp[NJ][4] = {};
-    if (live) two_products<D, NJ>(Ks, Vs, Qt, dOt, 16 * w, g, t, s, dp);
+    if (live) two_products<W, NJ>(Ks, Vs, Qt, dOt, 16 * w, g, t, s, dp);
 
     // P^T into s, element (kj, qi) at s[j][e]: row r = e / 2, column c =
     // e % 2 of the accumulator layout
@@ -473,8 +311,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < NJ; ++j) {
           float of[2], qf[2];
           uint32_t oh[2], ol[2], qh[2], ql[2];
-          load_bp<LD>(of, dOt, 8 * j, 8 * n, g, t);
-          load_bp<LD>(qf, Qt, 8 * j, 8 * n, g, t);
+          load_bp<LD>(of, dOt, 8 * j, c0 + 8 * n, g, t);
+          load_bp<LD>(qf, Qt, 8 * j, c0 + 8 * n, g, t);
           split<SPLIT>(of, oh, ol);
           split<SPLIT>(qf, qh, ql);
           mma2x3<true, SPLIT>(tv, ph[j], pl[j], oh, ol, tk, sh[j], sl[j], qh,
@@ -495,11 +333,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int kj = k0 + kr + 8 * r;
     if (kj >= Tk) continue;
-    T* dkr = dk + kv_base + (size_t)kj * D;
-    T* dvr = dv + kv_base + (size_t)kj * D;
+    T* dkr = dk + kv_base + (size_t)kj * d;
+    T* dvr = dv + kv_base + (size_t)kj * d;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      const int c = 8 * n + 2 * t;
+      const int c = c0 + 8 * n + 2 * t;
+      if (c >= d) break;
       store2(dkr + c, dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
       store2(dvr + c, dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
     }
@@ -510,19 +349,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // K2b: dQ, dBias
 // ---------------------------------------------------------------------------
 
-template <int D, typename T>
-__global__ void __launch_bounds__(NTHREADS, D == 64 ? 3 : 1)
+template <int W, typename T>
+__global__ void __launch_bounds__(NTHREADS, W <= 64 ? 3 : 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, Bias bias,
                     const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     float* __restrict__ dbias, int dbias_mode, int H,
-                    int Tq, int Tk, float scale, int causal, Dropout drop) {
-  constexpr int LD = ld<D>();
+                    int Tq, int Tk, int d, float scale, int causal,
+                    Dropout drop) {
+  constexpr int LD = ld<W>();
+  constexpr int BN = bn<W>();
   constexpr bool SPLIT = std::is_same<T, float>::value;
-  constexpr int NJ = BN / 8;  // 8-column blocks of S (k) a tile
-  constexpr int ND = D / 8;   // 8-column blocks of dQ
+  constexpr int NJ = BN / 8;              // 8-column blocks of S (k) a tile
+  constexpr int ND = out_cols<W>() / 8;   // 8-column blocks of dQ
   extern __shared__ __align__(16) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);  // [BM][LD]
   T* dOs = Qs + BM * LD;               // [BM][LD]
@@ -536,22 +377,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / H, h = bh - b * H;
   // causal: the longest rows (the last Q tile) start first
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
-  const size_t q_base = (size_t)bh * Tq * D;
-  const T* kb = k + (size_t)bh * Tk * D;
-  const T* vb = v + (size_t)bh * Tk * D;
+  // this CTA's dQ columns: 0 up to W 128 (one CTA holds them all)
+  const int c0 = W > 128 ? blockIdx.z * out_cols<W>() : 0;
+  const size_t q_base = (size_t)bh * Tq * d;
+  const T* kb = k + (size_t)bh * Tk * d;
+  const T* vb = v + (size_t)bh * Tk * d;
   const float* brow = bias.ptr ? bias.ptr + b * bias.sb + h * bias.sh
                                : nullptr;
   const bool row_bias = brow != nullptr && bias.sq == 0;
 
   auto stage_kv = [&](int tile, int st) {
-    stage<BN, D>(Ks + st * BN * LD, kb, tile * BN, Tk);
-    stage<BN, D>(Vs + st * BN * LD, vb, tile * BN, Tk);
+    stage<BN, W, NTHREADS>(Ks + st * BN * LD, kb, tile * BN, Tk, d);
+    stage<BN, W, NTHREADS>(Vs + st * BN * LD, vb, tile * BN, Tk, d);
   };
 
   int nt = (Tk + BN - 1) / BN;
   if (causal) nt = min(nt, (q0 + BM - 1) / BN + 1);
-  stage<BM, D>(Qs, q + q_base, q0, Tq);
-  stage<BM, D>(dOs, dout + q_base, q0, Tq);
+  stage<BM, W, NTHREADS>(Qs, q + q_base, q0, Tq, d);
+  stage<BM, W, NTHREADS>(dOs, dout + q_base, q0, Tq, d);
   stage_kv(0, 0);
   cp_commit();
 
@@ -578,7 +421,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // S = Q K^T and dP = dO V^T: 16 q rows x BN key columns a warp
     float s[NJ][4] = {}, dp[NJ][4] = {};
-    if (live) two_products<D, NJ>(Qs, dOs, Kt, Vt, 16 * w, g, t, s, dp);
+    if (live) two_products<W, NJ>(Qs, dOs, Kt, Vt, 16 * w, g, t, s, dp);
 
     // P into s, element (qi, kj) at s[j][e]: row r = e / 2, column c = e % 2
 #pragma unroll
@@ -620,7 +463,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp[j][e] = s[j][e] * (dp[j][e] - dl[e >> 1]);
     }
 
-    if (dbias_mode == 2) {
+    if (dbias_mode == 2 && c0 == 0) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -630,7 +473,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (qi < Tq && kj < Tk)
             dbias[((size_t)bh * Tq + qi) * Tk + kj] = dp[j][e];
         }
-    } else if (dbias_mode == 1) {
+    } else if (dbias_mode == 1 && c0 == 0) {
       // column sums over the warp's 16 rows, then over the four warps
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -667,8 +510,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < NJ; ++j) {
           float f0[2], f1[2];
           uint32_t h0[2], l0[2], h1[2], l1[2];
-          load_bp<LD>(f0, Kt, 8 * j, 8 * n, g, t);
-          load_bp<LD>(f1, Kt, 8 * j, 8 * n + 8, g, t);
+          load_bp<LD>(f0, Kt, 8 * j, c0 + 8 * n, g, t);
+          load_bp<LD>(f1, Kt, 8 * j, c0 + 8 * n + 8, g, t);
           split<SPLIT>(f0, h0, l0);
           split<SPLIT>(f1, h1, l1);
           mma2x3<true, SPLIT>(t0, sh[j], sl[j], h0, l0, t1, sh[j], sl[j], h1,
@@ -689,11 +532,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + qr + 8 * r;
     if (qi >= Tq) continue;
-    T* dqr = dq + q_base + (size_t)qi * D;
+    T* dqr = dq + q_base + (size_t)qi * d;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      store2(dqr + 8 * n + 2 * t, dq_acc[n][2 * r] * scale,
-             dq_acc[n][2 * r + 1] * scale);
+    for (int n = 0; n < ND; ++n) {
+      const int c = c0 + 8 * n + 2 * t;
+      if (c >= d) break;
+      store2(dqr + c, dq_acc[n][2 * r] * scale, dq_acc[n][2 * r + 1] * scale);
+    }
   }
 }
 
@@ -704,7 +549,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
-  int B, H, Tq, Tk;
+  int B, H, Tq, Tk, d;
   float scale;
   int causal;
   Bias bias;
@@ -718,33 +563,51 @@ cudaError_t prepare(Kernel kernel, size_t smem, int tiles) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int D, typename T>
+template <int W, typename T>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<T, D>();
+  constexpr size_t smem = smem_bytes<T, W>();
   const int tiles = (a.Tk + BM - 1) / BM;
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<D, T>, smem, tiles);
+  cudaError_t err = prepare(flash_bwd_dkv_kernel<W, T>, smem, tiles);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<D, T><<<dim3(a.B * a.H, tiles), NTHREADS, smem, st>>>(
+  const dim3 grid(a.B * a.H, tiles, (a.d + out_cols<W>() - 1) / out_cols<W>());
+  flash_bwd_dkv_kernel<W, T><<<grid, NTHREADS, smem, st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.bias, static_cast<const T*>(a.dout),
       a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.H, a.Tq,
-      a.Tk, a.scale, a.causal, a.drop);
+      a.Tk, a.d, a.scale, a.causal, a.drop);
   return cudaGetLastError();
 }
 
-template <int D, typename T>
+template <int W, typename T>
 cudaError_t launch_dq(const Args& a, void* dq, float* dbias, int mode,
                       cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<T, D>();
+  constexpr size_t smem = smem_bytes<T, W>();
   const int tiles = (a.Tq + BM - 1) / BM;
-  cudaError_t err = prepare(flash_bwd_dq_kernel<D, T>, smem, tiles);
+  cudaError_t err = prepare(flash_bwd_dq_kernel<W, T>, smem, tiles);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D, T><<<dim3(a.B * a.H, tiles), NTHREADS, smem, st>>>(
+  const dim3 grid(a.B * a.H, tiles, (a.d + out_cols<W>() - 1) / out_cols<W>());
+  flash_bwd_dq_kernel<W, T><<<grid, NTHREADS, smem, st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.bias, static_cast<const T*>(a.dout),
       a.lse, a.delta, static_cast<T*>(dq), dbias, mode, a.H, a.Tq, a.Tk,
-      a.scale, a.causal, a.drop);
+      a.d, a.scale, a.causal, a.drop);
   return cudaGetLastError();
+}
+
+// The kernels at the smallest instantiated width >= d.
+template <typename T>
+cudaError_t dispatch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
+  return with_width(a.d, [&](auto w) {
+    return launch_dkv<decltype(w)::value, T>(a, dk, dv, st);
+  });
+}
+
+template <typename T>
+cudaError_t dispatch_dq(const Args& a, void* dq, float* dbias, int mode,
+                        cudaStream_t st) {
+  return with_width(a.d, [&](auto w) {
+    return launch_dq<decltype(w)::value, T>(a, dq, dbias, mode, st);
+  });
 }
 
 bool aligned16(const void* p) {
@@ -753,20 +616,21 @@ bool aligned16(const void* p) {
 
 Args make_args(const void* q, const void* k, const void* v, const void* bias,
                const void* dout, const void* lse, const void* delta, int B,
-               int H, int Tq, int Tk, long long sb, long long sh,
+               int H, int Tq, int Tk, int D, long long sb, long long sh,
                long long sq, long long sk, float scale, int causal,
                int dropout, unsigned threshold, unsigned key0,
                unsigned key1, float inv_keep) {
   return Args{q, k, v, dout, static_cast<const float*>(lse),
-              static_cast<const float*>(delta), B, H, Tq, Tk, scale, causal,
-              Bias{static_cast<const float*>(bias), sb, sh, sq, sk},
+              static_cast<const float*>(delta), B, H, Tq, Tk, D, scale,
+              causal, Bias{static_cast<const float*>(bias), sb, sh, sq, sk},
               Dropout{dropout, threshold, key0, key1, inv_keep}};
 }
 
 }  // namespace
 
-// Both entry points: dtype 0 = float32, 1 = bfloat16; bias may be null;
-// lse and delta are [B*H, Tq] fp32; q, k, v, dout and the gradients are
+// Both entry points: dtype 0 = float32, 1 = bfloat16; D, the head dim, at
+// most 256 and a multiple of 4 (fp32) or 8 (bf16); bias may be null; lse
+// and delta are [B*H, Tq] fp32; q, k, v, dout and the gradients are
 // 16-byte aligned (cp.async copies 16 bytes).  Return a cudaError_t (0 on
 // success); the launch is asynchronous on `stream`.
 extern "C" int flash_attention_bwd_dkv(
@@ -777,20 +641,17 @@ extern "C" int flash_attention_bwd_dkv(
     int dropout, unsigned threshold, unsigned key0, unsigned key1,
     float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || !head_dim_ok(D, dtype == 0 ? 4 : 2))
+    return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
       !aligned16(dk) || !aligned16(dv))
     return cudaErrorMisalignedAddress;
-  const Args a = make_args(q, k, v, bias, dout, lse, delta, B, H, Tq, Tk,
+  const Args a = make_args(q, k, v, bias, dout, lse, delta, B, H, Tq, Tk, D,
                            sb, sh, sq, sk, scale, causal, dropout, threshold,
                            key0, key1, inv_keep);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_dkv<64, float>(a, dk, dv, st);
-  if (dtype == 0 && D == 128) return launch_dkv<128, float>(a, dk, dv, st);
-  if (dtype == 1 && D == 64)
-    return launch_dkv<64, __nv_bfloat16>(a, dk, dv, st);
-  if (dtype == 1 && D == 128)
-    return launch_dkv<128, __nv_bfloat16>(a, dk, dv, st);
-  return cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_dkv<float>(a, dk, dv, st);
+  return dispatch_dkv<__nv_bfloat16>(a, dk, dv, st);
 }
 
 // dbias_mode: 0 none, 1 row ([B, Tk] fp32, zeroed, summed atomically),
@@ -803,25 +664,20 @@ extern "C" int flash_attention_bwd_dq(
     float scale, int causal, int dropout, unsigned threshold, unsigned key0,
     unsigned key1, float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || !head_dim_ok(D, dtype == 0 ? 4 : 2))
+    return cudaErrorInvalidValue;
   if (dbias_mode < 0 || dbias_mode > 2 || (dbias_mode && !dbias))
     return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) ||
       !aligned16(dq))
     return cudaErrorMisalignedAddress;
-  const Args a = make_args(q, k, v, bias, dout, lse, delta, B, H, Tq, Tk,
+  const Args a = make_args(q, k, v, bias, dout, lse, delta, B, H, Tq, Tk, D,
                            sb, sh, sq, sk, scale, causal, dropout, threshold,
                            key0, key1, inv_keep);
   float* db = static_cast<float*>(dbias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_dq<64, float>(a, dq, db, dbias_mode, st);
-  if (dtype == 0 && D == 128)
-    return launch_dq<128, float>(a, dq, db, dbias_mode, st);
-  if (dtype == 1 && D == 64)
-    return launch_dq<64, __nv_bfloat16>(a, dq, db, dbias_mode, st);
-  if (dtype == 1 && D == 128)
-    return launch_dq<128, __nv_bfloat16>(a, dq, db, dbias_mode, st);
-  return cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_dq<float>(a, dq, db, dbias_mode, st);
+  return dispatch_dq<__nv_bfloat16>(a, dq, db, dbias_mode, st);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

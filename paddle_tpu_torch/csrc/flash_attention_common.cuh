@@ -1,8 +1,8 @@
 // Pieces shared by the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): tile sizes, fp32/bf16 loads and stores, the
-// additive bias as a pointer plus four element strides, and the dropout
-// arm's counter-based random bits (Philox, which fused_dropout.cu draws
-// from too).
+// flash_attention_bwd.cu): fp32/bf16 loads and stores, the additive bias
+// as a pointer plus four element strides, and the dropout arm's
+// counter-based random bits (Philox, which fused_dropout.cu draws from
+// too).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,13 +11,6 @@
 #include <stdint.h>
 
 namespace flash {
-
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BK = 64;          // key rows per tile
-constexpr int THREADS = 256;    // 16 x 16 threads
-constexpr int ROWS = 4;         // tile rows per thread (64 / 16)
-constexpr int KCOLS = BK / 16;  // score columns per thread
-constexpr int PP = BK + 1;      // padded row of a score-shaped tile
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

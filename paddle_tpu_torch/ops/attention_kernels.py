@@ -18,7 +18,9 @@ K1 for the per-row lse and its backward launches K2a (dK, dV) and K2b
 (dQ, and dBias when the bias needs a grad).  Each wrapper launches its
 hand-written CUDA kernel on a CUDA tensor and takes its plain PyTorch
 version only for a CPU tensor; on a CUDA tensor it launches or raises,
-with no fallback.  ``flash_attention.launches``,
+with no fallback.  The kernels take every head dim from 1 to 256 in
+float32 and bfloat16 (:func:`padded_head_dim`, :func:`kernel_widths`);
+above 256 the wrappers raise.  ``flash_attention.launches``,
 ``flash_attention_bwd_dkv.launches`` and ``flash_attention_bwd_dq.
 launches`` count the kernels' launches; ``flash_attention_with_lse.
 launches`` counts the forward launches made for K3.
@@ -33,6 +35,8 @@ are not reproduced.
 """
 
 import ctypes
+import os
+import re
 
 import torch
 
@@ -40,8 +44,9 @@ from . import cuda_build
 from .registry import keep_threshold, philox4x32, seed_key
 
 _FWD, _BWD = "flash_attention_fwd", "flash_attention_bwd"
-_HEAD_DIMS = (64, 128)
+HEAD_DIM_MAX = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CHUNK = {torch.float32: 4, torch.bfloat16: 8}  # values in 16 bytes
 _libs = {}
 
 
@@ -82,16 +87,18 @@ def _keep(q, k, dropout_p, seed):
 
 
 def flash_attention_reference(q, k, v, bias=None, causal=False, scale=None,
-                              dropout_p=0.0, seed=0, return_lse=False):
+                              dropout_p=0.0, seed=0, return_lse=False,
+                              dtype=torch.float32):
     """Plain PyTorch attention over [B, H, T, D], computed the kernel's
-    way: scores and softmax in fp32, a -inf causal mask (top-left
-    aligned), rows whose every score is -inf give 0 (and lse -inf), the
-    denominator sums the undropped weights, the kept weights are scaled
-    by 1/(1-p), output in the input dtype.  With `return_lse`, also the
-    per-row log-sum-exp [B, H, Tq] in fp32."""
+    way: scores and softmax in `dtype` (fp32; float64 inputs with float64
+    give the kernel's precision check its answer), a -inf causal mask
+    (top-left aligned), rows whose every score is -inf give 0 (and lse
+    -inf), the denominator sums the undropped weights, the kept weights
+    are scaled by 1/(1-p), output in the input dtype.  With `return_lse`,
+    also the per-row log-sum-exp [B, H, Tq] in `dtype`."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    s = _scores(q, k, bias, causal, scale)
+    s = _scores(q, k, bias, causal, scale, dtype)
     m = s.amax(dim=-1, keepdim=True)
     fin = torch.isfinite(m)
     m = torch.where(fin, m, torch.zeros_like(m))
@@ -100,7 +107,7 @@ def flash_attention_reference(q, k, v, bias=None, causal=False, scale=None,
     if dropout_p:
         p = torch.where(_keep(q, k, dropout_p, seed), p,
                         torch.zeros_like(p)) * (1.0 / (1.0 - dropout_p))
-    out = (torch.matmul(p, v.float()) / denom).to(q.dtype)
+    out = (torch.matmul(p, v.to(dtype)) / denom).to(q.dtype)
     if not return_lse:
         return out
     lse = torch.where(fin, m + torch.log(denom),
@@ -191,6 +198,35 @@ _SIGNATURES = {
 }
 
 
+def padded_head_dim(d, dtype=torch.float32):
+    """The head dim the kernels run head dim `d` of `dtype` (float32 or
+    bfloat16) at: `d` padded with zero columns to a whole 16-byte chunk
+    (4 float32 or 8 bfloat16 values, what cp.async copies).  Raises
+    ValueError outside 1 to HEAD_DIM_MAX."""
+    if not 1 <= d <= HEAD_DIM_MAX:
+        raise ValueError(f"flash_attention kernels take head dims 1 to "
+                         f"{HEAD_DIM_MAX}, not {d}")
+    chunk = _CHUNK[dtype]
+    return -(-d // chunk) * chunk
+
+
+def kernel_widths():
+    """The head widths the kernels are instantiated at, narrowest first:
+    ``HeadWidths`` of ``csrc/flash_attention_mma.cuh``, whose
+    ``with_width`` runs a head dim at the smallest width that holds it."""
+    with open(os.path.join(cuda_build.CSRC, "flash_attention_mma.cuh")) as f:
+        m = re.search(r"using HeadWidths = Widths<([\d,\s]+)>;", f.read())
+    return tuple(int(w) for w in m.group(1).split(","))
+
+
+def _dense(t, dp):
+    """`t` [..., d] with zero columns up to dp, on a 16-byte aligned
+    address (cp.async copies 16 bytes)."""
+    if t.shape[-1] != dp:
+        return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _kernel(name):
     """(entry point, error-string function) of one kernel, built and
     loaded at first use."""
@@ -208,6 +244,8 @@ def _kernel(name):
 
 
 def _check(q, k, v, bias, *more):
+    """Raises on what the kernels do not take; returns the padded head
+    dim they run at."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q, k, v of rank 4 "
                          "[B, H, T, D]")
@@ -237,12 +275,10 @@ def _check(q, k, v, bias, *more):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dim "
-                         f"{_HEAD_DIMS}, not {d}")
     if bias is not None and bias.device != q.device:
         raise ValueError(f"flash_attention: bias is on {bias.device}, "
                          f"q on {q.device}")
+    return padded_head_dim(d, q.dtype)
 
 
 def _on_cuda(q, dropout_p):
@@ -290,6 +326,11 @@ def _ptrs(*ts):
     return [None if t is None else t.data_ptr() for t in ts]
 
 
+def _cut(t, d):
+    """A kernel output [..., dp] cut back to the caller's head dim."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
                         dropout_p=0.0, seed=0, with_lse=False):
     """K1 on a CUDA tensor (counted in ``flash_attention.launches``), its
@@ -300,13 +341,15 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
     if not _on_cuda(q, dropout_p):
         return flash_attention_reference(q, k, v, bias, causal, scale,
                                          dropout_p, seed, with_lse)
-    _check(q, k, v, bias)
-    out = torch.empty_like(q)
+    dp = _check(q, k, v, bias)
+    q_, k_, v_ = (_dense(t, dp) for t in (q, k, v))
+    out = torch.empty_like(q_)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
         if with_lse else None
-    _launch("flash_attention_fwd", q, k, bias,
-            _ptrs(q, k, v, out, lse), causal, scale, dropout_p, seed)
+    _launch("flash_attention_fwd", q_, k_, bias,
+            _ptrs(q_, k_, v_, out, lse), causal, scale, dropout_p, seed)
     flash_attention.launches += 1
+    out = _cut(out, q.shape[-1])
     return (out, lse) if with_lse else out
 
 
@@ -319,13 +362,15 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, lse, delta, causal=False,
     if not _on_cuda(q, dropout_p):
         return _backward_plain(q, k, v, bias, dout, lse, delta, causal,
                                scale, dropout_p, seed)[1:3]
-    _check(q, k, v, bias, ("dout", dout), ("lse", lse), ("delta", delta))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_attention_bwd_dkv", q, k, bias,
-            _ptrs(q, k, v, dout, lse, delta, dk, dv), causal, scale,
+    dp = _check(q, k, v, bias, ("dout", dout), ("lse", lse),
+                ("delta", delta))
+    q_, k_, v_, do_ = (_dense(t, dp) for t in (q, k, v, dout))
+    dk, dv = torch.empty_like(k_), torch.empty_like(v_)
+    _launch("flash_attention_bwd_dkv", q_, k_, bias,
+            _ptrs(q_, k_, v_, do_, lse, delta, dk, dv), causal, scale,
             dropout_p, seed)
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return _cut(dk, k.shape[-1]), _cut(dv, v.shape[-1])
 
 
 def _bias_is_row(bias, b, tk):
@@ -349,10 +394,12 @@ def flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, causal=False,
         dq, _, _, ds = _backward_plain(q, k, v, bias, dout, lse, delta,
                                        causal, scale, dropout_p, seed)
         return dq, _unbroadcast(ds, bias) if dbias else None
-    _check(q, k, v, bias, ("dout", dout), ("lse", lse), ("delta", delta))
+    dp = _check(q, k, v, bias, ("dout", dout), ("lse", lse),
+                ("delta", delta))
+    q_, k_, v_, do_ = (_dense(t, dp) for t in (q, k, v, dout))
     b, h, tq, _ = q.shape
     tk = k.shape[2]
-    dq = torch.empty_like(q)
+    dq = torch.empty_like(q_)
     mode, buf = 0, None
     if dbias:
         row = _bias_is_row(bias, b, tk)
@@ -361,10 +408,11 @@ def flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, causal=False,
         # never visits the full buffer's tiles above the diagonal
         buf = torch.zeros((b, tk) if row else (b * h, tq, tk),
                           dtype=torch.float32, device=q.device)
-    _launch("flash_attention_bwd_dq", q, k, bias,
-            _ptrs(q, k, v, dout, lse, delta, dq, buf) + [mode], causal,
+    _launch("flash_attention_bwd_dq", q_, k_, bias,
+            _ptrs(q_, k_, v_, do_, lse, delta, dq, buf) + [mode], causal,
             scale, dropout_p, seed)
     flash_attention_bwd_dq.launches += 1
+    dq = _cut(dq, q.shape[-1])
     if not dbias:
         return dq, None
     return dq, _unbroadcast(buf.reshape((b, 1, 1, tk) if row

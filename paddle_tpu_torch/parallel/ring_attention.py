@@ -25,8 +25,8 @@ The in-shard attention has two tiers:
   the merge between them, each block's scores recomputed in the backward
   (``torch.utils.checkpoint``, where the reference has ``jax.checkpoint``).
 
-CUDA shards always take K3: a head dim the kernel does not take raises in
-its wrapper, and so does ``FLAGS_ring_flash=false``.  On CPU shards
+CUDA shards always take K3, at every head dim up to 256 (above it the
+kernel's wrapper raises), and ``FLAGS_ring_flash=false`` raises.  On CPU shards
 ``FLAGS_ring_flash`` picks the tier: "auto" and "false" take the blocked
 path, "true" takes K3's plain version.  A K3 failure raises: there is no
 fallback to the blocked path.
@@ -150,8 +150,8 @@ def _shard_attn_flash(q, k, v, scale, diag_causal):
 
 def _use_ring_flash(device):
     """Resolve FLAGS_ring_flash for shards on `device`: a CUDA shard takes
-    K3 whatever its head dim (the kernel's wrapper raises for one it does
-    not take), and raises under "false"; a CPU shard takes K3's plain
+    K3 whatever its head dim (the kernel's wrapper raises above 256), and
+    raises under "false"; a CPU shard takes K3's plain
     version under "true" and the blocked path otherwise."""
     from ..flags import get_flag
 

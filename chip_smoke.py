@@ -31,13 +31,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    error), and K2a + K2b + attention_delta is timed beside the library's
    backward there and at NMT's T 64 bucket.  Then K1, K2a and K2b at head
    dims 8, 16, 80 and 256 (and 33 fp32, 100 bf16, which the wrapper pads
-   to whole 16-byte chunks) against their plain versions, each timed
-   beside its plain version and SDPA.
-5. int8 kernel vs plain: K6 (quant_matmul) at the int8 serving path's
-   shapes (M = 1024 with (K, N) in {(768, 768), (768, 3072), (3072,
-   768)}, ragged M, the pooler's M = 8, the logits head's N = 2, and a
-   shape ragged in M, K and N) against its plain version, which must
-   agree bit for bit; kernel, plain and torch._int_mm + scale times.
+   to whole 16-byte chunks) and, in their wide arm, 257, 320 and 512
+   (fp32 and bf16 with dropout, a full and a row bias's grad) against
+   their plain versions, each timed beside its plain version and SDPA.
+5. int8 kernel vs plain: first K6's SASS (integer warpgroup MMA, IGMMA,
+   and TMA loads, UTMALDG, no spills); then K6
+   (quant_matmul) at the int8 serving path's shapes (M = 1024 with (K,
+   N) in {(768, 768), (768, 3072), (3072, 768)}, ragged M, the pooler's
+   M = 8, the logits head's N = 2, and a shape ragged in M, K and N)
+   against its plain version, which must agree bit for bit with the
+   weight K-major (the serving layout) and row-major; times on the
+   serving layout beside the row-major weight's, the plain version's
+   and torch._int_mm + scale, and the host's time a call.
 6. serving: build BERT-base (12 layers, hidden 768, 12 heads, seq 128,
    random weights from a seed) with the port's fluid API, save it as an
    inference model, serve 32 single-row requests through
@@ -51,7 +56,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the engine's padded batches re-run on a CPU quantized Predictor (the
    int8 codes that differ counted), the answers within 0.05 of the fp32
    phase's, latency and throughput beside the fp32 phase's, and a
-   profile of one quantized batch.
+   profile of one quantized batch with K6's share of its device busy.
 8. training parity: BERT-base width with 2 layers, batch 8, seq 128,
    Adam, from one startup state, 3 steps on the card against 3 steps on
    the CPU, with dropout 0 and with dropout 0.1 (the same Philox masks
@@ -127,11 +132,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 21. paged attention kernel vs plain: K4 (float32 and bf16 arenas) and
    K5 (int8 arenas with fp32 per-token scales), one CUDA loop, against
    their plain versions at bench_kernels.py's decode shape (S 64, H 8,
-   D 128, blocks of 16, 16 a slot, 513 in the arena, lengths 192-256) and
-   at ragged and odd shapes (D 4, 8, 64, 100; blocks of 4 and 5; an empty
-   slot, a 1-token slot, a shared block): float32 and int8 within 2e-5,
-   bf16 within 2e-2, empty slots exactly 0; kernel, plain and two-call
-   yardstick (index_select + masked SDPA) times at the decode shape.
+   D 128, blocks of 16, 16 a slot, 513 in the arena, lengths 192-256), at
+   the disaggregated path's own call (one slot, H 8, D 64, blocks of 16,
+   48 tokens) and at ragged and odd shapes (D 4, 8, 64, 100 and 320,
+   above 256; blocks of 4 and 5; an empty slot, a 1-token slot, a shared
+   block): float32 and int8 within 2e-5, bf16 within 2e-2, empty slots
+   exactly 0; kernel, plain and two-call yardstick (index_select +
+   masked SDPA) times at the decode, disaggregated and D 320 shapes.
 22. disaggregated decode: the trained model behind a DisaggRouter: one
    PrefillReplica whose prefill_fn runs the decode program over the
    prompt and quantizes every decoder layer's self-attention K/V
@@ -145,8 +152,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    audited and empty after the drain.
 23. K3 vs plain: flash_attention_with_lse (K1 with lse forward, K2a and
    K2b with delta - dlse backward) at the ring's shard shape [B 4, H 12,
-   T/p 512, D 64] float32, causal and not, and a ragged shard of 500
-   rows: out, lse and dq, dk, dv under a random lse cotangent against
+   T/p 512, D 64] float32, causal and not, a ragged shard of 500 rows
+   and a causal 256-row shard at head dim 320 (the kernels' wide arm):
+   out, lse and dq, dk, dv under a random lse cotangent against
    the plain versions (TRAIN_ATOL) and the grads against float64
    (GRAD64_FACTOR); forward and backward times beside the bound, the
    plain versions and PyTorch's memory-efficient attention, and K2a +
@@ -369,12 +377,20 @@ DISAGG_DEADLINE_MS = 300000
 # lengths in [192, 256], random tables), then ragged and odd shapes: (name,
 # S, H, D, Bs, MB, N, lengths; shared: slot 1 starts with slot 0's block)
 PAGED_BENCH = ("bench_s64_h8_d128", 64, 8, 128, 16, 16, 513, None)
-PAGED_CASES = [PAGED_BENCH,
+# the disaggregated path's own call: one slot of an NMT decode pool (H 8,
+# D 64, blocks of 16, max_len 64: 4 a slot, 96 in the arena) at a long
+# prompt's 48 tokens; and head dims above 256 (column groups of 256)
+PAGED_DISAGG = ("disagg_s1_h8_d64_bs16", 1, 8, 64, 16, 4, 96, [48])
+PAGED_WIDE = ("d320_bs16_wide", 8, 4, 320, 16, 4, 40,
+              [48, 1, 0, 33, 64, 17, 16, 2])
+PAGED_TIMED = (PAGED_BENCH, PAGED_DISAGG, PAGED_WIDE)
+PAGED_CASES = [PAGED_BENCH, PAGED_DISAGG,
                ("d4_bs4_empty_1tok", 3, 2, 4, 4, 3, 7, [5, 0, 1]),
                ("d8_bs4_ragged", 4, 3, 8, 4, 5, 11, [17, 1, 0, 20]),
                ("d64_bs16_nmt", 8, 8, 64, 16, 4, 40,
                 [48, 1, 0, 33, 64, 17, 16, 2]),
-               ("d100_bs5_odd", 3, 5, 100, 5, 4, 13, [19, 20, 0])]
+               ("d100_bs5_odd", 3, 5, 100, 5, 4, 13, [19, 20, 0]),
+               PAGED_WIDE]
 # kernel against its plain version on the same tensors: float32 and the
 # int8 arm (both dequantized in float32), bf16 (the output rounded to bf16)
 PAGED_ATOL = {"float32": 2e-5, "int8": 2e-5, "bfloat16": 2e-2}
@@ -395,11 +411,18 @@ PAGED_ATOL = {"float32": 2e-5, "int8": 2e-5, "bfloat16": 2e-2}
 # dense math
 SP_SHARD = (4, 12, 512, 64)
 SP_RAGGED_T = 500
+# K3 in the kernels' wide arm: a causal shard of 256 rows at head dim 320
+SP_WIDE = (256, 320)
 # K1 and K2 at head dims off BERT's 64: the reference zoo's transformer
 # (d_key 8) and BERT (16), a D 80 model, the largest the kernels take
 # (256); and two that are not whole 16-byte chunks (fp32 33, bf16 100)
 HEAD_DIMS = (8, 16, 80, 256)
 HEAD_DIMS_PADDED = ((33, "float32"), (100, "bfloat16"))
+# head dims above 256, which the reference takes and the kernels' wide arm
+# runs (column groups of 256 over a grid axis): the first (257, padded to
+# a whole 16-byte chunk), two groups, one of them part-filled (320), and
+# two whole groups (512)
+HEAD_DIMS_WIDE = (257, 320, 512)
 SP_RING = dict(b=4, t=2048, h=12, d=64, seq=4)
 # a ring at a head dim off the BERT widths (the zoo's and users' models
 # are not all D 64): it must run on the card and equal full attention
@@ -682,6 +705,43 @@ def max_err(torch, got, want):
     return (got - want).abs()[~inf].max().item()
 
 
+# SASS instructions counted by sass_counts (beside the warpgroup MMAs)
+SASS_OPS = ("HMMA", "LDGSTS", "UTMALDG", "LDL", "STL")
+
+
+def sass_counts(source):
+    """{kernel function: counts} of a built library's SASS (cuobjdump):
+    its instructions, how many of them are each op of SASS_OPS, and the
+    warpgroup MMAs ("GMMA" counts every form, "gmma" names the forms)."""
+    from paddle_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    cuda_build.load(source)
+    sass = subprocess.run([tool, "-sass", cuda_build.lib_path(source)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(
+                SASS_OPS + ("GMMA", "instructions"), 0)
+            counts[name]["gmma"] = set()
+        elif name is not None:
+            c = counts[name]
+            c["instructions"] += bool(re.search(r"/\*[0-9a-f]{4,}\*/", line))
+            g = re.search(r"\b([A-Z]+GMMA)\b", line)
+            if g:
+                c["GMMA"] += 1
+                c["gmma"].add(g.group(1))
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    c[op] += 1
+    return counts
+
+
 def sass_check():
     """The flash-attention kernels as built: K1, K2a and K2b must each be
     instantiated at exactly the widths the C entries dispatch over
@@ -693,11 +753,7 @@ def sass_check():
     spills).  Prints the counts of each; raises SystemExit when one is
     missing."""
     from paddle_tpu_torch.ops import attention_kernels as ak
-    from paddle_tpu_torch.ops import cuda_build
 
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    ops = ("HMMA", "LDGSTS", "UTMALDG", "LDL", "STL")
     want = {(w, dt) for w in ak.kernel_widths()
             for dt in ("float32", "bfloat16")}
     bad = []
@@ -705,23 +761,7 @@ def sass_check():
             ("flash_attention_fwd", ("flash_fwd_kernel",)),
             ("flash_attention_bwd", ("flash_bwd_dkv_kernel",
                                      "flash_bwd_dq_kernel"))):
-        cuda_build.load(source)
-        sass = subprocess.run(
-            [tool, "-sass", cuda_build.lib_path(source)],
-            capture_output=True, text=True, check=True,
-            timeout=300).stdout
-        counts, name = {}, None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                name = m.group(1)
-                counts[name] = dict.fromkeys(ops + ("instructions",), 0)
-            elif name is not None:
-                counts[name]["instructions"] += bool(
-                    re.search(r"/\*[0-9a-f]{4,}\*/", line))
-                for op in ops:
-                    if re.search(rf"\b{op}\b", line):
-                        counts[name][op] += 1
+        counts = sass_counts(source)
         for kern in kernels:
             found = set()
             for n, c in sorted(counts.items()):
@@ -734,7 +774,7 @@ def sass_check():
                 found.add(inst)
                 print(f"  SASS {kern} W {inst[0]} {inst[1]}: "
                       f"{c['instructions']} instructions, " +
-                      " ".join(f"{op} {c[op]}" for op in ops))
+                      " ".join(f"{op} {c[op]}" for op in SASS_OPS))
                 if not c["HMMA"] or not (c["LDGSTS"] or c["UTMALDG"]):
                     bad.append(n)
                 main_path = inst[0] == 64 and (
@@ -748,6 +788,25 @@ def sass_check():
         raise SystemExit(f"flash-attention kernels without tensor-core "
                          f"products or asynchronous copies, spilling, or "
                          f"not at the dispatched widths: {bad}")
+
+
+def k6_sass_check():
+    """K6 as built: its kernel must run the integer warpgroup MMA
+    (IGMMA: wgmma.mma_async .s32.s8.s8) fed by TMA loads (UTMALDG), with
+    no local-memory traffic (LDL, STL: register spills)."""
+    bad, seen = [], 0
+    for n, c in sorted(sass_counts("quant_matmul").items()):
+        if "quant_matmul_kernel" not in n:
+            continue
+        seen += 1
+        print(f"  SASS {n}: GMMA {c['GMMA']} {sorted(c['gmma'])} "
+              f"UTMALDG {c['UTMALDG']} LDL {c['LDL']} STL {c['STL']}")
+        if "IGMMA" not in c["gmma"] or not c["UTMALDG"] or c["LDL"] \
+                or c["STL"]:
+            bad.append(n)
+    if not seen or bad:
+        raise SystemExit(f"quant_matmul kernels without integer warpgroup "
+                         f"MMA or TMA loads, or spilling: {bad or 'none'}")
 
 
 def float64_bar(torch, got, plain, exact):
@@ -888,19 +947,22 @@ def nmt_backward_vs_library(torch, ak):
 
 
 def host_ms(torch, fn, reps=100):
-    """Mean host time of one fn() call, the card kept busy by a spin
-    kernel so that no call waits on it (the wrappers' Python and launch
-    cost, which host-bound steps pay for every call)."""
+    """The median host time of one fn() call over `reps` calls, each timed
+    alone, the card kept busy by a spin kernel so that no call waits on
+    it (the wrappers' Python and launch cost, which host-bound steps pay
+    for every call).  The median, not the mean: on a shared host a burst
+    of other work slows a few calls, not the middle one."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(int(2e8))
-    t0 = time.perf_counter()
+    torch.cuda._sleep(int(4e8))
+    times = []
     for _ in range(reps):
+        t0 = time.perf_counter()
         fn()
-    ms = (time.perf_counter() - t0) * 1e3 / reps
+        times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return ms
+    return statistics.median(times) * 1e3
 
 
 def attention_case(torch, ak, case, seed, rows):
@@ -1031,7 +1093,9 @@ def head_dim_cases(torch):
     D] with BERT's padding mask (fp32 with dropout 0.1, and bf16), and
     causal at a ragged T 200 with a full bias and its grad; then the head
     dims of HEAD_DIMS_PADDED, which the wrapper pads to whole 16-byte
-    chunks with zero columns."""
+    chunks with zero columns; then the wide arm's HEAD_DIMS_WIDE (fp32
+    and bf16 with dropout 0.1), D 320 causal at T 200 with a full bias's
+    grad and D 512 with a row bias's grad."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 90)
     b, h, t = 8, 12, 128
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -1059,6 +1123,19 @@ def head_dim_cases(torch):
     for d, dtype in HEAD_DIMS_PADDED:
         cases.append((f"d{d}_row_{dtype}_drop", *qkv(d, dtype), pad_mask(),
                       False, 0.1, False))
+    for d in HEAD_DIMS_WIDE:
+        cases += [
+            (f"d{d}_row_f32_drop", *qkv(d, "float32"), pad_mask(), False,
+             0.1, False),
+            (f"d{d}_row_bf16_drop", *qkv(d, "bfloat16"), pad_mask(), False,
+             0.1, False)]
+    cases += [
+        ("d320_causal_t200_full_dbias_f32", *qkv(320, "float32", 200),
+         torch.randn(b, h, 200, 200, generator=g, device="cuda") * 0.5,
+         True, 0.0, True),
+        ("d512_row_dbias_f32_drop", *qkv(512, "float32"),
+         torch.randn(b, 1, 1, t, generator=g, device="cuda") * 0.5, False,
+         0.1, True)]
     return cases
 
 
@@ -1068,8 +1145,9 @@ def head_dim_phase(torch):
     the launch counts show the kernels ran."""
     from paddle_tpu_torch.ops import attention_kernels as ak
 
-    phase(f"K1, K2a, K2b vs plain at head dims {HEAD_DIMS} and (padded) "
-          f"{[d for d, _ in HEAD_DIMS_PADDED]}")
+    phase(f"K1, K2a, K2b vs plain at head dims {HEAD_DIMS}, (padded) "
+          f"{[d for d, _ in HEAD_DIMS_PADDED]} and (wide arm) "
+          f"{HEAD_DIMS_WIDE}")
     rows = {"fwd": {}, "dkv": {}, "dq": {}}
     counters = (ak.flash_attention, ak.flash_attention_bwd_dkv,
                 ak.flash_attention_bwd_dq)
@@ -1113,10 +1191,15 @@ def int8_library(torch, xq, wq):
 
 
 def quant_kernel_phase(torch):
-    """K6 against its plain version, which must give the same bits."""
+    """K6 against its plain version, which must give the same bits, with
+    the weight in the serving layout (K-major, as apply_to_scope stores
+    it) and row-major (the wrapper lays it out each call); times on the
+    serving layout beside the plain version and _int_mm + scale.  First
+    the SASS (k6_sass_check)."""
     from paddle_tpu_torch.ops import quant_kernels as qk
 
     phase("int8 kernel vs plain (quant_matmul)")
+    k6_sass_check()
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = {}
     for name, m, k, n in QUANT_CASES:
@@ -1124,35 +1207,44 @@ def quant_kernel_phase(torch):
                            dtype=torch.int8)
         wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
                            dtype=torch.int8)
+        wk = qk.k_major(wq)           # the serving layout, same values
         cs = torch.rand(n, generator=g, device="cuda") * 1e-4 + 1e-6
-        out = qk.int8_matmul(xq, wq, cs)
         ref = qk.int8_matmul_reference(xq, wq, cs)
+        outs = {"k_major": qk.int8_matmul(xq, wk, cs),
+                "row_major": qk.int8_matmul(xq, wq, cs)}
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
+        errs = {lay: (o - ref).abs().max().item() for lay, o in outs.items()}
+        err = max(errs.values())
         lib = int8_library(torch, xq, wq)
         nbytes = m * k + k * n + 4 * n + 4 * m * n
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = 2 * m * k * n / PEAK_FLOPS["int8"] * 1e3
         row = {
             "max_abs_err": err,
-            "ms": time_ms(torch, lambda: qk.int8_matmul(xq, wq, cs)),
+            "ms": time_ms(torch, lambda: qk.int8_matmul(xq, wk, cs)),
             "plain_ms": time_ms(torch, lambda: qk.int8_matmul_reference(
-                xq, wq, cs)),
+                xq, wk, cs)),
             "library_ms": None if lib is None else time_ms(
                 torch, lambda: lib().float() * cs),
             "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "row_major_ms": time_ms(torch, lambda: qk.int8_matmul(
+                xq, wq, cs))}
         rows[name] = row
+        host = host_ms(torch, lambda: qk.int8_matmul(xq, wk, cs))
         lib_txt = "refused" if lib is None else \
             f"{row['library_ms']:.6f} ms"
-        print(f"{name}: M {m} K {k} N {n} max_abs_err {err:.3e} (must be 0;"
-              f" max |out| {out.abs().max().item():.3e}) kernel "
-              f"{row['ms']:.6f} ms plain {row['plain_ms']:.6f} ms "
-              f"_int_mm+scale {lib_txt} bound {row['bound_ms']:.6f} ms "
-              f"({row['bound_by']})", flush=True)
+        print(f"{name}: M {m} K {k} N {n} max_abs_err K-major "
+              f"{errs['k_major']:.3e}, row-major {errs['row_major']:.3e} "
+              f"(must be 0; max |out| {ref.abs().max().item():.3e}) kernel "
+              f"{row['ms']:.6f} ms (row-major weight, laid out each call: "
+              f"{row['row_major_ms']:.6f}), host {host:.6f} ms a call; plain "
+              f"{row['plain_ms']:.6f} ms _int_mm+scale {lib_txt} bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']})",
+              flush=True)
         if err != 0.0:
             raise SystemExit(f"quant_matmul disagrees with its plain version "
-                             f"on {name}: {err}")
+                             f"on {name}: {errs}")
     return rows
 
 
@@ -1389,7 +1481,14 @@ def quant_serving_phase(torch, smi, fp32):
         raise SystemExit(f"quantized answers depart from fp32 by {dq}")
     print(f"serving int8 [{smi}]: {run['line']}")
     print(f"serving fp32 [{smi}]: {fp32['line']}")
-    profile_batch(torch, pred, fp32["batch"], smi)
+    prof = profile_batch(torch, pred, fp32["batch"], smi)
+    k6 = [(ms, c) for name, ms, c in prof["rows"]
+          if "quant_matmul_kernel" in name]
+    k6_ms = sum(ms for ms, _ in k6)
+    print(f"[{smi}] int8 batch device busy {prof['busy']:.6f} ms: K6 "
+          f"{k6_ms:.6f} ms over {sum(c for _, c in k6)} launches, share "
+          f"{k6_ms / prof['busy']:.4f}")
+    run["busy_ms"], run["k6_ms"] = prof["busy"], k6_ms
     return run
 
 
@@ -1404,8 +1503,8 @@ def profile_batch(torch, pred, feed, smi):
         walls.append((time.perf_counter() - t0) * 1e3)
     print(f"batch of {len(next(iter(feed.values())))}: wall "
           f"{statistics.median(walls):.6f} ms unprofiled (median of 5)")
-    profile_run(torch, lambda: pred.run(feed), "one batch (Predictor.run)",
-                smi)
+    return profile_run(torch, lambda: pred.run(feed),
+                       "one batch (Predictor.run)", smi)
 
 
 def profile_run(torch, run, label, smi):
@@ -2378,7 +2477,8 @@ def paged_operands(torch, case, kind, rng):
     if lens is None:
         lens = rng.randint(3 * mb * bs // 4, mb * bs + 1, s_)
     table = rng.randint(1, n, (s_, mb)).astype(np.int32)
-    table[1, 0] = table[0, 0]
+    if s_ > 1:
+        table[1, 0] = table[0, 0]
     q = rng.randn(s_, h, d).astype(np.float32)
     k = rng.randn(n, bs, h, d).astype(np.float32)
     v = rng.randn(n, bs, h, d).astype(np.float32)
@@ -2435,10 +2535,11 @@ def paged_bound(q, k, lens, quant):
 def paged_kernel_phase(torch):
     """K4 (float32 and bf16 arenas) and K5 (int8 arenas with fp32 scale
     rows) against their plain versions on the same tensors, at
-    bench_kernels.py's decode shape and at ragged and odd ones (D 4, 8,
-    64, 100; blocks of 4 and 5; an empty slot, a 1-token slot, a block
-    shared by two slots): within PAGED_ATOL, empty slots exactly zero.
-    At the decode shape: kernel, plain and two-call yardstick times
+    bench_kernels.py's decode shape, the disaggregated path's own call
+    and at ragged and odd ones (D 4, 8, 64, 100 and 320, above 256;
+    blocks of 4 and 5; an empty slot, a 1-token slot, a block shared by
+    two slots): within PAGED_ATOL, empty slots exactly zero.  At the
+    shapes of PAGED_TIMED: kernel, plain and two-call yardstick times
     against the bound."""
     from paddle_tpu_torch.ops import paged_kernels as pk
     from paddle_tpu_torch.ops import quant_kernels as qk
@@ -2474,7 +2575,7 @@ def paged_kernel_phase(torch):
             row = {"max_abs_err": err, **paged_bound(q, k, lens,
                                                      kind == "int8")}
             times = ""
-            if case is PAGED_BENCH:
+            if case in PAGED_TIMED:
                 row.update(ms=time_ms(torch, fn), plain_ms=time_ms(
                     torch, plain), library_ms=time_ms(torch, paged_library(
                         torch, q, k, v, ks, vs, table, lens)))
@@ -3111,30 +3212,40 @@ def k3_library(torch, q, k, v, dout, causal, scale):
 
 
 def k3_kernel_phase(torch):
-    """K3 against its plain version at the ring's shard shapes, with
-    cotangents on out and on lse: out, lse, dq, dk, dv within TRAIN_ATOL;
-    forward and backward times beside the bound, the plain versions and
-    the library yardstick."""
+    """K3 against its plain version at the ring's shard shapes and, in
+    the kernels' wide arm, at head dim 320 (SP_WIDE), with cotangents on
+    out and on lse: out, lse, dq, dk, dv within TRAIN_ATOL, K3, K2a and
+    K2b each launched; forward and backward times beside the bound, the
+    plain versions and the library yardstick."""
     from paddle_tpu_torch.ops import attention_kernels as ak
 
     phase("K3 (flash_attention_with_lse) vs plain at the ring's shard "
           "shapes, with a nonzero lse cotangent")
     g = torch.Generator(device="cuda").manual_seed(SEED + 80)
-    b, h, t, d = SP_SHARD
-    scale = d ** -0.5
+    b, h, t, d0 = SP_SHARD
+    counters = (ak.flash_attention_with_lse, ak.flash_attention_bwd_dkv,
+                ak.flash_attention_bwd_dq)
     rows = {}
-    for name, tt, causal in ((f"shard_b{b}_h{h}_t{t}_d{d}", t, False),
-                             (f"shard_b{b}_h{h}_t{t}_d{d}_causal", t, True),
-                             (f"ragged_t{SP_RAGGED_T}_causal", SP_RAGGED_T,
-                              True)):
+    for name, tt, causal, d in (
+            (f"shard_b{b}_h{h}_t{t}_d{d0}", t, False, d0),
+            (f"shard_b{b}_h{h}_t{t}_d{d0}_causal", t, True, d0),
+            (f"ragged_t{SP_RAGGED_T}_causal", SP_RAGGED_T, True, d0),
+            (f"wide_t{SP_WIDE[0]}_d{SP_WIDE[1]}_causal", SP_WIDE[0], True,
+             SP_WIDE[1])):
+        scale = d ** -0.5
         q, k, v, dout = (torch.randn(b, h, tt, d, generator=g,
                                      device="cuda") for _ in range(4))
         dlse = torch.randn(b, h, tt, generator=g, device="cuda")
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        for c in counters:
+            c.launches = 0
         out, lse = ak.flash_attention_with_lse(*leaves, causal=causal,
                                                scale=scale)
         grads = torch.autograd.grad((out, lse), leaves, (dout, dlse),
                                     retain_graph=True)
+        if not all(c.launches for c in counters):
+            raise SystemExit(f"{name}: a kernel did not launch: "
+                             f"{[c.launches for c in counters]}")
         out_r, lse_r = ak.flash_attention_reference(
             q, k, v, None, causal, scale, return_lse=True)
         # the backward's plain version on the kernel's forward outputs
@@ -3204,7 +3315,7 @@ def k3_kernel_phase(torch):
         if tt == t:
             fwd64_check(torch, ak, name, (q, k, v, None, causal, scale, 0.0,
                                           0), out_d, lse_d)
-        if tt == t and lib is not None:
+        if tt == t and d == d0 and lib is not None:
             backward_vs_library(
                 torch, ak, f"ring shard {tuple(q.shape)} causal {causal}",
                 (q, k, v, None, causal, scale, 0.0, 0), dout, out_d, lse_d,

@@ -83,7 +83,8 @@
 //     D 64 fp32, so three CTAs (12 warps) share an SM and the ring shard's
 //     384 CTAs fit one wave; a causal K2a's grid starts with the longest K
 //     tiles and a causal K2b's with the longest Q tiles.
-//   * Head dims: every d <= 256, at the instantiated widths
+//   * Head dims above 256 run the wide arm (flash_attention_wide.cuh, at
+//     the end of this file); every d <= 256, at the instantiated widths
 //     (flash_attention_mma.cuh's HeadWidths: columns past d zero-filled on
 //     load and not written; the products run over all W columns: a
 //     runtime bound on them costs registers, and the W 64 kernels would
@@ -93,6 +94,7 @@
 //   * Two kernels, no atomics on dQ: dQ, dK and dV are deterministic.
 
 #include "flash_attention_mma.cuh"
+#include "flash_attention_wide.cuh"
 
 namespace {
 
@@ -543,6 +545,270 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// The wide arm: head dims above kMaxHeadDim (flash_attention_wide.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_NT = 256;  // 16 row pairs x 16 column lanes
+
+// The score-shaped products of a resident and a streamed tile over the
+// whole head dim: c1 = A1.B1^T and c2 = A2.B2^T for A rows 2rq, 2rq+1 and
+// B rows cq, cq+16, from 32-column chunks staged in A1c, A2c, B1c, B2c.
+template <typename T>
+__device__ __forceinline__ void wide_products(
+    const T* __restrict__ a1, const T* __restrict__ a2, int ra, int na,
+    const T* __restrict__ b1, const T* __restrict__ b2, int rb, int nb,
+    int dp, float* A1c, float* A2c, float* B1c, float* B2c, int rq, int cq,
+    float (&c1)[2][2], float (&c2)[2][2]) {
+  using namespace wide;
+  for (int cc = 0; cc < dp; cc += CH) {
+    __syncthreads();  // the last chunk's (and pass's) readers are done
+    chunk<WIDE_NT>(A1c, a1, ra, na, cc, dp);
+    chunk<WIDE_NT>(A2c, a2, ra, na, cc, dp);
+    chunk<WIDE_NT>(B1c, b1, rb, nb, cc, dp);
+    chunk<WIDE_NT>(B2c, b2, rb, nb, cc, dp);
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < CH; ++kk) {
+      float x1[2], x2[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        x1[i] = A1c[(2 * rq + i) * CLD + kk];
+        x2[i] = A2c[(2 * rq + i) * CLD + kk];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float y1 = B1c[(cq + 16 * j) * CLD + kk];
+        const float y2 = B2c[(cq + 16 * j) * CLD + kk];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          c1[i][j] = fmaf(x1[i], y1, c1[i][j]);
+          c2[i][j] = fmaf(x2[i], y2, c2[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// K2a's wide arm: one CTA per (b*h, 32 K rows, column group).  Per 32-row
+// Q tile: S^T = K.Q^T and dP^T = V.dO^T over the whole head dim, P^T and
+// dS^T (thread (rq, cq): K rows 2rq, 2rq+1 at q columns cq, cq+16) into
+// shared memory, then dV += drop(P)^T.dO and dK += dS^T.Q over the
+// group's columns, chunk by chunk (thread (rq, cq): rows 2rq, 2rq+1 at
+// columns 2cq, 2cq+1 of each chunk).
+template <typename T>
+__global__ void __launch_bounds__(WIDE_NT)
+wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, Bias bias,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk,
+                T* __restrict__ dv, int H, int Tq, int Tk, int dp,
+                float scale, int causal, Dropout drop) {
+  using namespace wide;
+  __shared__ float Kc[ROWS * CLD], Vc[ROWS * CLD], Qc[ROWS * CLD],
+      Oc[ROWS * CLD], Pt[ROWS * CLD], St[ROWS * CLD], ls_s[ROWS],
+      dl_s[ROWS];
+  const int tid = threadIdx.x;
+  const int rq = tid >> 4, cq = tid & 15;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.y * ROWS, c0 = blockIdx.z * GC;
+  const T* qb = q + (size_t)bh * Tq * dp;
+  const T* dob = dout + (size_t)bh * Tq * dp;
+  const size_t kv_base = (size_t)bh * Tk * dp;
+  const float* brow = bias.ptr ? bias.ptr + b * bias.sb + h * bias.sh
+                               : nullptr;
+  float dk_acc[NG][2][2] = {}, dv_acc[NG][2][2] = {};
+
+  // causal: q tiles wholly above this K tile's first key see none of it
+  const int nt = (Tq + ROWS - 1) / ROWS;
+  for (int tile = causal ? k0 / ROWS : 0; tile < nt; ++tile) {
+    const int q0 = tile * ROWS;
+    __syncthreads();  // the last tile's readers of ls_s, dl_s are done
+    if (tid < ROWS)
+      ls_s[tid] = q0 + tid < Tq ? lse[(size_t)bh * Tq + q0 + tid] : -INFINITY;
+    else if (tid < 2 * ROWS)
+      dl_s[tid - ROWS] =
+          q0 + tid - ROWS < Tq ? delta[(size_t)bh * Tq + q0 + tid - ROWS] : 0.f;
+    float s[2][2] = {}, dpv[2][2] = {};
+    wide_products(k + kv_base, v + kv_base, k0, Tk, qb, dob, q0, Tq, dp, Kc,
+                  Vc, Qc, Oc, rq, cq, s, dpv);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qc = cq + 16 * j, kr = 2 * rq + i;
+        const int qi = q0 + qc, kj = k0 + kr;
+        const bool valid = (qi < Tq) & (kj < Tk) & !(causal & (kj > qi));
+        const float x = s[i][j] * scale + bias_at(brow, bias, qi, kj, Tq, Tk);
+        const float p = valid ? exp_lse(x, ls_s[qc]) : 0.f;
+        float pd = p, dpd = dpv[i][j];
+        if (drop.on) {
+          const bool kp = drop.keep(kj, qi, bh);
+          pd = kp ? p * drop.inv_keep : 0.f;
+          dpd = kp ? dpd * drop.inv_keep : 0.f;
+        }
+        Pt[kr * CLD + qc] = pd;
+        St[kr * CLD + qc] = p * (dpd - dl_s[qc]);
+      }
+    // dV += drop(P)^T dO and dK += dS^T Q over the group's columns
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int cc = c0 + g * CH;
+      if (cc >= dp) break;
+      __syncthreads();  // Pt, St written; the last chunk's readers done
+      chunk<WIDE_NT>(Qc, qb, q0, Tq, cc, dp);
+      chunk<WIDE_NT>(Oc, dob, q0, Tq, cc, dp);
+      __syncthreads();
+#pragma unroll 8
+      for (int qq = 0; qq < ROWS; ++qq) {
+        float pr[2], sr[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          pr[i] = Pt[(2 * rq + i) * CLD + qq];
+          sr[i] = St[(2 * rq + i) * CLD + qq];
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float o = Oc[qq * CLD + 2 * cq + e];
+          const float x = Qc[qq * CLD + 2 * cq + e];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            dv_acc[g][i][e] = fmaf(pr[i], o, dv_acc[g][i][e]);
+            dk_acc[g][i][e] = fmaf(sr[i], x, dk_acc[g][i][e]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = k0 + 2 * rq + i;
+    if (kj >= Tk) continue;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + g * CH + 2 * cq + e;
+        if (c < dp) {
+          store(dk + kv_base + (size_t)kj * dp + c, dk_acc[g][i][e] * scale);
+          store(dv + kv_base + (size_t)kj * dp + c, dv_acc[g][i][e]);
+        }
+      }
+  }
+}
+
+// K2b's wide arm: one CTA per (b*h, 32 Q rows, column group).  Per 32-row
+// K tile: S = Q.K^T and dP = dO.V^T over the whole head dim, dS (thread
+// (rq, cq): q rows 2rq, 2rq+1 at keys cq, cq+16) into shared memory and,
+// in group 0, into dBias; then dQ += dS.K over the group's columns.
+template <typename T>
+__global__ void __launch_bounds__(WIDE_NT)
+wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, Bias bias,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dq,
+               float* __restrict__ dbias, int dbias_mode, int H, int Tq,
+               int Tk, int dp, float scale, int causal, Dropout drop) {
+  using namespace wide;
+  __shared__ float Qc[ROWS * CLD], Oc[ROWS * CLD], Kc[ROWS * CLD],
+      Vc[ROWS * CLD], Ss[ROWS * CLD];
+  const int tid = threadIdx.x;
+  const int rq = tid >> 4, cq = tid & 15;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.y * ROWS, c0 = blockIdx.z * GC;
+  const size_t q_base = (size_t)bh * Tq * dp;
+  const T* kb = k + (size_t)bh * Tk * dp;
+  const T* vb = v + (size_t)bh * Tk * dp;
+  const float* brow = bias.ptr ? bias.ptr + b * bias.sb + h * bias.sh
+                               : nullptr;
+  float ls[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + 2 * rq + i;
+    ls[i] = qi < Tq ? lse[(size_t)bh * Tq + qi] : -INFINITY;
+    dl[i] = qi < Tq ? delta[(size_t)bh * Tq + qi] : 0.f;
+  }
+  float dq_acc[NG][2][2] = {};
+
+  int nt = (Tk + ROWS - 1) / ROWS;
+  if (causal) nt = min(nt, (q0 + ROWS - 1) / ROWS + 1);
+  for (int tile = 0; tile < nt; ++tile) {
+    const int k0 = tile * ROWS;
+    float s[2][2] = {}, dpv[2][2] = {};
+    wide_products(q + q_base, dout + q_base, q0, Tq, kb, vb, k0, Tk, dp, Qc,
+                  Oc, Kc, Vc, rq, cq, s, dpv);
+    float ds[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qi = q0 + 2 * rq + i, kj = k0 + cq + 16 * j;
+        const bool valid = (qi < Tq) & (kj < Tk) & !(causal & (kj > qi));
+        const float x = s[i][j] * scale + bias_at(brow, bias, qi, kj, Tq, Tk);
+        const float p = valid ? exp_lse(x, ls[i]) : 0.f;
+        float dpd = dpv[i][j];
+        if (drop.on)
+          dpd = drop.keep(kj, qi, bh) ? dpd * drop.inv_keep : 0.f;
+        ds[i][j] = p * (dpd - dl[i]);
+        Ss[(2 * rq + i) * CLD + cq + 16 * j] = ds[i][j];
+      }
+    if (c0 == 0 && dbias_mode == 2) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qi = q0 + 2 * rq + i, kj = k0 + cq + 16 * j;
+          if (qi < Tq && kj < Tk)
+            dbias[((size_t)bh * Tq + qi) * Tk + kj] = ds[i][j];
+        }
+    } else if (c0 == 0 && dbias_mode == 1) {
+      // the row bias's grad, summed over q rows (and heads) by atomics
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kj = k0 + cq + 16 * j;
+        if (kj < Tk) atomicAdd(dbias + (size_t)b * Tk + kj, ds[0][j] + ds[1][j]);
+      }
+    }
+    // dQ += dS K over the group's columns
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int cc = c0 + g * CH;
+      if (cc >= dp) break;
+      __syncthreads();  // Ss written; the last chunk's readers done
+      chunk<WIDE_NT>(Kc, kb, k0, Tk, cc, dp);
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < ROWS; ++kk) {
+        const float d0 = Ss[(2 * rq) * CLD + kk];
+        const float d1 = Ss[(2 * rq + 1) * CLD + kk];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float kv = Kc[kk * CLD + 2 * cq + e];
+          dq_acc[g][0][e] = fmaf(d0, kv, dq_acc[g][0][e]);
+          dq_acc[g][1][e] = fmaf(d1, kv, dq_acc[g][1][e]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + 2 * rq + i;
+    if (qi >= Tq) continue;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + g * CH + 2 * cq + e;
+        if (c < dp)
+          store(dq + q_base + (size_t)qi * dp + c, dq_acc[g][i][e] * scale);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -594,9 +860,30 @@ cudaError_t launch_dq(const Args& a, void* dq, float* dbias, int mode,
   return cudaGetLastError();
 }
 
-// The kernels at the smallest instantiated width >= d.
+// The wide arm's grid: (b*h, 32-row tiles of `rows`, column groups).
+cudaError_t wide_grid(const Args& a, int rows, dim3* grid) {
+  const int tiles = (rows + wide::ROWS - 1) / wide::ROWS;
+  const int groups = wide::groups(a.d);
+  if (tiles > 65535 || groups > 65535) return cudaErrorInvalidValue;
+  *grid = dim3(a.B * a.H, tiles, groups);
+  return cudaSuccess;
+}
+
+// The kernels at the smallest instantiated width >= d, or the wide arm
+// above kMaxHeadDim.
 template <typename T>
 cudaError_t dispatch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
+  if (a.d > kMaxHeadDim) {
+    dim3 grid;
+    const cudaError_t err = wide_grid(a, a.Tk, &grid);
+    if (err != cudaSuccess) return err;
+    wide_dkv_kernel<T><<<grid, WIDE_NT, 0, st>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.bias, static_cast<const T*>(a.dout),
+        a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.H, a.Tq,
+        a.Tk, a.d, a.scale, a.causal, a.drop);
+    return cudaGetLastError();
+  }
   return with_width(a.d, [&](auto w) {
     return launch_dkv<decltype(w)::value, T>(a, dk, dv, st);
   });
@@ -605,6 +892,17 @@ cudaError_t dispatch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
 template <typename T>
 cudaError_t dispatch_dq(const Args& a, void* dq, float* dbias, int mode,
                         cudaStream_t st) {
+  if (a.d > kMaxHeadDim) {
+    dim3 grid;
+    const cudaError_t err = wide_grid(a, a.Tq, &grid);
+    if (err != cudaSuccess) return err;
+    wide_dq_kernel<T><<<grid, WIDE_NT, 0, st>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.bias, static_cast<const T*>(a.dout),
+        a.lse, a.delta, static_cast<T*>(dq), dbias, mode, a.H, a.Tq, a.Tk,
+        a.d, a.scale, a.causal, a.drop);
+    return cudaGetLastError();
+  }
   return with_width(a.d, [&](auto w) {
     return launch_dq<decltype(w)::value, T>(a, dq, dbias, mode, st);
   });
@@ -628,8 +926,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
 
 }  // namespace
 
-// Both entry points: dtype 0 = float32, 1 = bfloat16; D, the head dim, at
-// most 256 and a multiple of 4 (fp32) or 8 (bf16); bias may be null; lse
+// Both entry points: dtype 0 = float32, 1 = bfloat16; D, the head dim, a
+// multiple of 4 (fp32) or 8 (bf16), above 256 in the wide arm; bias may be
+// null; lse
 // and delta are [B*H, Tq] fp32; q, k, v, dout and the gradients are
 // 16-byte aligned (cp.async copies 16 bytes).  Return a cudaError_t (0 on
 // success); the launch is asynchronous on `stream`.

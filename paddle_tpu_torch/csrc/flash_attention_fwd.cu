@@ -9,8 +9,9 @@
 //     out = softmax(q . k^T * scale + bias [+ causal mask]) . v
 //
 // over q [B,H,Tq,d], k and v [B,H,Tk,d] (dense, fp32 or bf16, any head
-// dim d <= 256; see flash_attention_mma.cuh for how d maps onto the
-// instantiated widths), with the running max, the denominator and the
+// dim; see flash_attention_mma.cuh for how d <= 256 maps onto the
+// instantiated widths, and flash_attention_wide.cuh for the arm that
+// takes d > 256), with the running max, the denominator and the
 // accumulator in fp32 registers (an online softmax over K/V tiles), and
 // writes out [B,H,Tq,d] in the input dtype and, when asked (the training
 // forward, K3), the per-row log-sum-exp lse [B*H,Tq] in fp32 that the
@@ -79,6 +80,7 @@
 //     is free of bank conflicts.
 
 #include "flash_attention_mma.cuh"
+#include "flash_attention_wide.cuh"
 
 namespace {
 
@@ -433,14 +435,184 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, Bias bias,
   });
 }
 
+// ---------------------------------------------------------------------------
+// The wide arm: head dims above kMaxHeadDim (flash_attention_wide.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_NT = 128;  // 16 row pairs x 8 key (and column) lanes
+
+// One CTA per (b*h, 32 query rows, column group).  Thread (rq, cq) holds
+// S rows 2rq, 2rq+1 at keys cq + 8j (j < 4) and the output rows 2rq, 2rq+1
+// at the group's columns 4cq + 32jj + e (jj < 8, e < 4).  Per K/V tile: S
+// over the whole head dim from 32-column chunks of Q and K, the online
+// softmax (row max over the 8 lanes of a row, sums per thread until the
+// end), P (dropped) into shared memory beside V's rows of the group's
+// columns, then acc += P.V.
+template <typename T>
+__global__ void __launch_bounds__(WIDE_NT)
+wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, Bias bias, T* __restrict__ out,
+                float* __restrict__ lse, int H, int Tq, int Tk, int dp,
+                float scale, int causal, Dropout drop) {
+  using namespace wide;
+  constexpr int NT = WIDE_NT, NJ = 4, NA = GC / 8;
+  __shared__ float Qc[ROWS * CLD], Kc[ROWS * CLD], Ps[ROWS * CLD];
+  __shared__ __align__(16) float Vs[ROWS * GC];
+
+  const int tid = threadIdx.x;
+  const int rq = tid >> 3, cq = tid & 7;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.y * ROWS, c0 = blockIdx.z * GC;
+  const size_t q_base = (size_t)bh * Tq * dp;
+  const T* kb = k + (size_t)bh * Tk * dp;
+  const T* vb = v + (size_t)bh * Tk * dp;
+  const float* brow = bias.ptr ? bias.ptr + b * bias.sb + h * bias.sh
+                               : nullptr;
+
+  int nt = (Tk + ROWS - 1) / ROWS;
+  if (causal) nt = min(nt, (q0 + ROWS - 1) / ROWS + 1);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[2][NA];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int a = 0; a < NA; ++a) acc[i][a] = 0.f;
+
+  for (int tile = 0; tile < nt; ++tile) {
+    const int k0 = tile * ROWS;
+    float s[2][NJ] = {};
+    for (int cc = 0; cc < dp; cc += CH) {
+      __syncthreads();  // the last chunk's (and tile's) readers are done
+      chunk<NT>(Qc, q + q_base, q0, Tq, cc, dp);
+      chunk<NT>(Kc, kb, k0, Tk, cc, dp);
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < CH; ++kk) {
+        const float a0 = Qc[(2 * rq) * CLD + kk];
+        const float a1 = Qc[(2 * rq + 1) * CLD + kk];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float kv = Kc[(cq + 8 * j) * CLD + kk];
+          s[0][j] = fmaf(a0, kv, s[0][j]);
+          s[1][j] = fmaf(a1, kv, s[1][j]);
+        }
+      }
+    }
+    // V's rows of this tile at the group's columns
+#pragma unroll 4
+    for (int i = tid; i < ROWS * GC; i += NT) {
+      const int r = i / GC, c = i % GC;
+      const bool in = (k0 + r < Tk) & (c0 + c < dp);
+      Vs[i] = in ? to_float(vb[(size_t)(k0 + r) * dp + c0 + c]) : 0.f;
+    }
+    // scale, bias, masks, the online softmax; P (dropped) into Ps
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + 2 * rq + i;
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int kj = k0 + cq + 8 * j;
+        const bool valid = (kj < Tk) & !(causal & (kj > qi));
+        const float x = s[i][j] * scale + bias_at(brow, bias, qi, kj, Tq, Tk);
+        s[i][j] = valid ? x : -INFINITY;
+        mt = fmaxf(mt, s[i][j]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      const float mn = fmaxf(m[i], mt);
+      // a row with every score so far at -inf keeps p = 0 and corr = 0
+      const float ms = mn == -INFINITY ? 0.f : mn;
+      corr[i] = expf(m[i] - ms);
+      m[i] = mn;
+      float ls = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float p = expf(s[i][j] - ms);
+        ls += p;  // the denominator sums the undropped weights
+        if (drop.on)
+          p = drop.keep(k0 + cq + 8 * j, qi, bh) ? p * drop.inv_keep : 0.f;
+        Ps[(2 * rq + i) * CLD + cq + 8 * j] = p;
+      }
+      l[i] = l[i] * corr[i] + ls;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int a = 0; a < NA; ++a) acc[i][a] *= corr[i];
+    __syncthreads();
+    // acc += P V over the tile's keys
+#pragma unroll 4
+    for (int kj = 0; kj < ROWS; ++kj) {
+      const float p0 = Ps[(2 * rq) * CLD + kj];
+      const float p1 = Ps[(2 * rq + 1) * CLD + kj];
+#pragma unroll
+      for (int jj = 0; jj < NA / 4; ++jj) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(&Vs[kj * GC + 4 * cq + 32 * jj]);
+        const float e[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[0][4 * jj + c] = fmaf(p0, e[c], acc[0][4 * jj + c]);
+          acc[1][4 * jj + c] = fmaf(p1, e[c], acc[1][4 * jj + c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + 2 * rq + i;
+    if (qi >= Tq) continue;
+    const float lc = fmaxf(l[i], 1e-20f);
+    const float inv = 1.f / lc;
+    T* o = out + q_base + (size_t)qi * dp;
+#pragma unroll
+    for (int jj = 0; jj < NA / 4; ++jj)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = c0 + 4 * cq + 32 * jj + c;
+        if (col < dp) store(o + col, acc[i][4 * jj + c] * inv);
+      }
+    if (lse != nullptr && blockIdx.z == 0 && cq == 0)
+      lse[(size_t)bh * Tq + qi] =
+          m[i] == -INFINITY ? -INFINITY : m[i] + logf(lc);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        Bias bias, void* out, float* lse, int B, int H,
+                        int Tq, int Tk, int d, float scale, int causal,
+                        Dropout drop, cudaStream_t stream) {
+  const int q_tiles = (Tq + wide::ROWS - 1) / wide::ROWS;
+  const int groups = wide::groups(d);
+  if (q_tiles > 65535 || groups > 65535) return cudaErrorInvalidValue;
+  wide_fwd_kernel<T><<<dim3(B * H, q_tiles, groups), WIDE_NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), bias, static_cast<T*>(out), lse, H, Tq, Tk,
+      d, scale, causal, drop);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D, the head dim, at most 256 and a
-// multiple of 4 (fp32) or 8 (bf16); q, k, v and out 16-byte aligned
+// dtype: 0 = float32, 1 = bfloat16; D, the head dim, a multiple of 4
+// (fp32) or 8 (bf16): at most 256 runs the HeadWidths kernels, above 256
+// the wide arm; q, k, v and out 16-byte aligned
 // (cp.async copies 16 bytes).  bias and lse may be null.  The dropout arm
 // is on when `dropout` is non-zero: keep when Philox word 0 < threshold,
 // kept weights times inv_keep.  Returns a cudaError_t (0 on success); the
@@ -460,6 +632,12 @@ extern "C" int flash_attention_fwd(
   const Dropout dr{dropout, threshold, key0, key1, inv_keep};
   float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > kMaxHeadDim)
+    return dtype == 0 ? launch_wide<float>(q, k, v, bb, out, lp, B, H, Tq, Tk,
+                                           D, scale, causal, dr, st)
+                      : launch_wide<__nv_bfloat16>(q, k, v, bb, out, lp, B,
+                                                   H, Tq, Tk, D, scale,
+                                                   causal, dr, st);
   if (dtype == 0)
     return dispatch<float>(q, k, v, bb, out, lp, B, H, Tq, Tk, D, scale,
                            causal, dr, st);

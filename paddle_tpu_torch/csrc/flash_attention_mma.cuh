@@ -12,7 +12,8 @@
 // columns, which are not written (the forward also skips products over
 // whole 8- or 16-column blocks past d).  d must be a multiple of
 // the 16-byte chunk (4 fp32, 8 bf16 values): the wrapper pads other head
-// dims with zero columns.
+// dims with zero columns.  Head dims above kMaxHeadDim run in the wide arm
+// (flash_attention_wide.cuh), which the C entries dispatch to instead.
 #pragma once
 
 #include <type_traits>
@@ -274,8 +275,10 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// What the C entries take: any d >= 1 that is a whole 16-byte chunk (the
+// HeadWidths kernels up to kMaxHeadDim, the wide arm above it).
 __host__ __device__ constexpr bool head_dim_ok(int d, int elem_bytes) {
-  return d > 0 && d <= kMaxHeadDim && d % (16 / elem_bytes) == 0;
+  return d > 0 && d % (16 / elem_bytes) == 0;
 }
 
 }  // namespace flash

@@ -28,7 +28,10 @@
 // keeps its own online softmax: running max m, denominator l and the
 // accumulator, with q (pre-scaled) and the accumulator in registers, lane
 // i holding elements i, i + 32, ... of the head dimension (D <= 256, so at
-// most 8 a lane).  A token's score is one dot product per lane and a
+// most 8 a lane).  Above D 256 a second grid axis splits the head dim into
+// column groups of 256: each CTA forms every token's full-D score (q read
+// from global memory, where it stays in L1) and accumulates only its
+// group's columns (paged_attention_wide_kernel).  A token's score is one dot product per lane and a
 // 5-step shuffle reduction; its K and V rows are read by the warp as
 // coalesced strided loads.  In the int8 arm each element is multiplied by
 // its token's fp32 scale in registers as it is loaded: no dequantized copy
@@ -175,6 +178,106 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// Head dims above MAX_D: CTA (slot * H + head, group) forms each token's
+// score over the whole head dim and accumulates the group's MAX_D columns
+// c0 .. c0 + MAX_D - 1; otherwise the loop of paged_attention_kernel.
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(THREADS)
+    paged_attention_wide_kernel(const TQ* __restrict__ q,
+                                const TKV* __restrict__ k_arena,
+                                const TKV* __restrict__ v_arena,
+                                const float* __restrict__ k_scale,
+                                const float* __restrict__ v_scale,
+                                const int* __restrict__ table,
+                                const int* __restrict__ lengths,
+                                TQ* __restrict__ out, int H, int D, int Bs,
+                                int MB, int N, float scale) {
+  constexpr int NPER = MAX_D / 32;
+  __shared__ float sh_acc[WARPS][MAX_D];
+  __shared__ float sh_m[WARPS];
+  __shared__ float sh_l[WARPS];
+
+  const long long row = blockIdx.x;  // s * H + h
+  const int s = static_cast<int>(row / H);
+  const int h = static_cast<int>(row % H);
+  const int c0 = blockIdx.y * MAX_D;
+  const int ncols = min(MAX_D, D - c0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int len = min(max(lengths[s], 0), MB * Bs);
+  const TQ* qrow = q + row * D;
+
+  float acc[NPER];
+#pragma unroll
+  for (int i = 0; i < NPER; ++i) acc[i] = 0.f;
+  float m = -CUDART_INF_F, l = 0.f;
+
+  const long long tok = static_cast<long long>(H) * D;  // position stride
+  const int nblk = (len + Bs - 1) / Bs;
+  for (int b = warp; b < nblk; b += WARPS) {
+    const int blk = table[static_cast<long long>(s) * MB + b];
+    if (blk < 0 || blk >= N) continue;
+    const int fill = min(Bs, len - b * Bs);
+    const long long first = static_cast<long long>(blk) * Bs;
+    for (int p = 0; p < fill; ++p) {
+      const long long off = (first + p) * tok + static_cast<long long>(h) * D;
+      float ks = 1.f, vs = 1.f;
+      if (k_scale != nullptr) {
+        ks = k_scale[first + p];
+        vs = v_scale[first + p];
+      }
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32) {
+        float kk = to_f(k_arena[off + d]);
+        if (k_scale != nullptr) kk *= ks;
+        dot += to_f(qrow[d]) * scale * kk;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(FULL, dot, o);
+      const float m_new = fmaxf(m, dot);
+      const float corr = expf(m - m_new);  // 0 while m is -inf
+      const float pr = expf(dot - m_new);
+      l = l * corr + pr;
+#pragma unroll
+      for (int i = 0; i < NPER; ++i) {
+        const int c = lane + 32 * i;
+        float vv = 0.f;
+        if (c < ncols) {
+          vv = to_f(v_arena[off + c0 + c]);
+          if (v_scale != nullptr) vv *= vs;
+        }
+        acc[i] = acc[i] * corr + pr * vv;
+      }
+      m = m_new;
+    }
+  }
+
+  // merge the four warps' online-softmax states
+  if (lane == 0) {
+    sh_m[warp] = m;
+    sh_l[warp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < NPER; ++i) sh_acc[warp][lane + 32 * i] = acc[i];
+  __syncthreads();
+  float mx = -CUDART_INF_F;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sh_m[w]);
+  float wt[WARPS], denom = 0.f;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    wt[w] = sh_m[w] == -CUDART_INF_F ? 0.f : expf(sh_m[w] - mx);
+    denom += sh_l[w] * wt[w];
+  }
+  denom = fmaxf(denom, 1e-20f);
+  for (int c = threadIdx.x; c < ncols; c += THREADS) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) a += sh_acc[w][c] * wt[w];
+    store(out + row * D + c0 + c, a / denom);
+  }
+}
+
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* table, const void* lengths,
@@ -190,7 +293,13 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   const auto* len = static_cast<const int*>(lengths);
   auto* o = static_cast<TQ*>(out);
   const int nper = (D + 31) / 32;
-  if (nper <= 1)
+  if (D > MAX_D) {
+    const int groups = (D + MAX_D - 1) / MAX_D;
+    if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    paged_attention_wide_kernel<TQ, TKV>
+        <<<dim3(grid.x, groups), THREADS, 0, stream>>>(
+            qq, kk, vv, kss, vss, tab, len, o, H, D, Bs, MB, N, scale);
+  } else if (nper <= 1)
     paged_attention_kernel<TQ, TKV, 1><<<grid, THREADS, 0, stream>>>(
         qq, kk, vv, kss, vss, tab, len, o, H, D, Bs, MB, N, scale);
   else if (nper <= 2)
@@ -234,7 +343,7 @@ extern "C" int paged_attention_fwd(const void* q, int q_dtype, const void* k,
                                    const void* table, const void* lengths,
                                    void* out, int S, int H, int D, int Bs,
                                    int MB, int N, float scale, void* stream) {
-  if (S <= 0 || H <= 0 || D <= 0 || D > MAX_D || Bs <= 0 || MB <= 0 ||
+  if (S <= 0 || H <= 0 || D <= 0 || Bs <= 0 || MB <= 0 ||
       N <= 0 || q_dtype < 0 || q_dtype > 1 || kv_dtype < 0 || kv_dtype > 2 ||
       !q || !k || !v || !table || !lengths || !out ||
       (kv_dtype == 2) != (k_scale != nullptr) ||

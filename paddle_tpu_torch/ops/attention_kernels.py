@@ -18,9 +18,12 @@ K1 for the per-row lse and its backward launches K2a (dK, dV) and K2b
 (dQ, and dBias when the bias needs a grad).  Each wrapper launches its
 hand-written CUDA kernel on a CUDA tensor and takes its plain PyTorch
 version only for a CPU tensor; on a CUDA tensor it launches or raises,
-with no fallback.  The kernels take every head dim from 1 to 256 in
-float32 and bfloat16 (:func:`padded_head_dim`, :func:`kernel_widths`);
-above 256 the wrappers raise.  ``flash_attention.launches``,
+with no fallback.  The kernels take every head dim in float32 and
+bfloat16, as the reference does (:func:`padded_head_dim`): up to 256 on
+the tensor cores at the widths of :func:`kernel_widths`, above it in a
+wide arm that splits the output columns into groups of 256 over a grid
+axis (every group forms the scores over the whole head dim).
+``flash_attention.launches``,
 ``flash_attention_bwd_dkv.launches`` and ``flash_attention_bwd_dq.
 launches`` count the kernels' launches; ``flash_attention_with_lse.
 launches`` counts the forward launches made for K3.
@@ -44,7 +47,6 @@ from . import cuda_build
 from .registry import keep_threshold, philox4x32, seed_key
 
 _FWD, _BWD = "flash_attention_fwd", "flash_attention_bwd"
-HEAD_DIM_MAX = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CHUNK = {torch.float32: 4, torch.bfloat16: 8}  # values in 16 bytes
 _libs = {}
@@ -201,19 +203,20 @@ _SIGNATURES = {
 def padded_head_dim(d, dtype=torch.float32):
     """The head dim the kernels run head dim `d` of `dtype` (float32 or
     bfloat16) at: `d` padded with zero columns to a whole 16-byte chunk
-    (4 float32 or 8 bfloat16 values, what cp.async copies).  Raises
-    ValueError outside 1 to HEAD_DIM_MAX."""
-    if not 1 <= d <= HEAD_DIM_MAX:
-        raise ValueError(f"flash_attention kernels take head dims 1 to "
-                         f"{HEAD_DIM_MAX}, not {d}")
+    (4 float32 or 8 bfloat16 values, what cp.async copies).  Every d >= 1
+    runs; raises ValueError below 1."""
+    if d < 1:
+        raise ValueError(f"flash_attention kernels take head dims of 1 and "
+                         f"more, not {d}")
     chunk = _CHUNK[dtype]
     return -(-d // chunk) * chunk
 
 
 def kernel_widths():
-    """The head widths the kernels are instantiated at, narrowest first:
-    ``HeadWidths`` of ``csrc/flash_attention_mma.cuh``, whose
-    ``with_width`` runs a head dim at the smallest width that holds it."""
+    """The head widths the tensor-core kernels are instantiated at,
+    narrowest first: ``HeadWidths`` of ``csrc/flash_attention_mma.cuh``,
+    whose ``with_width`` runs a head dim at the smallest width that holds
+    it.  A head dim above the widest runs in the wide arm."""
     with open(os.path.join(cuda_build.CSRC, "flash_attention_mma.cuh")) as f:
         m = re.search(r"using HeadWidths = Widths<([\d,\s]+)>;", f.read())
     return tuple(int(w) for w in m.group(1).split(","))

@@ -10,7 +10,9 @@ paged_attention_quant``), as the reference's one flash loop served both.
   query per slot ``q [S, H, D]`` over ``[N, Bs, H, D]`` arenas (a
   ``KVBlockPool``'s value planes) gathered through an ``[S, MB]`` block
   table, ``lengths [S]`` valid tokens per slot (0: the slot's row is
-  zeros).  On a CUDA ``q`` it launches the kernel (counted in
+  zeros), at every head dim D (above 256 the kernel splits the head dim
+  into column groups over a second grid axis).  On a CUDA ``q`` it
+  launches the kernel (counted in
   ``paged_attention.launches``) or raises; on a CPU ``q`` it runs the
   plain version :func:`paged_attention_reference`.  Numpy operands (the
   pool keeps its arenas, table and lengths on the host) move to q's
@@ -32,7 +34,6 @@ from . import cuda_build
 _SOURCE = "paged_attention"
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-MAX_HEAD_DIM = 256
 _libs = {}
 
 
@@ -128,9 +129,6 @@ def launch(q, k, v, table, lens, scale, k_scale=None, v_scale=None):
     if (k.dtype == torch.int8) != (k_scale is not None):
         raise TypeError("paged attention kernel: int8 arenas take scale "
                         "planes, float arenas none")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"paged attention kernel takes D <= "
-                         f"{MAX_HEAD_DIM}, not {d}")
     if n == 0 or mb == 0:
         raise ValueError("paged attention kernel: empty arena or table")
     ops = [t.contiguous() for t in (q, k, v, table, lens)]

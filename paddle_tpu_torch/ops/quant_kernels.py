@@ -13,6 +13,14 @@ for Hopper.
   the plain version :func:`int8_matmul_reference`.  Every shape runs: the
   TPU arm's m % 32 / k % 128 / n % 128 fallback (:158-159) and its
   measured kernel selection are not ported, by design.
+- The kernel reads the weight K-major (8-bit ``wgmma`` takes no
+  transposed operand): :func:`k_major` lays a [K, N] weight out as a
+  zero-padded K-major ``[N, Kp]`` buffer (Kp = K rounded up to 16 bytes,
+  TMA's row-stride unit) and returns its [K, N] view, which holds the same
+  values; ``passes/quantize.apply_to_scope`` stores every rank-2 weight
+  so, once at load, and :func:`int8_matmul` takes that view as it stands
+  (:func:`is_k_major`).  Any other weight (tests, a caller's own) is laid
+  out by the wrapper on every call.
 - :func:`quant_matmul` ``(x, wq, wscale)`` is the reference's: a dynamic
   per-tensor activation scale and int8 codes computed with torch ops
   around the kernel (as XLA ops surround the Pallas call), then K6.
@@ -56,6 +64,52 @@ def int8_matmul_reference(xq, wq, colscale):
     return (xq.double() @ wq.double()).float() * colscale
 
 
+_ROW_ALIGN = 16     # bytes: TMA's row-stride and base-address unit
+
+
+def _padded_k(k):
+    return -(-max(k, 1) // _ROW_ALIGN) * _ROW_ALIGN
+
+
+def k_major(wq):
+    """A [K, N] weight as the kernel reads it: a K-major ``[N, Kp]``
+    buffer (Kp = K rounded up to 16, the pad zeros) holding ``wq``'s
+    values, returned as its ``[K, N]`` view (strides ``(1, Kp)``)."""
+    k, n = wq.shape
+    buf = torch.zeros((n, _padded_k(k)), dtype=wq.dtype, device=wq.device)
+    buf[:, :k] = wq.t()
+    return buf[:, :k].t()
+
+
+def is_k_major(wq):
+    """Whether a [K, N] weight is laid out as :func:`k_major` lays it out
+    (K contiguous, a row stride of whole 16 bytes, a 16-byte aligned
+    base): the kernel then reads it where it lies."""
+    return wq.stride(0) == 1 and wq.stride(1) >= wq.shape[0] \
+        and wq.stride(1) % _ROW_ALIGN == 0 \
+        and wq.data_ptr() % _ROW_ALIGN == 0
+
+
+def _padded_rows(m, k, device):
+    """An int8 [m, k] view of [m, Kp] rows (Kp = k rounded up to 16): the
+    rows TMA reads.  The pad is never read (the kernel's tensor map ends
+    at k and fills zeros past it), so it is left unwritten."""
+    return torch.empty((m, _padded_k(k)), dtype=torch.int8,
+                       device=device)[:, :k]
+
+
+def _rows_aligned(xq):
+    """xq [M, K] as TMA reads it: K contiguous, a row stride of whole 16
+    bytes, a 16-byte aligned base; copied into such rows when it is not
+    (quantize_activation writes its codes so)."""
+    m, k = xq.shape
+    if xq.stride(1) == 1 and xq.stride(0) >= k \
+            and xq.stride(0) % _ROW_ALIGN == 0 \
+            and xq.data_ptr() % _ROW_ALIGN == 0:
+        return xq
+    return _padded_rows(m, k, xq.device).copy_(xq)
+
+
 def _kernel():
     """(entry point, error-string function), built and loaded at first
     use."""
@@ -63,8 +117,10 @@ def _kernel():
     if fn is None:
         lib = cuda_build.load(_SOURCE)
         entry = lib.quant_matmul_int8
-        entry.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
+        # xq, its row stride, wt [N, K], its row stride, colscale, out,
+        # M, N, K, the stream
+        entry.argtypes = [ctypes.c_void_p, ctypes.c_longlong] * 2 + \
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
         lib.quant_matmul_error_string.argtypes = [ctypes.c_int]
         lib.quant_matmul_error_string.restype = ctypes.c_char_p
@@ -94,26 +150,35 @@ def _check(xq, wq, colscale):
 
 def int8_matmul(xq, wq, colscale):
     """K6 on CUDA tensors, its plain version on CPU tensors: ``xq`` int8
-    [M, K], ``wq`` int8 [K, N], ``colscale`` fp32 [N] -> fp32 [M, N]."""
+    [M, K], ``wq`` int8 [K, N] (K-major as :func:`k_major` lays it out, or
+    laid out so here), ``colscale`` fp32 [N] -> fp32 [M, N]."""
     _check(xq, wq, colscale)
     if xq.device.type == "cpu":
         return int8_matmul_reference(xq, wq, colscale)
     if xq.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on CUDA or CPU tensors, not "
                          f"{xq.device}")
-    for name, t in (("xq", xq), ("wq", wq), ("colscale", colscale)):
-        if not t.is_contiguous():
-            raise ValueError(f"int8_matmul: {name} must be contiguous")
+    if not colscale.is_contiguous():
+        raise ValueError("int8_matmul: colscale must be contiguous")
     m, k = xq.shape
     n = wq.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     if m == 0 or n == 0:
         return out
+    if k == 0:      # a sum of nothing: K padded with zeros to one row unit
+        xq = xq.new_zeros((m, _ROW_ALIGN))
+        wq = xq.new_zeros((_ROW_ALIGN, n))
+        k = _ROW_ALIGN
+    xq = _rows_aligned(xq)
+    if not is_k_major(wq):
+        wq = k_major(wq)
     fn, err_str = _kernel()
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     with torch.cuda.device(xq.device):
-        rc = fn(xq.data_ptr(), wq.data_ptr(), colscale.data_ptr(),
-                out.data_ptr(), m, n, k, stream)
+        # wq's base and column stride are its K-major [N, K] buffer's base
+        # and row stride
+        rc = fn(xq.data_ptr(), xq.stride(0), wq.data_ptr(), wq.stride(1),
+                colscale.data_ptr(), out.data_ptr(), m, n, k, stream)
     if rc != 0:
         raise RuntimeError(f"quant_matmul launch failed: "
                            f"{err_str(rc).decode()}")
@@ -128,18 +193,21 @@ def quantize_activation(x):
     """Dynamic per-tensor activation quantization (the reference's
     :154-155): ``xs = max(amax(|x|) / 127, 1e-12)``, ``xq = clip(round(x /
     xs), -127, 127)`` as int8 (``torch.round`` rounds half to even, as
-    ``jnp.round``).  Returns (xq, xs)."""
+    ``jnp.round``).  ``x [M, K]``; the codes are written into rows of a
+    whole 16 bytes (K padded, the pad unwritten), which K6's TMA reads
+    where they lie.  Returns (xq, xs)."""
     xs = torch.clamp_min(x.abs().amax() / 127.0, 1e-12)
-    xq = torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
-    return xq, xs
+    codes = torch.clamp(torch.round(x / xs), -127, 127)
+    return _padded_rows(*x.shape, x.device).copy_(codes), xs
 
 
 def quant_matmul(x, wq, wscale):
     """``x [M, K]`` float activation, ``wq [K, N]`` int8 weight, ``wscale
     [N]`` fp32 per-output-channel scale (made at load by
-    passes/quantize.py) -> ``[M, N]`` fp32: the activation's int8 codes
-    and the combined scale ``xs * wscale`` in torch ops, the product in
-    K6."""
+    passes/quantize.py, the weight K-major) -> ``[M, N]`` fp32: the
+    activation's int8 codes and the combined scale ``xs * wscale`` in
+    torch ops, the product in K6.  The weight is read where it lies: no
+    copy a call."""
     x = x.float()
     m, k = x.shape
     n = wq.shape[-1] if wq.dim() == 2 else int(wscale.shape[0])
@@ -149,7 +217,7 @@ def quant_matmul(x, wq, wscale):
             f"quant_matmul: {wq.dtype} weights are not ported (the JAX "
             f"package's fp8 arm is ROADMAP queue 1 item 9)")
     xq, xs = quantize_activation(x)
-    return int8_matmul(xq, wq.contiguous(), xs * wscale)
+    return int8_matmul(xq, wq, xs * wscale)
 
 
 def _prod(t):

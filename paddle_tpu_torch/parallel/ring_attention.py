@@ -25,8 +25,8 @@ The in-shard attention has two tiers:
   the merge between them, each block's scores recomputed in the backward
   (``torch.utils.checkpoint``, where the reference has ``jax.checkpoint``).
 
-CUDA shards always take K3, at every head dim up to 256 (above it the
-kernel's wrapper raises), and ``FLAGS_ring_flash=false`` raises.  On CPU shards
+CUDA shards always take K3, at every head dim (above 256 in the
+kernels' wide arm), and ``FLAGS_ring_flash=false`` raises.  On CPU shards
 ``FLAGS_ring_flash`` picks the tier: "auto" and "false" take the blocked
 path, "true" takes K3's plain version.  A K3 failure raises: there is no
 fallback to the blocked path.
@@ -150,9 +150,8 @@ def _shard_attn_flash(q, k, v, scale, diag_causal):
 
 def _use_ring_flash(device):
     """Resolve FLAGS_ring_flash for shards on `device`: a CUDA shard takes
-    K3 whatever its head dim (the kernel's wrapper raises above 256), and
-    raises under "false"; a CPU shard takes K3's plain
-    version under "true" and the blocked path otherwise."""
+    K3 whatever its head dim, and raises under "false"; a CPU shard takes
+    K3's plain version under "true" and the blocked path otherwise."""
     from ..flags import get_flag
 
     mode = str(get_flag("ring_flash")).lower()

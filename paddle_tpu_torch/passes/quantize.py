@@ -1,11 +1,14 @@
 """Quantized inference as a pass: per-channel int8 weights + dynamic
 activation scales.
 
-A copy of ``paddle_tpu/passes/quantize.py`` with three changes: no
+A copy of ``paddle_tpu/passes/quantize.py`` with four changes: no
 platform probe (``FLAGS_quant_dtype`` is "int8"; "fp8" raises, it is not
 ported), :func:`apply_to_scope` writes torch tensors on the device the
 fp32 weight lived on (the Executor refuses a scope tensor on another
-device), and the metrics ride the port's observability registry.
+device), a rank-2 int8 weight is stored K-major (the [K, N] view of a
+zero-padded [N, Kp] buffer, ``ops/quant_kernels.k_major``: the values are
+the reference's, the layout is the one K6's ``wgmma`` reads, so no call
+transposes it), and the metrics ride the port's observability registry.
 
 * :func:`quantize_weights` marks matmul-class ops (``mul`` /
   ``matmul``) whose weight operand is a read-only persistable fp32
@@ -278,8 +281,11 @@ def apply_to_scope(program, scope):
     the fp32 weight from `scope`, write the int8 weight back under the
     same name and the fp32 per-channel scale under ``<w>@QSCALE``, both
     as torch tensors on the device the fp32 weight lived on (the
-    executor's).  Idempotent (a weight already int8 is skipped).
-    Returns the number of tables converted."""
+    executor's), a rank-2 weight K-major (``quant_kernels.k_major``).
+    Idempotent (a weight already int8 is skipped; one that arrived int8
+    in row-major order, from a saved quantized scope, is laid out K-major
+    once and not counted).  Returns the number of tables converted."""
+    from ..ops.quant_kernels import is_k_major, k_major
     from ..profiler import record_event
 
     plan = quant_plan(program)
@@ -294,16 +300,25 @@ def apply_to_scope(program, scope):
                     f"quantize: weight {w!r} not found in scope — "
                     f"load the fp32 parameters before apply_to_scope")
             if not _needs_requantize(v):
-                continue             # already converted
+                # already converted; a row-major int8 weight is laid out
+                # K-major once
+                if isinstance(v, torch.Tensor) and v.dim() == 2 \
+                        and v.dtype == torch.int8 and not is_k_major(v):
+                    scope.set_var(w, k_major(v))
+                continue
             if isinstance(v, torch.Tensor):
                 device, arr = v.device, v.detach().float().cpu().numpy()
             else:
                 device, arr = torch.device("cpu"), np.asarray(v)
             wq, scale = quantize_array(arr, spec)
-            scope.set_var(w, torch.from_numpy(wq).to(device))
+            wt = torch.from_numpy(wq).to(device)
+            if wt.dim() == 2:
+                wt = k_major(wt)
+            scope.set_var(w, wt)
             scope.set_var(spec["scale"], torch.from_numpy(scale).to(device))
-            METRICS.note_table(w, arr.nbytes, wq.nbytes + scale.nbytes,
-                               scale)
+            # the bytes the device holds: the K-major buffer, pad included
+            METRICS.note_table(w, arr.nbytes, wt.untyped_storage().nbytes()
+                               + scale.nbytes, scale)
             n += 1
     if n:
         METRICS.inc("tables_quantized", n)

@@ -9,8 +9,9 @@
   atol 1e-5 forward, 2e-3 on the grads (the JAX package's own bar for its
   backward kernels, tests/test_pallas_kernels.py:92), float32.
 - The head-dim rule of the kernels: every D from 1 to 256 maps onto an
-  instantiated width (columns padded to whole 16-byte chunks), and D 257
-  raises with the limit in the message.
+  instantiated width (columns padded to whole 16-byte chunks); D 257 is
+  padded the same way and accepted (it runs the wide arm), and only D 0
+  raises.
 - A model of the tensor-core forward's arithmetic
   (``csrc/flash_attention_fwd.cu``) in plain torch, after
   tests/test_torch_tf32_split.py: a tile-by-tile online softmax whose
@@ -133,10 +134,10 @@ def test_every_head_dim_to_256_has_a_kernel_width(dtype):
     # the widths the C entries dispatch over (csrc/flash_attention_mma.cuh)
     widths = ak.kernel_widths()
     assert list(widths) == sorted(set(widths))
-    assert widths[-1] == ak.HEAD_DIM_MAX
+    assert widths[-1] == 256
     assert all(w % 16 == 0 for w in widths)
     used = set()
-    for d in range(1, ak.HEAD_DIM_MAX + 1):
+    for d in range(1, widths[-1] + 1):
         dp = ak.padded_head_dim(d, dtype)
         # padded to a whole 16-byte chunk (what the C entries accept), at
         # most the widest instantiation
@@ -144,13 +145,13 @@ def test_every_head_dim_to_256_has_a_kernel_width(dtype):
         assert dp <= widths[-1], d
         used.add(min(w for w in widths if w >= dp))
     assert used == set(widths)
-    for d in (0, ak.HEAD_DIM_MAX + 1):
-        with pytest.raises(ValueError, match="1 to 256"):
-            ak.padded_head_dim(d, dtype)
-    # the wrappers' check names the limit too (it runs for CUDA tensors)
-    q = torch.zeros(1, 1, 4, ak.HEAD_DIM_MAX + 1, dtype=dtype)
-    with pytest.raises(ValueError, match="head dims 1 to 256, not 257"):
-        ak._check(q, q, q, None)
+    # above the widest width the wide arm takes the head dim, padded alike
+    assert ak.padded_head_dim(257, dtype) == 256 + chunk
+    with pytest.raises(ValueError, match="head dims of 1 and more, not 0"):
+        ak.padded_head_dim(0, dtype)
+    # the wrappers' check (it runs for CUDA tensors) accepts D 257
+    q = torch.zeros(1, 1, 4, 257, dtype=dtype)
+    assert ak._check(q, q, q, None) == 256 + chunk
     q33 = q[..., :33].contiguous()
     assert ak._check(q33, q33, q33, None) == ak.padded_head_dim(33, dtype)
 

@@ -6,6 +6,12 @@
 - ``quant_matmul``: the same int8 activation codes as the reference, and
   outputs within rtol 1e-6 (both sides run the same codes through an exact
   int32 product, so they agree to the last bit in practice).
+- The layouts K6's ``wgmma`` reads: the plain version on a K-major weight
+  view and on activation codes in 16-byte rows (K padded) gives the JAX
+  package's composed arm's bits (its fp32 sums of int8 products are exact
+  at these K); ``apply_to_scope`` stores each weight K-major with the
+  reference's codes value for value, and ``quant_matmul`` reads it where
+  it lies.
 - ``make_quant_kernel`` through the registry, ``apply_to_scope`` against the
   reference's weights and scales, and the quantize pass's behaviour.
 - Slice parity: a 2-layer, narrow ``bert_classifier`` saved once, served by
@@ -86,6 +92,34 @@ def test_k6_plain_equals_jax_kernel_interpret(m, k, n):
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
     np.testing.assert_array_equal(got.numpy(), want)
     assert pqk.int8_matmul.launches == 0       # the plain version ran
+
+
+@pytest.mark.parametrize("m,k,n", [(33, 130, 70), (16, 96, 2)])
+def test_k6_plain_on_the_kernel_layouts_equals_jax_composed(m, k, n):
+    xq, wq, cs = _operands(m, k, n, seed=3 * m + n)
+    want = np.asarray(jqk._quant_matmul_composed(
+        jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(cs)))
+    kp = -(-k // 16) * 16
+    wk = pqk.k_major(torch.from_numpy(wq))          # [K, N] view of [N, Kp]
+    assert tuple(wk.shape) == (k, n) and wk.stride() == (1, kp)
+    assert pqk.is_k_major(wk) and not pqk.is_k_major(torch.from_numpy(wq))
+    assert wk.untyped_storage().nbytes() == n * kp
+    np.testing.assert_array_equal(wk.numpy(), wq)
+    buf = torch.frombuffer(bytearray(wk.untyped_storage()), dtype=torch.int8)
+    assert not buf.reshape(n, kp)[:, k:].any()            # the pad is zeros
+    # activation codes in 16-byte rows, K padded, as quantize_activation
+    # writes them for the kernel's TMA
+    xp = pqk._padded_rows(m, k, torch.device("cpu")).copy_(
+        torch.from_numpy(xq))
+    assert xp.stride() == (kp, 1) and pqk._rows_aligned(xp) is xp
+    tcs = torch.from_numpy(cs)
+    for x_, w_ in ((torch.from_numpy(xq), wk), (xp, wk),
+                   (xp, torch.from_numpy(wq))):
+        np.testing.assert_array_equal(
+            pqk.int8_matmul_reference(x_, w_, tcs).numpy(), want)
+        np.testing.assert_array_equal(pqk.int8_matmul(x_, w_, tcs).numpy(),
+                                      want)
+    assert pqk.int8_matmul.launches == 0
 
 
 def _reference_codes(x):
@@ -191,6 +225,59 @@ def test_apply_to_scope_matches_reference():
     snap = pfluid.observability.REGISTRY.snapshot()["quant"]
     assert snap["counters"]["tables_quantized"] >= 2
     assert set(snap["scale_ranges"]) >= set(pqz.quant_plan(pq))
+
+
+def test_apply_to_scope_stores_weights_k_major(monkeypatch):
+    """Every rank-2 weight lands K-major (the kernel-side strides (1, Kp),
+    Kp a multiple of 16) with the reference's codes; an int8 weight that
+    arrives row-major (a saved quantized scope) is laid out once and not
+    counted; quant_matmul hands the kernel the scope's own storage."""
+    from paddle_tpu import passes as jpasses
+    from paddle_tpu_torch import passes as ppasses
+
+    pinfer, pstart, pout = _mlp(pfluid)
+    jinfer, _, jout = _mlp(jfluid)
+    pscope = pfluid.Scope()
+    pfluid.Executor(pfluid.CPUPlace()).run(pstart, scope=pscope)
+    jscope = jfluid.Scope()
+    for n, t in pscope.vars.items():
+        if t is not None:
+            jscope.set_var(n, t.numpy())
+    for prog in (pinfer, jinfer):
+        prog._quant = True
+        prog._version += 1
+    pq = ppasses.apply_at_seam(pinfer, feed_names=["x"],
+                               fetch_names=[pout.name])
+    jq = jpasses.apply_at_seam(jinfer, feed_names=["x"],
+                               fetch_names=[jout.name])
+    pqz.apply_to_scope(pq, pscope)
+    jqz.apply_to_scope(jq, jscope)
+    plan = pqz.quant_plan(pq)
+    for w in plan:
+        got, want = pscope.find_var(w), np.asarray(jscope.find_var(w))
+        k, n = want.shape
+        assert got.dtype == torch.int8 and tuple(got.shape) == (k, n)
+        assert got.stride() == (1, -(-k // 16) * 16)
+        assert pqk.is_k_major(got)
+        np.testing.assert_array_equal(got.numpy(), want)
+    # a row-major int8 weight (a checkpoint of a quantized scope)
+    w0 = sorted(plan)[0]
+    row_major = pscope.find_var(w0).contiguous()
+    pscope.set_var(w0, row_major)
+    assert pqz.apply_to_scope(pq, pscope) == 0
+    assert pqk.is_k_major(pscope.find_var(w0))
+    np.testing.assert_array_equal(pscope.find_var(w0).numpy(),
+                                  row_major.numpy())
+    # the product reads the scope's storage, never a per-call copy
+    seen = []
+    real = pqk.int8_matmul
+    monkeypatch.setattr(pqk, "int8_matmul", lambda xq, wq, cs: (
+        seen.append(wq), real(xq, wq, cs))[1])
+    wt = pscope.find_var(w0)
+    pqk.quant_matmul(torch.ones(3, wt.shape[0]), wt,
+                     pscope.find_var(plan[w0]["scale"]))
+    assert seen[0].data_ptr() == wt.data_ptr() and seen[0].stride() == \
+        wt.stride()
 
 
 # ---------------------------------------------------------------------------

@@ -68,13 +68,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    from a seed) for 6 steps on the card through Executor.run: finite
    losses with the last below the first, the kernels' launch counts per
    step, step time, tokens/s, peak memory, and a profile of one step.
-10. RNN and sequence kernels vs plain: K8 (lstm_cell) at the seq2seq
-   encoder's B = 16, D = 512 and at edge shapes, K9 (gru_output) at
-   (16, 512) in both modes on the gru op's strided input and at an edge
-   shape, K7 (masked_softmax) at [16, 128], at ragged lengths with an
-   empty row and at T = 1000: outputs and the backward's grads against
-   the plain versions (atol 1e-5), kernel, plain and library times
-   (_thnn_fused_lstm_cell, _thnn_fused_gru_cell, _masked_softmax).
+10. RNN and sequence kernels vs plain: first the SASS of K8 and K9
+   (tensor-core products, HMMA, and asynchronous copies, LDGSTS, in each
+   instantiation; no spills).  K8 (lstm_step: one LSTM time step, the
+   product on the tensor cores, the cell and the length mask in its
+   epilogue) at the seq2seq encoder's B = 16, D = 512 and at edge shapes,
+   K9 (gru_step: the GRU step after its addmm) at (16, 512) in both modes
+   on the gru op's strided operands and at an edge shape, their cell
+   entries (the same kernels with no product and no mask), K7
+   (masked_softmax) at [16, 128], at ragged lengths with an empty row and
+   at T = 1000: outputs and the backward's grads against the plain
+   versions (atol 1e-5); kernel, plain and library times
+   (_thnn_fused_lstm_cell, _thnn_fused_gru_cell, _masked_softmax; for the
+   steps torch.addmm + the fused cell), and for the steps the step as the
+   scan ran it before (product, add, cell kernel, mask ops) and the
+   host's time a call.  Then the lstm and gru ops over whole scans (B 16,
+   T 64, D 512, lengths 10-50, forward and reverse) against the same ops
+   on the plain steps (outputs and grads, atol 1e-5) and against float64
+   (GRAD64_FACTOR), and one scan's device launches: the step kernel once
+   a step.
 11. seq2seq parity: the book's seq2seq model (bi-LSTM encoder, DynamicRNN
    decoder) at dictionary 1000, width 128, batch 8, 3 Adam steps on the
    card against 3 on the CPU from one state.
@@ -86,7 +98,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 13. GRU and sequence-softmax programs: embedding -> fc -> dynamic_gru(512)
    in both modes, and fc(1) -> sequence_softmax at T = 128 and at ragged
    lengths, 3 SGD steps on one batch on the card against the CPU, each
-   update moving the loss, with K9 and K7 launched.
+   update moving the loss, with K9 and K7 launched; a profile of one GRU
+   step on the card.
 14. row gather kernel vs plain: K11 (gather_rows) against index_select,
    bit for bit, at one CTR step's deep and wide lookups on one shard
    (65,536 padded ids from a 500,000-row block, D = 16 and D = 1), at
@@ -278,6 +291,11 @@ MIN_MOVE = 5 * PARITY_RTOL[3]
 # and grads: the kernels take the plain version's operations in its
 # order, with the accurate expf/tanhf
 RNN_ATOL = 1e-5
+# K8 and K9 take whole time steps: a step at index RNN_STEP of an input of
+# RNN_STEP_T steps; whole scans at T RNN_SCAN_T (the seq2seq encoder's
+# bucket) against the plain scan
+RNN_STEP_T, RNN_STEP = 8, 3
+RNN_SCAN_T = 64
 KERNELS = {
     "fwd": {"name": "flash_attention_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -291,10 +309,10 @@ KERNELS = {
     "quant": {"name": "quant_matmul", "route": "cuda",
               "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
               "replaces": "paddle_tpu/ops/quant_kernels.py:64"},
-    "lstm": {"name": "lstm_cell", "route": "cuda",
+    "lstm": {"name": "lstm_step", "route": "cuda",
              "source": "paddle_tpu_torch/csrc/rnn_cells.cu",
              "replaces": "paddle_tpu/ops/pallas_kernels.py:1194"},
-    "gru": {"name": "gru_output", "route": "cuda",
+    "gru": {"name": "gru_step", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/rnn_cells.cu",
             "replaces": "paddle_tpu/ops/pallas_kernels.py:1267"},
     "softmax": {"name": "masked_softmax", "route": "cuda",
@@ -1510,7 +1528,8 @@ def profile_batch(torch, pred, feed, smi):
 def profile_run(torch, run, label, smi):
     """One run() under torch.profiler: its wall time, the device's busy
     time and idle share, and the kernels that fill it.  Returns {"wall",
-    "busy" (ms), "rows" [(device kernel, ms, count)]}."""
+    "busy" (ms), "rows" [(device kernel, ms, count)], "calls" (torch
+    operator calls)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1538,10 +1557,11 @@ def profile_run(torch, run, label, smi):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU
                    and e.key.startswith("aten::")), key=lambda r: -r[1])
-    print(f"  host: {sum(r[2] for r in host)} torch operator calls, "
+    calls = sum(r[2] for r in host)
+    print(f"  host: {calls} torch operator calls, "
           f"{sum(r[1] for r in host):.6f} ms of self CPU time; top: " +
           ", ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in host[:6]))
-    return {"wall": prof_wall, "busy": busy, "rows": rows}
+    return {"wall": prof_wall, "busy": busy, "rows": rows, "calls": calls}
 
 
 def pretrain_program(fluid, num_layers, dropout):
@@ -1777,45 +1797,213 @@ def bound_row(nbytes, flops, peak="float32"):
             "bound_by": "bytes" if t_bytes > t_ops else "operations"}
 
 
+def lstm_step_unfused(rk, xg, h_prev, c_prev, w, lens, step):
+    """The LSTM time step as the scan ran it before K8 took the whole
+    step: the product and the add, K8 on the gates alone, then the mask's
+    torch ops."""
+    h, c = rk.fused_lstm_cell(xg + h_prev @ w, c_prev)
+    valid = rk.valid_mask(lens, step, xg.dtype)
+    h = h * valid + h_prev * (1 - valid)
+    c = c * valid + c_prev * (1 - valid)
+    return h, c, h * valid, c * valid
+
+
+def gru_step_unfused(torch, rk, xg, h_prev, w, lens, step, mode):
+    """The GRU time step as the scan ran it before K9 took the candidate's
+    product and the mask: two products, the gates' torch ops, K9 on the
+    output gate alone, then the mask's torch ops."""
+    d = h_prev.shape[1]
+    ur_pre = xg[:, :2 * d] + h_prev @ w[:, :2 * d]
+    _, r = torch.chunk(torch.sigmoid(ur_pre), 2, dim=-1)
+    cand_pre = xg[:, 2 * d:] + (r * h_prev) @ w[:, 2 * d:]
+    h = rk.fused_gru_output(ur_pre[:, :d], cand_pre, h_prev, mode)
+    valid = rk.valid_mask(lens, step, xg.dtype)
+    h = h * valid + h_prev * (1 - valid)
+    return h, h * valid
+
+
+def thnn_lstm_step(torch, xg, h_prev, c_prev, w):
+    """The two-call yardstick of the LSTM time step: torch.addmm for the
+    gates, then PyTorch's fused LSTM cell (no mask), the input and W
+    reordered from (c, i, f, o) to its (i, f, g, o) order here, outside
+    the timed call."""
+    def reorder(t):
+        gc, gi, gf, go = t.chunk(4, dim=-1)
+        return torch.cat([gi, gf, gc, go], dim=-1).contiguous()
+
+    xr, wr = reorder(xg), reorder(w)
+    hg = torch.zeros_like(xr)
+    return lambda: torch.ops.aten._thnn_fused_lstm_cell(
+        torch.addmm(xr, h_prev, wr), hg, c_prev)
+
+
+def thnn_gru_step(torch, xg, h_prev, w):
+    """The two-call yardstick of the GRU time step: torch.addmm for the
+    three gates' products at once, then PyTorch's fused GRU cell (whose
+    reset gate scales the product rather than h_prev: the same work in
+    another formula; no mask)."""
+    xr, hg = xg.contiguous(), torch.zeros_like(xg)
+    return lambda: torch.ops.aten._thnn_fused_gru_cell(
+        torch.addmm(xr, h_prev, w), hg, h_prev)
+
+
+def lstm_step_bound(b, d):
+    """xg, h_prev, c_prev, W and the lengths read once, the four outputs
+    written once; the product's 2·B·D·4D flops at 3xTF32's rate (the
+    cell's 15 an element beside them)."""
+    nbytes = 4 * (4 * b * d + 2 * b * d + 4 * d * d + 4 * b * d + b)
+    return bound_row(nbytes, 2 * b * d * 4 * d + 15 * b * d, "tf32x3")
+
+
+def gru_step_bound(b, d):
+    """ur_pre [B, 2D], xg_c, h_prev, W_c and the lengths read once, the
+    two outputs written once; the product's 2·B·D·D flops at 3xTF32's
+    rate (the gates' 13 an element beside them)."""
+    nbytes = 4 * (2 * b * d + 2 * b * d + d * d + 2 * b * d + b)
+    return bound_row(nbytes, 2 * b * d * d + 13 * b * d, "tf32x3")
+
+
+def rnn_sass_check():
+    """K8 and K9 as built: every instantiation of lstm_step_kernel and
+    gru_step_kernel (16- and 4-byte staging) must hold tensor-core
+    products (HMMA) and asynchronous copies (LDGSTS), with no
+    local-memory traffic (LDL, STL: register spills)."""
+    bad, seen = [], {"lstm_step_kernel": 0, "gru_step_kernel": 0}
+    for n, c in sorted(sass_counts("rnn_cells").items()):
+        kern = next((k for k in seen if k in n), None)
+        if kern is None:
+            continue
+        seen[kern] += 1
+        print(f"  SASS {n}: {c['instructions']} instructions, " +
+              " ".join(f"{op} {c[op]}" for op in SASS_OPS))
+        if not c["HMMA"] or not c["LDGSTS"] or c["LDL"] or c["STL"]:
+            bad.append(n)
+    if bad or sorted(seen.values()) != [2, 2]:
+        raise SystemExit(f"rnn_cells kernels without tensor-core products "
+                         f"or asynchronous copies, or spilling: {bad}; "
+                         f"instantiations {seen}")
+
+
 def rnn_kernel_phase(torch):
-    """K8, K9 and K7 against their plain versions at the shapes of the
-    slice's programs and at edge shapes.  Bounds count each input read
-    once and each output written once (fp32), and the flops the function
-    needs with a transcendental as one: 15 an element for the LSTM cell
-    (three sigmoids of exp, add, divide; two tanh; three multiplies and
-    an add), 8 for the GRU output, 7 per valid element for the softmax.
-    At these sizes every kernel is launch-bound: its bound is tens of
-    nanoseconds."""
+    """K8 and K9 as whole time steps, and their cell entries, and K7,
+    against their plain versions at the shapes of the slice's programs and
+    at edge shapes; then whole scans (rnn_scan_checks).  Each step row
+    times the kernel, the plain step, the step as the scan ran it before
+    (the product and the mask around the cell kernel) and the two-call
+    yardstick (torch.addmm + PyTorch's fused cell), and the host's time a
+    call of the first and the third.  Bounds count each input read once
+    and each output written once (fp32), and the flops the function needs
+    with a transcendental as one: the products at 3xTF32's rate, 15 an
+    element for the LSTM cell (three sigmoids of exp, add, divide; two
+    tanh; three multiplies and an add), 8 for the GRU output, 7 per valid
+    element for the softmax."""
     from paddle_tpu_torch.ops import rnn_kernels as rk
     from paddle_tpu_torch.ops import sequence_kernels as sk
 
-    phase("RNN and sequence kernels vs plain (lstm_cell, gru_output, "
-          "masked_softmax)")
+    phase("RNN and sequence kernels vs plain (lstm_step, gru_step and "
+          "their cells, masked_softmax)")
+    rnn_sass_check()
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda") * 2.0
 
+    def step_inputs(b, d, gates):
+        """x[:, RNN_STEP] of x [b, RNN_STEP_T, gates·D], h_prev in tanh's
+        range, W at 1/sqrt(D), lengths with a zero and one past the
+        step (all past it at B 1)."""
+        x = randn(b, RNN_STEP_T, gates * d) / 2
+        w = randn(d, gates * d) * (0.5 / d ** 0.5)
+        lens = torch.randint(0, RNN_STEP_T + 1, (b,), generator=g,
+                             device="cuda", dtype=torch.int32)
+        lens[0], lens[-1] = (0, RNN_STEP_T) if b > 1 else (RNN_STEP_T,) * 2
+        return x[:, RNN_STEP], torch.tanh(randn(b, d)), w, lens
+
     rows = {"lstm": {}, "gru": {}, "softmax": {}}
 
-    def report(kern, name, err, fwd, plain, lib, bound, note):
+    def report(kern, name, err, fwd, plain, lib, bound, note, extra=None):
         row = {"max_abs_err": err, "ms": time_ms(torch, fwd),
                "plain_ms": time_ms(torch, plain),
                "library_ms": None if lib is None else time_ms(torch, lib),
                **bound}
+        for key, fn in (extra or {}).items():
+            row[key] = fn()
         rows[kern][name] = row
         lib_txt = "–" if lib is None else f"{row['library_ms']:.6f} ms"
+        more = "".join(f" {k} {v:.6f}" for k, v in row.items()
+                       if k not in ("max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by"))
         print(f"{KERNELS[kern]['name']} {name}: {note} max_abs_err "
               f"{err:.3e} (outputs and grads, atol {RNN_ATOL:g}) kernel "
               f"{row['ms']:.6f} ms plain {row['plain_ms']:.6f} ms library "
               f"{lib_txt} bound {row['bound_ms']:.6f} ms "
-              f"({row['bound_by']}; launch-bound at this size)", flush=True)
+              f"({row['bound_by']}){more}", flush=True)
         if not err <= RNN_ATOL:
             raise SystemExit(f"{KERNELS[kern]['name']} disagrees with its "
                              f"plain version on {name}: {err}")
 
-    # K8: the seq2seq encoder's step, B = 1, D not a multiple of 128, and
-    # B * D not a multiple of 32
+    # K8's whole step: the seq2seq encoder's (B 16, D 512), B 1, D not a
+    # multiple of 4 (4-byte staging), and B * D not a multiple of 32
+    for name, b, d in (("seq2seq_b16_d512", 16, 512), ("b1_d512", 1, 512),
+                       ("b16_d129", 16, 129), ("b3_d37", 3, 37)):
+        xg, h, w, lens = step_inputs(b, d, 4)
+        c = randn(b, d) / 2
+        diff = (rk.lstm_step(xg, h, c, w, lens, RNN_STEP)[0]
+                - lstm_step_unfused(rk, xg, h, c, w, lens, RNN_STEP)[0])
+        print(f"  the step as the scan ran it before vs kernel: "
+              f"max_abs_diff {diff.abs().max().item():.3e}")
+        err = grads_err(
+            torch, lambda *a: rk.lstm_step(*a, lens, RNN_STEP),
+            lambda *a: rk.lstm_step_reference(*a, lens, RNN_STEP),
+            (xg, h, c, w), tuple(randn(b, d) for _ in range(4)))
+        step = lambda: rk.lstm_step(xg, h, c, w, lens, RNN_STEP)  # noqa
+        before = lambda: lstm_step_unfused(  # noqa: E731
+            rk, xg, h, c, w, lens, RNN_STEP)
+        report("lstm", name, err, step,
+               lambda: rk.lstm_step_reference(xg, h, c, w, lens, RNN_STEP),
+               thnn_lstm_step(torch, xg, h, c, w), lstm_step_bound(b, d),
+               f"step B {b} D {d}",
+               {"unfused_ms": lambda: time_ms(torch, before),
+                "host_ms": lambda: host_ms(torch, step),
+                "unfused_host_ms": lambda: host_ms(torch, before)})
+
+    # K9's step after the addmm, in both modes, on the gru op's operands
+    # (xg_c and W_c read in place: row strides 3D); the time step (addmm
+    # + K9) timed beside; and D not a multiple of 4
+    for name, b, d, mode in (("gru_b16_d512", 16, 512, False),
+                             ("gru_b16_d512_origin", 16, 512, True),
+                             ("gru_b5_d129", 5, 129, False)):
+        xg, h, w, lens = step_inputs(b, d, 3)
+        ur = rk.gru_gate_pre(xg[:, :2 * d], h, w[:, :2 * d])
+        xc, wc = xg[:, 2 * d:], w[:, 2 * d:]
+        diff = (rk.gru_step(ur, xc, h, wc, lens, RNN_STEP, mode)[0]
+                - gru_step_unfused(torch, rk, xg, h, w, lens, RNN_STEP,
+                                   mode)[0])
+        print(f"  the step as the scan ran it before vs kernel: "
+              f"max_abs_diff {diff.abs().max().item():.3e}")
+        err = grads_err(
+            torch, lambda *a: rk.gru_step(*a, lens, RNN_STEP, mode),
+            lambda *a: rk.gru_step_reference(*a, lens, RNN_STEP, mode),
+            (ur, xc, h, wc), (randn(b, d), randn(b, d)))
+        time_step = lambda: rk.gru_step(  # noqa: E731
+            rk.gru_gate_pre(xg[:, :2 * d], h, w[:, :2 * d]), xc, h, wc,
+            lens, RNN_STEP, mode)
+        before = lambda: gru_step_unfused(  # noqa: E731
+            torch, rk, xg, h, w, lens, RNN_STEP, mode)
+        report("gru", name, err,
+               lambda: rk.gru_step(ur, xc, h, wc, lens, RNN_STEP, mode),
+               lambda: rk.gru_step_reference(ur, xc, h, wc, lens, RNN_STEP,
+                                             mode),
+               thnn_gru_step(torch, xg, h, w), gru_step_bound(b, d),
+               f"step B {b} D {d} origin_mode {mode}",
+               {"step_ms": lambda: time_ms(torch, time_step),
+                "unfused_ms": lambda: time_ms(torch, before),
+                "host_ms": lambda: host_ms(torch, time_step),
+                "unfused_host_ms": lambda: host_ms(torch, before)})
+
+    # the cell entries, the same kernels with no product and no mask: K8
+    # at the step shapes, K9 on gu read in place out of a [B, 2D] buffer
+    # (row stride 2D) in both modes and contiguous at an edge shape
     for name, b, d in (("seq2seq_b16_d512", 16, 512), ("b1_d512", 1, 512),
                        ("b16_d129", 16, 129), ("b3_d37", 3, 37)):
         gates, c_prev = randn(b, 4 * d), randn(b, d)
@@ -1825,14 +2013,10 @@ def rnn_kernel_phase(torch):
         print(f"  _thnn_fused_lstm_cell vs kernel: max_abs_diff {diff:.3e}")
         err = grads_err(torch, rk.fused_lstm_cell, rk.lstm_cell_reference,
                         (gates, c_prev), (randn(b, d), randn(b, d)))
-        report("lstm", name, err,
+        report("lstm", f"cell_{name}", err,
                lambda: rk.fused_lstm_cell(gates, c_prev),
                lambda: rk.lstm_cell_reference(gates, c_prev), lib,
-               bound_row(4 * b * d * 7, 15 * b * d), f"B {b} D {d}")
-
-    # K9: the GRU program's step in both modes, gu read in place out of
-    # the [B, 2D] (u | r) buffer (row stride 2D), as the gru op passes it;
-    # and a contiguous gu at an edge shape
+               bound_row(4 * b * d * 7, 15 * b * d), f"cell B {b} D {d}")
     for name, b, d, mode, strided in (
             ("gru_b16_d512", 16, 512, False, True),
             ("gru_b16_d512_origin", 16, 512, True, True),
@@ -1847,11 +2031,11 @@ def rnn_kernel_phase(torch):
             torch, lambda u, c, h: rk.fused_gru_output(u, c, h, mode),
             lambda u, c, h: rk.gru_output_reference(u, c, h, mode),
             (gu, gc, h_prev), (randn(b, d),))
-        report("gru", name, err,
+        report("gru", f"cell_{name}", err,
                lambda: rk.fused_gru_output(gu, gc, h_prev, mode),
                lambda: rk.gru_output_reference(gu, gc, h_prev, mode), lib,
                bound_row(4 * b * d * 4, 8 * b * d),
-               f"B {b} D {d} origin_mode {mode} strided {strided}")
+               f"cell B {b} D {d} origin_mode {mode} strided {strided}")
 
     # K7: the sequence-softmax program's [16, 128], ragged lengths in
     # [1, 50] with an empty row, and T = 1000
@@ -1881,7 +2065,160 @@ def rnn_kernel_phase(torch):
                lambda: sk.masked_softmax_reference(x, mask), lib,
                bound_row(8 * x.numel() + 4 * n.numel(), 7 * valid),
                f"x {tuple(x.shape)} ({valid} valid)")
+    rnn_scan_checks(torch)
+    rnn_scan_launch_check(torch)
     return rows
+
+
+class plain_rnn_steps:
+    """Within it, the scans' step entries run their plain versions on the
+    card (the scans look them up at each step)."""
+
+    def __init__(self, rk):
+        self.rk = rk
+
+    def __enter__(self):
+        rk = self.rk
+        self.saved = rk.lstm_step, rk.gru_step
+        rk.lstm_step = rk.lstm_step_reference
+        rk.gru_step = rk.gru_step_reference
+
+    def __exit__(self, *exc):
+        self.rk.lstm_step, self.rk.gru_step = self.saved
+
+
+def rnn_scan_checks(torch):
+    """The lstm and gru ops over a whole scan at the seq2seq width (B 16,
+    T 64, D 512, lengths 10-50), forward and reverse: outputs and the
+    grads of x, W, the bias and the initial state against the same op
+    with the plain steps (RNN_ATOL), and against the plain scan in
+    float64 (float64_bar: within GRAD64_FACTOR times the plain fp32
+    scan's error)."""
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    b, t, d = S2S_B, RNN_SCAN_T, S2S_FULL["hidden"]
+    lens = torch.randint(S2S_LENS[0], S2S_LENS[1] + 1, (b,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    print(f"  scans at B {b} T {t} D {d}, lengths {lens.tolist()}")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    for kind, reverse in (("lstm", False), ("lstm", True), ("gru", False),
+                          ("gru", True), ("gru_origin", False)):
+        lstm = kind == "lstm"
+        gates = 4 if lstm else 3
+        tensors = [randn(b, t, gates * d), randn(d, gates * d,
+                                                 scale=d ** -0.5),
+                   randn(1, gates * d, scale=0.1),
+                   torch.tanh(randn(b, d))] + ([randn(b, d, scale=0.5)]
+                                               if lstm else [])
+        names = ["Input", "Weight", "Bias", "H0"] + (["C0"] if lstm else [])
+        attrs = {"is_reverse": reverse}
+        attrs.update({"use_peepholes": False} if lstm
+                     else {"origin_mode": kind == "gru_origin"})
+        cots = [randn(b, t, d) for _ in range(2 if lstm else 1)]
+
+        def ins(ts):
+            return dict({n: [x] for n, x in zip(names, ts)},
+                        SeqLen=[lens])
+
+        def run(ts, cots, plain):
+            leaves = [x.detach().requires_grad_() for x in ts]
+            op = "lstm" if lstm else "gru"
+            if plain:
+                with plain_rnn_steps(rk):
+                    out = registry.run_op(op, ins(leaves), dict(attrs))
+            else:
+                out = registry.run_op(op, ins(leaves), dict(attrs))
+            outs = [out["Hidden"][0]] + ([out["Cell"][0]] if lstm else [])
+            return outs + list(torch.autograd.grad(outs, leaves, cots))
+
+        labels = ["hidden"] + (["cell"] if lstm else []) + \
+            [f"d{n}" for n in names]
+        got, plain = run(tensors, cots, False), run(tensors, cots, True)
+        exact = run([x.double() for x in tensors],
+                    [c.double() for c in cots], True)
+        torch.cuda.synchronize()
+        # elementwise |kernel - plain| <= RNN_ATOL * (1 + |plain|): the
+        # grads sum over the scan's B·T steps (dBias ~10 at this shape),
+        # where two fp32 answers differ by their own rounding
+        errs = {n: ((a - p).abs().max().item(),
+                    ((a - p).abs() / (1 + p.abs())).max().item(),
+                    p.abs().max().item())
+                for n, a, p in zip(labels, got, plain)}
+        err = max(e[1] for e in errs.values())
+        parts, bad = float64_bar(torch, dict(zip(labels, got)),
+                                 dict(zip(labels, plain)),
+                                 dict(zip(labels, exact)))
+        print(f"  {kind} scan reverse {reverse}: max |kernel - plain| / (1 "
+              f"+ |plain|) {err:.3e} (outputs and grads, bar "
+              f"{RNN_ATOL:g}; abs err, max |plain|: " + ", ".join(
+                  f"{n} {e[0]:.3e} {e[2]:.3g}" for n, e in errs.items()) +
+              "); against float64: " + "; ".join(parts), flush=True)
+        if not err <= RNN_ATOL or bad:
+            raise SystemExit(f"{kind} scan (reverse {reverse}) departs from "
+                             f"the plain scan ({err}) or misses the float64 "
+                             f"bar: {bad}")
+
+
+
+def rnn_scan_launch_check(torch):
+    """One forward scan of the lstm and gru ops (B 16, T 64, D 512): the
+    step kernel launched once a step (its wrapper's counter); under the
+    profiler, the gru op's one torch.addmm a step and each op's one stack
+    per emitted output (torch operator calls: the host's record, which
+    does not depend on the device trace); the device kernels printed
+    beside (a trace may drop the first events of its window, so a short
+    kernel runs first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    b, t, d = S2S_B, RNN_SCAN_T, S2S_FULL["hidden"]
+    lens = torch.randint(S2S_LENS[0], S2S_LENS[1] + 1, (b,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    for kind in ("lstm", "gru"):
+        gates = 4 if kind == "lstm" else 3
+        ins = {"Input": [torch.randn(b, t, gates * d, generator=g,
+                                     device="cuda")],
+               "Weight": [torch.randn(d, gates * d, generator=g,
+                                      device="cuda") * d ** -0.5],
+               "SeqLen": [lens]}
+        attrs = {"use_peepholes": False} if kind == "lstm" else {}
+        counter = rk.fused_lstm_cell if kind == "lstm" else \
+            rk.fused_gru_output
+        with torch.no_grad():
+            registry.run_op(kind, ins, dict(attrs))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                before = counter.launches
+                registry.run_op(kind, ins, dict(attrs))
+                torch.cuda.synchronize()
+        steps = counter.launches - before
+        ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU}
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        addmm, stacks = ops.get("aten::addmm", 0), ops.get("aten::stack", 0)
+        print(f"  {kind} op, T {t}: {kind}_step launched {steps} times, "
+              f"torch.addmm {addmm}, torch.stack {stacks}; device kernels "
+              f"traced: " + ", ".join(f"{k[:60]} x{c}"
+                                      for k, c in kernels.items()),
+              flush=True)
+        want = (t, 0, 2) if kind == "lstm" else (t, t, 1)
+        if (steps, addmm, stacks) != want:
+            raise SystemExit(f"{kind} op over T {t}: {kind}_step "
+                             f"{steps}, torch.addmm {addmm}, torch.stack "
+                             f"{stacks}; expected {want}")
 
 
 def rnn_program(fluid, net, optimizer, **sizes):
@@ -1897,14 +2234,15 @@ def rnn_program(fluid, net, optimizer, **sizes):
 
 
 def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
-                min_move=None):
+                min_move=None, smi=None):
     """One startup state (run on the CPU), the losses of `feeds` on the
     card and on the CPU, held to PARITY_RTOL; `counters` are set to 0
     just before the card's run and read just after.  With `min_move`
     (the feeds are one batch repeated), the CPU's losses after step 1
     must each differ from its step-1 loss by at least that much,
     relatively: a card run that skipped the updates would repeat its
-    step-1 loss and fail the comparison.  Returns the card's launches."""
+    step-1 loss and fail the comparison.  With `smi`, one more card step
+    on feeds[0] runs under the profiler.  Returns the card's launches."""
     init = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
     state = {n: t.numpy() for n, t in init.vars.items() if t is not None}
@@ -1921,6 +2259,7 @@ def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
                                          scope=scope)[0]) for f in feeds]
         if on_card:
             launches = {c.__name__: c.launches for c in counters}
+            card_run = (exe, scope)
     card, cpu = losses[True], losses[False]
     rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
     print(f"{label}: card {card} cpu {cpu} relative differences {rel} "
@@ -1937,6 +2276,13 @@ def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
         if min(moves) < min_move:
             raise SystemExit(f"{label}: the updates move the loss by "
                              f"{moves}, under {min_move:g}")
+    if smi is not None:
+        import torch
+
+        exe, scope = card_run
+        profile_run(torch, lambda: exe.run(main, feed=feeds[0],
+                                           fetch_list=[loss], scope=scope),
+                    f"one step of {label}", smi)
     return launches
 
 
@@ -1999,7 +2345,7 @@ def seq2seq_training_phase(torch, smi):
     want = 4 * t_src * S2S_STEPS
     step_s = statistics.median(walls[1:])
     print(f"losses {losses}")
-    print(f"lstm_cell launches {launches} (expected {want}: 4 x {t_src} "
+    print(f"lstm_step launches {launches} (expected {want}: 4 x {t_src} "
           f"per step)")
     print(f"[{smi}] step {step_s * 1e3:.6f} ms (median of steps 2-"
           f"{S2S_STEPS}; first step {walls[0] * 1e3:.6f} ms), "
@@ -2009,14 +2355,14 @@ def seq2seq_training_phase(torch, smi):
         raise SystemExit(f"seq2seq losses are not finite and falling: "
                          f"{losses}")
     if launches != want:
-        raise SystemExit(f"lstm_cell launches {launches}, expected {want}")
+        raise SystemExit(f"lstm_step launches {launches}, expected {want}")
     profile_run(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
                                        scope=scope),
                 f"one seq2seq training step (batch {S2S_B})", smi)
     return launches
 
 
-def rnn_programs_phase(torch):
+def rnn_programs_phase(torch, smi):
     """The GRU and sequence-softmax programs, card against CPU, with K9
     and K7 launched: per SGD step once per padded step (K9) or once (K7)
     in the forward op and again in its generic grad's recompute.  Each
@@ -2040,10 +2386,11 @@ def rnn_programs_phase(torch):
             origin_mode=mode)
         got = card_vs_cpu(fluid, main, startup, loss, [words] * 3,
                           f"embedding -> fc -> dynamic_gru(512) origin_mode"
-                          f" {mode}", [rk.fused_gru_output], MIN_MOVE)
+                          f" {mode}", [rk.fused_gru_output], MIN_MOVE,
+                          smi=smi if not mode else None)
         n = got["fused_gru_output"]
         if n != 2 * 3 * t_words:
-            raise SystemExit(f"gru_output launched {n} times, expected "
+            raise SystemExit(f"gru_step launched {n} times, expected "
                              f"{2 * 3 * t_words}")
         launches["gru"] += n
     for label, lens in (("T 128", np.full(S2S_B, 128)),
@@ -3553,7 +3900,7 @@ def main():
     launches = training_phase(torch, smi)
     seq2seq_parity_phase(torch)
     launches["lstm"] = seq2seq_training_phase(torch, smi)
-    launches.update(rnn_programs_phase(torch))
+    launches.update(rnn_programs_phase(torch, smi))
     gather_rows = ctr_kernel_phase(torch)
     ctr_parity_phase(torch)
     launches["gather"] = ctr_training_phase(torch, smi)
@@ -3578,8 +3925,8 @@ def main():
     per_batch = quant["launches"]["quant"] / quant["batches"]
     print(f"quant_matmul launches: int8 serving {quant['launches']['quant']}"
           f" over {quant['batches']} batches ({per_batch:g} per batch)")
-    print(f"lstm_cell launches: seq2seq training {launches['lstm']} over "
-          f"{S2S_STEPS} steps; gru_output: GRU programs {launches['gru']}; "
+    print(f"lstm_step launches: seq2seq training {launches['lstm']} over "
+          f"{S2S_STEPS} steps; gru_step: GRU programs {launches['gru']}; "
           f"masked_softmax: sequence-softmax programs "
           f"{launches['softmax']}")
     print(f"gather_rows launches: CTR training {launches['gather']} over "

@@ -1,17 +1,24 @@
-"""LSTM cell and GRU output gate — the port of two TPU kernels of
-``paddle_tpu/ops/pallas_kernels.py``:
+"""LSTM and GRU time steps — the port of two TPU kernels of
+``paddle_tpu/ops/pallas_kernels.py`` with the product and the length mask
+around each in the reference's scan body (``paddle_tpu/ops/rnn_ops.py``
+:63-93, :165-189):
 
 - K8 ``_lstm_cell_kernel`` (:1194, reached through ``_fused_lstm_cell_p``
-  -> ``pl.pallas_call`` :1245): :func:`fused_lstm_cell`;
+  -> ``pl.pallas_call`` :1245): :func:`lstm_step`, one LSTM time step, and
+  :func:`fused_lstm_cell`, the cell alone;
 - K9 ``_gru_cell_kernel`` (:1267, reached through ``_fused_gru_p`` ->
-  ``pl.pallas_call`` :1310): :func:`fused_gru_output`.
+  ``pl.pallas_call`` :1310): :func:`gru_step`, the GRU step's candidate
+  product, output gate and mask, and :func:`fused_gru_output`, the output
+  gate alone.
 
-Both become ``csrc/rnn_cells.cu``, written by hand for Hopper.  Each
-wrapper launches its CUDA kernel on a CUDA tensor (counted in
-``fused_lstm_cell.launches`` / ``fused_gru_output.launches``) and takes its
-plain PyTorch version (:func:`lstm_cell_reference`,
+Each pair runs one hand-written kernel of ``csrc/rnn_cells.cu``: the cell
+entries pass it no weight and no lengths.  Each wrapper launches the kernel
+on a CUDA tensor (every launch of K8 counted in
+``fused_lstm_cell.launches``, of K9 in ``fused_gru_output.launches``) and
+takes its plain PyTorch version (:func:`lstm_step_reference`,
+:func:`gru_step_reference`, :func:`lstm_cell_reference`,
 :func:`gru_output_reference`) only for a CPU tensor; on a CUDA tensor it
-launches or raises.  Both are differentiable through a
+launches or raises.  All are differentiable through a
 ``torch.autograd.Function`` whose backward is the plain version's
 vector-Jacobian product, recomputed from the saved inputs, as the
 reference's ``custom_vjp`` (:1253-1264, :1317-1332) has no backward
@@ -30,8 +37,8 @@ _libs = {}
 
 
 def lstm_cell_reference(gates, c_prev):
-    """Plain version of K8 (``_lstm_cell_composed``, :1208): gates [B, 4D]
-    in (c, i, f, o) order, c_prev [B, D] -> (h, c)."""
+    """Plain version of K8's cell (``_lstm_cell_composed``, :1208): gates
+    [B, 4D] in (c, i, f, o) order, c_prev [B, D] -> (h, c)."""
     gc, gi, gf, go = torch.chunk(gates, 4, dim=-1)
     i = torch.sigmoid(gi)
     f = torch.sigmoid(gf)
@@ -41,11 +48,56 @@ def lstm_cell_reference(gates, c_prev):
 
 
 def gru_output_reference(gu, gc, h_prev, origin_mode=False):
-    """Plain version of K9 (``_gru_output_composed``, :1280)."""
+    """Plain version of K9's output gate (``_gru_output_composed``,
+    :1280)."""
     u = torch.sigmoid(gu)
     c = torch.tanh(gc)
     return u * h_prev + (1 - u) * c if origin_mode \
         else (1 - u) * h_prev + u * c
+
+
+def valid_mask(lens, step, dtype):
+    """[B, 1] 0/1: whether time `step` lies inside each row."""
+    return (step < lens).to(dtype)[:, None]
+
+
+def lstm_step_reference(xg, h_prev, c_prev, w, lens, step):
+    """Plain version of one LSTM time step (the reference's scan body,
+    rnn_ops.py:63-93): the product, the cell, the mask.  xg [B, 4D],
+    h_prev, c_prev [B, D], w [D, 4D], lens [B] -> the carries (h, c) and
+    the emitted (h, c), zero past each row's length."""
+    gates = xg + h_prev @ w
+    h, c = lstm_cell_reference(gates, c_prev)
+    valid = valid_mask(lens, step, xg.dtype)
+    h = h * valid + h_prev * (1 - valid)
+    c = c * valid + c_prev * (1 - valid)
+    return h, c, h * valid, c * valid
+
+
+def gru_step_reference(ur_pre, xg_c, h_prev, w_c, lens, step,
+                       origin_mode=False):
+    """Plain version of the GRU time step after its first product (the
+    reference's scan body, rnn_ops.py:165-189): ur_pre [B, 2D] the update
+    and reset pre-activations, xg_c [B, D] the candidate's input part,
+    w_c [D, D] -> the carry h and the emitted h, zero past each row's
+    length."""
+    d = h_prev.shape[1]
+    _, r = torch.chunk(torch.sigmoid(ur_pre), 2, dim=-1)
+    cand_pre = xg_c + (r * h_prev) @ w_c
+    h = gru_output_reference(ur_pre[:, :d], cand_pre, h_prev, origin_mode)
+    valid = valid_mask(lens, step, h.dtype)
+    h = h * valid + h_prev * (1 - valid)
+    return h, h * valid
+
+
+def gru_gate_pre(xg_ur, h_prev, w_ur):
+    """The GRU step's first product, the update and reset pre-activations
+    xg_ur + h_prev @ w_ur [B, 2D]: one ``torch.addmm`` on the card; on the
+    CPU the sum of the product, as the CPU results have always been
+    computed."""
+    if xg_ur.device.type == "cpu":
+        return xg_ur + h_prev @ w_ur
+    return torch.addmm(xg_ur, h_prev, w_ur)
 
 
 def _kernel(name):
@@ -57,8 +109,10 @@ def _kernel(name):
         entry = getattr(lib, name)
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         entry.argtypes = {
-            "lstm_cell_fwd": [p, ll, p, ll, p, p, i, i, p],
-            "gru_output_fwd": [p, ll, p, ll, p, ll, p, i, i, i, p],
+            "lstm_step_fwd": [p, ll, p, ll, p, ll, p, ll, p, i, p, p, p, p,
+                              i, i, p],
+            "gru_step_fwd": [p, ll, p, ll, p, ll, p, ll, p, i, p, p, i, i,
+                             i, p],
         }[name]
         entry.restype = ctypes.c_int
         lib.rnn_cells_error_string.argtypes = [ctypes.c_int]
@@ -67,13 +121,13 @@ def _kernel(name):
     return fn
 
 
-def _on_cuda(name, *ts):
+def _on_cuda(name, *ts, lens=None):
     """Whether to launch the kernel (CUDA tensors) or run the plain
     version (CPU tensors).  Raises on mixed devices, other devices, or what
     the kernel does not take: fp32 matrices with unit stride along the
-    row."""
+    row, and int32 lengths, one a row."""
     dev = ts[0].device
-    for t in ts:
+    for t in ts + ((lens,) if lens is not None else ()):
         if t.device != dev:
             raise ValueError(f"{name}: inputs on {t.device} and {dev}")
     if dev.type == "cpu":
@@ -87,6 +141,10 @@ def _on_cuda(name, *ts):
             raise ValueError(f"{name} kernel takes [B, N] matrices with "
                              f"unit stride along the row, not shape "
                              f"{tuple(t.shape)} stride {t.stride()}")
+    if lens is not None and (lens.dtype != torch.int32
+                             or not lens.is_contiguous()):
+        raise TypeError(f"{name} kernel takes contiguous int32 lengths, "
+                        f"not {lens.dtype} stride {lens.stride()}")
     return True
 
 
@@ -103,9 +161,81 @@ def _ld(t):
     return t.stride(0) if t.shape[0] > 1 else t.shape[1]
 
 
-def lstm_cell_fwd(gates, c_prev):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(name, **shapes):
+    """Raises unless each tensor (name -> (tensor, shape)) has its
+    shape."""
+    for arg, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} is not "
+                             f"{want} " + ", ".join(
+                                 f"{a} {tuple(x.shape)}"
+                                 for a, (x, _) in shapes.items()))
+
+
+def _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit):
+    b, d = c_prev.shape
+    outs = [torch.empty((b, d), dtype=torch.float32, device=c_prev.device)
+            for _ in range(4 if emit else 2)]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    if b and d:
+        _launch("lstm_step_fwd", c_prev.device, xg.data_ptr(), _ld(xg),
+                _ptr(h_prev), 0 if h_prev is None else _ld(h_prev),
+                c_prev.data_ptr(), _ld(c_prev), _ptr(w),
+                0 if w is None else _ld(w), _ptr(lens), step, *ptrs, b, d)
+        fused_lstm_cell.launches += 1
+    return tuple(outs)
+
+
+def _gru_launch(ur, xc, h_prev, w_c, lens, step, origin_mode, emit):
+    b, d = h_prev.shape
+    outs = [torch.empty((b, d), dtype=torch.float32, device=h_prev.device)
+            for _ in range(2 if emit else 1)]
+    if b and d:
+        _launch("gru_step_fwd", h_prev.device, ur.data_ptr(), _ld(ur),
+                xc.data_ptr(), _ld(xc), h_prev.data_ptr(), _ld(h_prev),
+                _ptr(w_c), 0 if w_c is None else _ld(w_c), _ptr(lens), step,
+                outs[0].data_ptr(), _ptr(outs[1]) if emit else None, b, d,
+                int(bool(origin_mode)))
+        fused_gru_output.launches += 1
+    return tuple(outs)
+
+
+def lstm_step_fwd(xg, h_prev, c_prev, w, lens, step):
     """K8 on CUDA tensors, its plain version on CPU tensors; not
-    differentiable.  gates fp32 [B, 4D], c_prev fp32 [B, D] -> (h, c)."""
+    differentiable.  xg fp32 [B, 4D] (any row stride: x[:, step] of the
+    [B, T, 4D] input), h_prev, c_prev fp32 [B, D], w fp32 [D, 4D], lens
+    int32 [B] -> (h, c, h_emit, c_emit)."""
+    b, d = c_prev.shape
+    _check("lstm_step", xg=(xg, (b, 4 * d)), h_prev=(h_prev, (b, d)),
+           c_prev=(c_prev, (b, d)), w=(w, (d, 4 * d)), lens=(lens, (b,)))
+    if not _on_cuda("lstm_step", xg, h_prev, c_prev, w, lens=lens):
+        return lstm_step_reference(xg, h_prev, c_prev, w, lens, step)
+    return _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit=True)
+
+
+def gru_step_fwd(ur_pre, xg_c, h_prev, w_c, lens, step, origin_mode=False):
+    """K9 on CUDA tensors, its plain version on CPU tensors; not
+    differentiable.  ur_pre fp32 [B, 2D], xg_c fp32 [B, D] (any row
+    stride: x[:, step, 2D:]), h_prev fp32 [B, D], w_c fp32 [D, D] (any row
+    stride: w[:, 2D:]), lens int32 [B] -> (h, h_emit)."""
+    b, d = h_prev.shape
+    _check("gru_step", ur_pre=(ur_pre, (b, 2 * d)), xg_c=(xg_c, (b, d)),
+           h_prev=(h_prev, (b, d)), w_c=(w_c, (d, d)), lens=(lens, (b,)))
+    if not _on_cuda("gru_step", ur_pre, xg_c, h_prev, w_c, lens=lens):
+        return gru_step_reference(ur_pre, xg_c, h_prev, w_c, lens, step,
+                                  origin_mode)
+    return _gru_launch(ur_pre, xg_c, h_prev, w_c, lens, step, origin_mode,
+                       emit=True)
+
+
+def lstm_cell_fwd(gates, c_prev):
+    """K8 with no product and no mask on CUDA tensors, its plain version
+    on CPU tensors; not differentiable.  gates fp32 [B, 4D], c_prev fp32
+    [B, D] -> (h, c)."""
     b, four_d = gates.shape
     d = four_d // 4
     if four_d != 4 * d or tuple(c_prev.shape) != (b, d):
@@ -114,47 +244,79 @@ def lstm_cell_fwd(gates, c_prev):
                          f"and [B, D]")
     if not _on_cuda("fused_lstm_cell", gates, c_prev):
         return lstm_cell_reference(gates, c_prev)
-    h = torch.empty((b, d), dtype=torch.float32, device=gates.device)
-    c = torch.empty_like(h)
-    if b and d:
-        _launch("lstm_cell_fwd", gates.device, gates.data_ptr(),
-                _ld(gates), c_prev.data_ptr(), _ld(c_prev), h.data_ptr(),
-                c.data_ptr(), b, d)
-        fused_lstm_cell.launches += 1
-    return h, c
+    return _lstm_launch(gates, None, c_prev, None, None, 0, emit=False)
 
 
 def gru_output_fwd(gu, gc, h_prev, origin_mode=False):
-    """K9 on CUDA tensors, its plain version on CPU tensors; not
-    differentiable.  gu, gc, h_prev fp32 [B, D] -> [B, D]."""
+    """K9 with no product and no mask on CUDA tensors, its plain version
+    on CPU tensors; not differentiable.  gu, gc, h_prev fp32 [B, D] ->
+    [B, D]."""
     if not (gu.shape == gc.shape == h_prev.shape) or gu.dim() != 2:
         raise ValueError(f"fused_gru_output: gu {tuple(gu.shape)}, gc "
                          f"{tuple(gc.shape)}, h_prev {tuple(h_prev.shape)} "
                          f"are not all [B, D]")
     if not _on_cuda("fused_gru_output", gu, gc, h_prev):
         return gru_output_reference(gu, gc, h_prev, origin_mode)
-    b, d = gu.shape
-    out = torch.empty((b, d), dtype=torch.float32, device=gu.device)
-    if b and d:
-        _launch("gru_output_fwd", gu.device, gu.data_ptr(), _ld(gu),
-                gc.data_ptr(), _ld(gc), h_prev.data_ptr(), _ld(h_prev),
-                out.data_ptr(), b, d, int(bool(origin_mode)))
-        fused_gru_output.launches += 1
-    return out
+    return _gru_launch(gu, gc, h_prev, None, None, 0, origin_mode,
+                       emit=False)[0]
 
 
-def _plain_vjp(fn, inputs, cotangents):
-    """Grads of the plain version at `inputs` against `cotangents`."""
+def _plain_vjp(fn, inputs, cotangents, needs):
+    """Grads of the plain version at `inputs` against `cotangents`, for
+    the inputs flagged in `needs` (None for the others)."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in inputs]
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
         outs = fn(*leaves)
         outs = outs if isinstance(outs, tuple) else (outs,)
-        return torch.autograd.grad(outs, leaves, cotangents)
+        wanted = [x for x, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(outs, wanted, cotangents,
+                                         allow_unused=True))
+        return tuple(next(grads) if n else None for n in needs)
+
+
+class _LstmStep(torch.autograd.Function):
+    """K8 forward; the plain step's vjp backward."""
+
+    @staticmethod
+    def forward(ctx, xg, h_prev, c_prev, w, lens, step):
+        ctx.save_for_backward(xg, h_prev, c_prev, w, lens)
+        ctx.step = step
+        return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        xg, h_prev, c_prev, w, lens = ctx.saved_tensors
+        step = ctx.step
+        grads = _plain_vjp(
+            lambda a, b, c, d: lstm_step_reference(a, b, c, d, lens, step),
+            (xg, h_prev, c_prev, w), cots, ctx.needs_input_grad[:4])
+        return (*grads, None, None)
+
+
+class _GruStep(torch.autograd.Function):
+    """K9 forward; the plain step's vjp backward."""
+
+    @staticmethod
+    def forward(ctx, ur_pre, xg_c, h_prev, w_c, lens, step, origin_mode):
+        ctx.save_for_backward(ur_pre, xg_c, h_prev, w_c, lens)
+        ctx.step, ctx.origin_mode = step, origin_mode
+        return gru_step_fwd(ur_pre, xg_c, h_prev, w_c, lens, step,
+                            origin_mode)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        ur_pre, xg_c, h_prev, w_c, lens = ctx.saved_tensors
+        step, mode = ctx.step, ctx.origin_mode
+        grads = _plain_vjp(
+            lambda a, b, c, d: gru_step_reference(a, b, c, d, lens, step,
+                                                  mode),
+            (ur_pre, xg_c, h_prev, w_c), cots, ctx.needs_input_grad[:4])
+        return (*grads, None, None, None)
 
 
 class _LstmCell(torch.autograd.Function):
-    """K8 forward; the plain version's vjp backward (the reference's
-    ``_fused_lstm_cell_bwd``, :1258)."""
+    """K8's cell forward; the plain version's vjp backward (the
+    reference's ``_fused_lstm_cell_bwd``, :1258)."""
 
     @staticmethod
     def forward(ctx, gates, c_prev):
@@ -163,13 +325,13 @@ class _LstmCell(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dh, dc):
-        return tuple(_plain_vjp(lstm_cell_reference, ctx.saved_tensors,
-                                (dh, dc)))
+        return _plain_vjp(lstm_cell_reference, ctx.saved_tensors, (dh, dc),
+                          ctx.needs_input_grad)
 
 
 class _GruOutput(torch.autograd.Function):
-    """K9 forward; the plain version's vjp backward (the reference's
-    ``_fused_gru_bwd``, :1324)."""
+    """K9's output gate forward; the plain version's vjp backward (the
+    reference's ``_fused_gru_bwd``, :1324)."""
 
     @staticmethod
     def forward(ctx, gu, gc, h_prev, origin_mode):
@@ -182,12 +344,34 @@ class _GruOutput(torch.autograd.Function):
         mode = ctx.origin_mode
         grads = _plain_vjp(
             lambda a, b, c: gru_output_reference(a, b, c, mode),
-            ctx.saved_tensors, (dout,))
+            ctx.saved_tensors, (dout,), ctx.needs_input_grad[:3])
         return (*grads, None)
 
 
 def _needs_grad(*ts):
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def lstm_step(xg, h_prev, c_prev, w, lens, step):
+    """One LSTM time step: gates = xg + h_prev @ w in (c, i, f, o) order,
+    the cell, then the mask step < lens.  xg fp32 [B, 4D], h_prev, c_prev
+    [B, D], w [D, 4D], lens int32 [B] -> (h, c, h_emit, c_emit): the
+    carries (h_prev, c_prev past a row's length) and the emitted pair
+    (zero there); differentiable in xg, h_prev, c_prev and w."""
+    if _needs_grad(xg, h_prev, c_prev, w):
+        return _LstmStep.apply(xg, h_prev, c_prev, w, lens, step)
+    return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step)
+
+
+def gru_step(ur_pre, xg_c, h_prev, w_c, lens, step, origin_mode=False):
+    """The GRU time step after its first product (:func:`gru_gate_pre`):
+    the candidate xg_c + (sigmoid(reset) * h_prev) @ w_c, the output gate
+    with sigmoid(update), then the mask step < lens.  -> (h, h_emit);
+    differentiable in ur_pre, xg_c, h_prev and w_c."""
+    if _needs_grad(ur_pre, xg_c, h_prev, w_c):
+        return _GruStep.apply(ur_pre, xg_c, h_prev, w_c, lens, step,
+                              bool(origin_mode))
+    return gru_step_fwd(ur_pre, xg_c, h_prev, w_c, lens, step, origin_mode)
 
 
 def fused_lstm_cell(gates, c_prev):
@@ -206,5 +390,7 @@ def fused_gru_output(gu, gc, h_prev, origin_mode=False):
     return gru_output_fwd(gu, gc, h_prev, origin_mode)
 
 
+# every launch of K8 (lstm_step and fused_lstm_cell) and of K9 (gru_step
+# and fused_gru_output)
 fused_lstm_cell.launches = 0
 fused_gru_output.launches = 0

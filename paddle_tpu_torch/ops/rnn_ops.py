@@ -14,14 +14,17 @@ Where the reference scans with ``lax.scan``, the recurrence here is a
 Python loop over T with the same per-step validity mask: past a row's
 length its memories freeze and its outputs are 0; ``is_reverse`` walks T
 backwards, so a short row's reverse scan holds h0 and c0 over its pad
-positions until its real last token.  Each step's cell arithmetic runs
-the hand-written CUDA kernels of ``ops/rnn_kernels.py`` on a CUDA tensor:
-K8 (LSTM cell) under the default activations without peepholes or
-projection, K9 (GRU output gate) under the default activations; the
-other configurations compose the cell from torch ops, exactly as the
-reference does.  None of these ops has a custom grad: the generic grad
-recomputes the loop under torch autograd, through the kernels'
-``autograd.Function`` s.
+positions until its real last token.  Under the default activations
+without peepholes or projection, each LSTM time step is one call of
+``rnn_kernels.lstm_step`` (K8: the step's product, cell and mask in one
+launch on a CUDA tensor), and under the default activations each GRU time
+step is ``rnn_kernels.gru_gate_pre`` (one ``torch.addmm``) and
+``rnn_kernels.gru_step`` (K9: the candidate's product, the output gate and
+the mask); on CPU tensors these run their plain versions, the reference's
+composition.  The other configurations compose the step from torch ops,
+exactly as the reference does.  None of these ops has a custom grad: the
+generic grad recomputes the loop under torch autograd, through the
+kernels' ``autograd.Function`` s.
 """
 
 import torch
@@ -43,11 +46,6 @@ def _fused_cell_ok(gate_act, cell_act, cand_act, use_peepholes, proj):
     (the reference's ``_pallas_cell_ok``, :33)."""
     return not use_peepholes and proj is None and \
         gate_act == "sigmoid" and cell_act == "tanh" and cand_act == "tanh"
-
-
-def _valid(lens, step, dtype):
-    """[B, 1] 0/1: whether time `step` lies inside each row."""
-    return (step < lens).to(dtype)[:, None]
 
 
 def _steps(t, is_reverse):
@@ -73,28 +71,31 @@ def _lstm_scan(x, lens, w, bias, h0, c0, gate_act, cell_act, cand_act,
     fused = _fused_cell_ok(gate_act, cell_act, cand_act, use_peepholes, proj)
 
     hs, cs = [None] * t, [None] * t
+    if fused:
+        x = x.contiguous()
+        for step in _steps(t, is_reverse):
+            h_prev, c_prev, hs[step], cs[step] = rnn_kernels.lstm_step(
+                x[:, step], h_prev, c_prev, w, lens, step)
+        return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
     for step in _steps(t, is_reverse):
         gates = x[:, step] + h_prev @ w                 # [B, 4D]
-        if fused:
-            h, c = rnn_kernels.fused_lstm_cell(gates, c_prev)
-        else:
-            gc, gi, gf, go = torch.chunk(gates, 4, dim=-1)
-            if use_peepholes:
-                gi = gi + c_prev * w_ic
-                gf = gf + c_prev * w_fc
-            i = _ACT[gate_act](gi)
-            f = _ACT[gate_act](gf)
-            cand = _ACT[cand_act](gc)
-            c = f * c_prev + i * cand
-            if use_peepholes:
-                go = go + c * w_oc
-            o = _ACT[gate_act](go)
-            h = o * _ACT[cell_act](c)
+        gc, gi, gf, go = torch.chunk(gates, 4, dim=-1)
+        if use_peepholes:
+            gi = gi + c_prev * w_ic
+            gf = gf + c_prev * w_fc
+        i = _ACT[gate_act](gi)
+        f = _ACT[gate_act](gf)
+        cand = _ACT[cand_act](gc)
+        c = f * c_prev + i * cand
+        if use_peepholes:
+            go = go + c * w_oc
+        o = _ACT[gate_act](go)
+        h = o * _ACT[cell_act](c)
         if proj is not None:
             h = h @ proj
             if proj_act and proj_act != "identity":
                 h = _ACT[proj_act](h)
-        valid = _valid(lens, step, x.dtype)
+        valid = rnn_kernels.valid_mask(lens, step, x.dtype)
         h = h * valid + h_prev * (1 - valid)
         c = c * valid + c_prev * (1 - valid)
         # emit zeros at pad positions (lod outputs are masked-dense)
@@ -155,21 +156,22 @@ def gru(ins, attrs):
     fused = gate_act == "sigmoid" and cand_act == "tanh"
 
     hs = [None] * t
+    if fused:
+        x = x.contiguous()
+        for step in _steps(t, attrs.get("is_reverse", False)):
+            xg = x[:, step]
+            ur_pre = rnn_kernels.gru_gate_pre(xg[:, :2 * d], h_prev, w_ur)
+            h_prev, hs[step] = rnn_kernels.gru_step(
+                ur_pre, xg[:, 2 * d:], h_prev, w_c, lens, step, origin_mode)
+        return {"Hidden": [torch.stack(hs, dim=1)], "OutLen": [lens]}
     for step in _steps(t, attrs.get("is_reverse", False)):
         xg = x[:, step]
         ur_pre = xg[:, :2 * d] + h_prev @ w_ur
         u, r = torch.chunk(_ACT[gate_act](ur_pre), 2, dim=-1)
-        cand_pre = xg[:, 2 * d:] + (r * h_prev) @ w_c
-        if fused:
-            # K9 reads the update gate's pre-activation in place, out of
-            # the [B, 2D] (u | r) buffer
-            h = rnn_kernels.fused_gru_output(ur_pre[:, :d], cand_pre, h_prev,
-                                             origin_mode)
-        else:
-            cand = _ACT[cand_act](cand_pre)
-            h = u * h_prev + (1 - u) * cand if origin_mode \
-                else (1 - u) * h_prev + u * cand
-        valid = _valid(lens, step, x.dtype)
+        cand = _ACT[cand_act](xg[:, 2 * d:] + (r * h_prev) @ w_c)
+        h = u * h_prev + (1 - u) * cand if origin_mode \
+            else (1 - u) * h_prev + u * cand
+        valid = rnn_kernels.valid_mask(lens, step, x.dtype)
         h = h * valid + h_prev * (1 - valid)
         hs[step] = h * valid
         h_prev = h

@@ -449,6 +449,8 @@ SP_MESH = {"data": 2, "model": 2, "seq": 4, "pipe": 2}
 SP_CONFIGS = [("BERT-base attention width", 768, 12, 4, True),
               ("BERT-block-shaped", 256, 4, 4, False)]
 SP_PARITY_STEPS, SP_TIMED_STEPS, SP_LOSS_RTOL = 2, 4, 1e-5
+# bytes written between launches timed cold: above the H100's 50 MB L2
+L2_FLUSH_BYTES = 96 << 20
 
 
 def phase(name):
@@ -481,28 +483,66 @@ def build_phase():
                 print(f"  {name}: {line.strip()}")
 
 
-def time_ms(torch, fn, reps=50):
+def time_ms(torch, fn, reps=50, before=None):
     """Median of `reps` CUDA-event timings of fn() after a warm-up.  A
     spin kernel keeps the card busy while the host enqueues every call,
     so each event pair brackets device time, not Python launch time; the
     spin lasts at least twice the measured enqueue time of all the calls
-    (at a 2 GHz clock, more than the card's)."""
-    for _ in range(5):
+    (at a 2 GHz clock, more than the card's).  `before`, where given,
+    runs ahead of each call outside its event pair (the cold timings
+    flush L2 with it: l2_flush)."""
+    def one():
+        if before is not None:
+            before()
         fn()
+
+    for _ in range(5):
+        one()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    one()
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(int(max(1e8, 2e9 * 2 * reps * enqueue_s)))
     for a, b in events:
+        if before is not None:
+            before()
         a.record()
         fn()
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def launch_floor_ms(torch):
+    """The launch floor: a one-element Tensor.zero_ timed by time_ms,
+    the least a single kernel launch shows between CUDA events."""
+    z = torch.zeros(1, device="cuda")
+    return time_ms(torch, z.zero_)
+
+
+def l2_flush(torch):
+    """A callable that writes L2_FLUSH_BYTES of device memory, more than
+    the H100's 50 MB L2: run before a launch, it leaves the launch's
+    inputs in device memory, as a caller that ran other work finds them."""
+    buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    return buf.zero_
+
+
+def wall_ms(torch, fn, reps=50):
+    """Median host wall of `reps` calls of fn() after 5 warm-up calls,
+    each ended by a synchronisation of the card (fn's own, or added)."""
+    walls = []
+    for i in range(5 + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= 5:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
 
 
 def attention_cases(torch):
@@ -2037,19 +2077,30 @@ def rnn_kernel_phase(torch):
                bound_row(4 * b * d * 4, 8 * b * d),
                f"cell B {b} D {d} origin_mode {mode} strided {strided}")
 
-    # K7: the sequence-softmax program's [16, 128], ragged lengths in
-    # [1, 50] with an empty row, and T = 1000
-    def lens(b, t, lo):
-        return torch.randint(lo, t + 1, (b,), generator=g, device="cuda",
-                             dtype=torch.int32)
+    # K7: the sequence-softmax program's [16, 128] and ragged lengths in
+    # [1, 50] with an empty row (a warp a row up to T 64); T = 1000,
+    # 1025 (4-byte loads) and 4096 (16-byte loads), a CTA a row with the
+    # row in registers; T = 10000, a CTA walking the row in shared
+    # memory; the last three each with an empty and a full row
+    def lens(b, t, lo, edges=False):
+        n = torch.randint(lo, t + 1, (b,), generator=g, device="cuda",
+                          dtype=torch.int32)
+        if edges:
+            n[0], n[1] = 0, t
+        return n
 
     ragged = lens(16, 50, 1)
     ragged[3] = 0
+    floor = launch_floor_ms(torch)
+    print(f"  launch floor (one-element Tensor.zero_): {floor:.6f} ms")
     for name, x, n in (
             ("b16_t128", randn(16, 128), torch.full(
                 (16,), 128, dtype=torch.int32, device="cuda")),
             ("ragged_t50_empty_row", randn(16, 50), ragged),
-            ("b16_t1000", randn(16, 1000), lens(16, 1000, 1))):
+            ("b16_t1000", randn(16, 1000), lens(16, 1000, 1)),
+            ("b16_t1025", randn(16, 1025), lens(16, 1025, 1, True)),
+            ("b8_t4096", randn(8, 4096), lens(8, 4096, 1, True)),
+            ("b4_t10000", randn(4, 10000), lens(4, 10000, 1, True))):
         mask = sk.length_mask(n, x.shape[1])
         lib = torch_masked_softmax(torch, x, n)
         # the library call leaves an empty row NaN; K7 writes it 0
@@ -2064,7 +2115,8 @@ def rnn_kernel_phase(torch):
         report("softmax", name, err, lambda: sk.masked_softmax(x, n),
                lambda: sk.masked_softmax_reference(x, mask), lib,
                bound_row(8 * x.numel() + 4 * n.numel(), 7 * valid),
-               f"x {tuple(x.shape)} ({valid} valid)")
+               f"x {tuple(x.shape)} ({valid} valid)",
+               {"launch_floor_ms": lambda: floor})
     rnn_scan_checks(torch)
     rnn_scan_launch_check(torch)
     return rows
@@ -2430,13 +2482,57 @@ def path_ids(rng, vocab, shard):
     return idx
 
 
+def lookup_walls(torch, ids):
+    """SparseShardServer.lookup_local's median wall (wall_ms) on shard 0
+    of the CTR config's deep and wide tables (a 500,000-row block on the
+    card each), at one step's lookup `ids`, after a first lookup checked
+    against the host block bit for bit; every call one K11 launch.
+    Returns {"deep": ms, "wide": ms}."""
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.sparse as sparse
+    from paddle_tpu_torch.models.ctr import CTR_DIM, CTR_VOCAB
+
+    walls = {}
+    for label, dim in (("deep", CTR_DIM), ("wide", 1)):
+        cfg = sparse.ShardedTableConfig(
+            f"lookup_{label}", CTR_VOCAB, dim, ["127.0.0.1:0"] * CTR_SHARDS,
+            seed=SEED)
+        srv = sparse.SparseShardServer("127.0.0.1:0", 0, {cfg.name: cfg},
+                                       device_table=True,
+                                       place=fluid.CUDAPlace(0))
+        got = srv.lookup_local(cfg.name, ids)
+        if not np.array_equal(got, srv.values[cfg.name][ids]):
+            raise SystemExit(f"lookup_local on the {label} table departs "
+                             f"from the host block")
+        before, calls = sparse.gather_rows.launches, [0]
+
+        def lookup():
+            calls[0] += 1
+            srv.lookup_local(cfg.name, ids)
+
+        walls[label] = wall_ms(torch, lookup)
+        per_call = (sparse.gather_rows.launches - before) / calls[0]
+        if per_call != 1:
+            raise SystemExit(f"lookup_local launched gather_rows "
+                             f"{per_call} times a call, expected 1")
+        del srv
+    torch.cuda.empty_cache()
+    return walls
+
+
 def ctr_kernel_phase(torch):
     """K11 against its plain version (index_select), bit for bit, at the
     CTR step's deep and wide lookups (the ids one shard gathers in one
     step, from a 500,000-row shard block), D = 129, a bf16 table, N = 1
     and a table whose row stride (68 bytes) is not a multiple of 16; and
-    ids outside [0, V), whose rows K11 writes as zeros.  Bound: each
-    gathered row read once and written once, 8 bytes an id, over
+    ids outside [0, V), whose rows K11 writes as zeros.  At every case
+    also the host entry lookup_local runs (gather_rows_to_host: host ids
+    in, numpy rows out, written by K11 into pinned host memory): equal
+    bit for bit, its output pinned, one launch a call.  At the deep and
+    wide lookups: the kernel's time warm and cold (L2 flushed before
+    each launch), into device memory and into pinned host memory, the
+    host entry's and lookup_local's walls, and the launch floor.  Bound:
+    each gathered row read once and written once, 8 bytes an id, over
     3.35 TB/s; index_select is the plain version and the library call."""
     from paddle_tpu_torch.models.ctr import CTR_VOCAB
     from paddle_tpu_torch.sparse import gather as ga
@@ -2445,7 +2541,8 @@ def ctr_kernel_phase(torch):
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     rng = np.random.RandomState(SEED + 9)
     height = CTR_VOCAB // CTR_SHARDS
-    deep_ids = torch.from_numpy(path_ids(rng, CTR_VOCAB, 0)).cuda()
+    deep_np = path_ids(rng, CTR_VOCAB, 0)
+    deep_ids = torch.from_numpy(deep_np).cuda()
 
     def table(v, d, dtype=torch.float32):
         return torch.randn(v, d, generator=g, device="cuda").to(dtype)
@@ -2459,45 +2556,89 @@ def ctr_kernel_phase(torch):
              ("deep_d16_bf16", table(height, 16, torch.bfloat16), deep_ids),
              ("n1_d16_f32", table(height, 16), ids(height, 1)),
              ("stride68_d16_f32", table(height, 17)[:, :16], deep_ids)]
+    flush = l2_flush(torch)
+    floor = launch_floor_ms(torch)
+    print(f"launch floor (one-element Tensor.zero_): {floor:.6f} ms")
     rows = {}
     for name, t, idx in cases:
         out = ga.gather_rows(t, idx)
         ref = ga.gather_rows(t, idx, impl="plain")
         torch.cuda.synchronize()
-        exact = torch.equal(out, ref)
+        exact = bits_equal(torch, out, ref)
         err = (out.float() - ref.float()).abs().max().item()
+        host_idx = idx.cpu().numpy()
+        before = ga.gather_rows.launches
+        # the host entry's rows as bytes, in the memory it returned
+        host = torch.from_numpy(ga.gather_rows_to_host(t, host_idx).view(
+            np.uint8))
+        host_launches = ga.gather_rows.launches - before
+        host_ok = (host.is_pinned() and host_launches == 1 and torch.equal(
+            host, ref.cpu().contiguous().view(torch.uint8)))
         n, d, s = idx.numel(), t.shape[1], t.element_size()
         row = {"max_abs_err": err, **bound_row(2 * n * d * s + 8 * n, 0)}
         if name.startswith(("deep_n", "wide_n")):
+            ids_pin = idx.cpu().pin_memory()
+            out_pin = torch.empty(tuple(ref.shape), dtype=t.dtype,
+                                  pin_memory=True)
+
+            def kernel():
+                return ga.gather_rows(t, idx)
+
+            def pinned():
+                return ga._launch(t, ids_pin, out_pin)
+
             row.update(
-                ms=time_ms(torch, lambda: ga.gather_rows(t, idx)),
+                ms=time_ms(torch, kernel),
+                cold_ms=time_ms(torch, kernel, before=flush),
+                pinned_ms=time_ms(torch, pinned),
+                pinned_cold_ms=time_ms(torch, pinned, before=flush),
+                host_entry_ms=wall_ms(
+                    torch, lambda: ga.gather_rows_to_host(t, host_idx)),
+                launch_floor_ms=floor,
                 plain_ms=time_ms(torch, lambda: ga.gather_rows_reference(
                     t, idx)),
                 library_ms=time_ms(torch, lambda: torch.index_select(
                     t, 0, idx)))
-            times = (f" kernel {row['ms']:.6f} ms plain {row['plain_ms']:.6f}"
-                     f" ms index_select {row['library_ms']:.6f} ms")
+            times = (f" kernel {row['ms']:.6f} ms (cold {row['cold_ms']:.6f})"
+                     f", into pinned memory {row['pinned_ms']:.6f} ms (cold "
+                     f"{row['pinned_cold_ms']:.6f}), host entry wall "
+                     f"{row['host_entry_ms']:.6f} ms, plain "
+                     f"{row['plain_ms']:.6f} ms, index_select "
+                     f"{row['library_ms']:.6f} ms")
         else:
             times = ""
         rows[name] = row
         print(f"gather_rows {name}: table {tuple(t.shape)} stride "
               f"{t.stride(0) * s} B {str(t.dtype)[6:]} N {n}: equal bit for "
-              f"bit {exact} (max_abs_err {err:.3e}){times} bound "
+              f"bit {exact} (max_abs_err {err:.3e}); host entry equal, "
+              f"pinned, {host_launches} launch: {host_ok}{times} bound "
               f"{row['bound_ms']:.6f} ms ({row['bound_by']})", flush=True)
         if not exact:
             raise SystemExit(f"gather_rows disagrees with its plain version "
                              f"on {name}: {err}")
+        if not host_ok:
+            raise SystemExit(f"gather_rows' host entry on {name}: pinned "
+                             f"{host.is_pinned()}, {host_launches} launches,"
+                             f" or rows unequal to the plain version's")
     t = table(1000, 16)
     bad = torch.tensor([3, -1, 1000, 999, 10 ** 12], device="cuda")
     out = ga.gather_rows(t, bad)
+    host = torch.from_numpy(ga.gather_rows_to_host(t, bad.cpu().numpy()))
     want = torch.zeros_like(out)
     want[[0, 3]] = t[[3, 999]]
     torch.cuda.synchronize()
+    same = torch.equal(out, want) and torch.equal(host, want.cpu())
     print(f"gather_rows ids outside [0, V): their rows zero, the others "
-          f"equal: {torch.equal(out, want)}")
-    if not torch.equal(out, want):
+          f"equal, on the card and through the host entry: {same}")
+    if not same:
         raise SystemExit("gather_rows read or wrote wrong rows for ids "
                          "outside the table")
+    del cases, flush
+    walls = lookup_walls(torch, deep_np)
+    print(f"lookup_local wall (median of 50, one shard, one step's ids): "
+          f"deep {walls['deep']:.6f} ms, wide {walls['wide']:.6f} ms")
+    rows["deep_n65536_d16_f32"]["lookup_ms"] = walls["deep"]
+    rows["wide_n65536_d1_f32"]["lookup_ms"] = walls["wide"]
     return rows
 
 

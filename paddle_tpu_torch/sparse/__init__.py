@@ -29,7 +29,8 @@ Shard checkpoints (``sparse/checkpoint.py``) are not ported yet.
 from .client import SparseTableClient, TableShardLostError
 from .engine import (SHARDED_LOOKUP_OP, SHARDED_PUSH_OP, install_client,
                      shard_program)
-from .gather import dedup_gather, dedup_ids, gather_rows, pad_bucket
+from .gather import (dedup_gather, dedup_ids, gather_rows,
+                     gather_rows_to_host, pad_bucket)
 from .metrics import METRICS, SparseMetrics
 from .optim import SparseOptimizer
 from .partition import RowPartition
@@ -43,7 +44,7 @@ __all__ = [
     "SparseOptimizer", "SparseShardServer", "SparseTableClient",
     "TableShardLostError", "SHARDED_LOOKUP_OP", "SHARDED_PUSH_OP",
     "bind_local_server", "clear_tables", "declare_sharded_table",
-    "dedup_gather", "dedup_ids", "gather_rows", "get_table",
-    "install_client", "is_sharded", "load_table", "pad_bucket",
-    "shard_program", "tables",
+    "dedup_gather", "dedup_ids", "gather_rows", "gather_rows_to_host",
+    "get_table", "install_client", "is_sharded", "load_table",
+    "pad_bucket", "shard_program", "tables",
 ]

@@ -11,10 +11,18 @@ handful of stable shapes, and only then do rows move: one gather of
 K11.  The TPU kernel ``_pallas_gather`` (:54, reached at ``pl.pallas_call``
 :75) moved one ``(1, D)`` row per grid step through a scalar-prefetched
 ``BlockSpec``.  Here it is ``csrc/gather_rows.cu``, written by hand for
-Hopper: a byte copy, so one kernel serves every dtype.  :func:`gather_rows`
-launches it on a CUDA table at every N and D (counted in
-``gather_rows.launches``) or raises; on a CPU table it runs the plain
-version :func:`gather_rows_reference`, ``table.index_select(0, idx)``.
+Hopper: a byte copy, so one kernel serves every dtype.  Two entries
+launch it on a CUDA table at every N and D (counted in
+``gather_rows.launches``) or raise; on a CPU table both run the plain
+version :func:`gather_rows_reference`, ``table.index_select(0, idx)``:
+
+- :func:`gather_rows_to_host` is the shard lookup's: host ids in, host
+  numpy rows out.  The ids go into a pinned buffer and the kernel reads
+  them there and writes the rows into a pinned output, so a lookup is
+  one launch and one synchronisation (the reference's
+  ``np.asarray(gather_rows(dev, ids))``, without its two copies).
+- :func:`gather_rows` returns the rows as a tensor on the table's device.
+
 The reference took its kernel only on a TPU with ``D % 128 == 0`` and
 XLA's ``take`` elsewhere, by measurement (``_impl_for`` :89-114); the port
 has no selection (and no ``FLAGS_sparse_gather_impl``): ``impl="plain"``
@@ -72,27 +80,31 @@ def _kernel():
     return fn
 
 
-def _launch(table, idx):
-    """K11: out[i] = table[idx[i]] (zeros where idx[i] is outside
-    [0, V)), on the current stream."""
+def _check_table(table):
+    """Whether K11 takes `table` (a CUDA tensor): raises if not."""
     if table.dim() != 2:
         raise ValueError(f"gather_rows takes a [V, D] table, not "
                          f"{tuple(table.shape)}")
     if table.shape[1] > 1 and table.stride(1) != 1:
         raise ValueError("gather_rows: the table's rows must have unit "
                          "stride")
-    v, d = table.shape
-    n = idx.shape[0]
-    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+
+
+def _launch(table, idx, out):
+    """K11: out[i] = table[idx[i]] (zeros where idx[i] is outside
+    [0, V)), on the current stream.  `idx` (int64 [N]) and `out` ([N, D]
+    dense, the table's dtype) lie on the table's device or in pinned
+    host memory; the kernel refuses memory the device cannot reach."""
+    n, d = out.shape
     if n == 0 or d == 0:
         return out
-    idx = idx.to(torch.int64).contiguous()
     s = table.element_size()
     fn, err_str = _kernel()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
-        rc = fn(table.data_ptr(), v, d * s, table.stride(0) * s,
-                idx.data_ptr(), n, out.data_ptr(), stream)
+        rc = fn(table.data_ptr(), table.shape[0], d * s,
+                table.stride(0) * s, idx.data_ptr(), n, out.data_ptr(),
+                stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows launch failed: "
                            f"{err_str(rc).decode()}")
@@ -118,7 +130,54 @@ def gather_rows(table, idx, impl=None):
     if table.device.type != "cuda":
         raise ValueError(f"gather_rows runs on CUDA or CPU tables, not "
                          f"{table.device}")
-    return _launch(table, idx)
+    _check_table(table)
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    return _launch(table, idx.contiguous(), out)
+
+
+def _host_numpy(rows):
+    """A host tensor as numpy, sharing its memory (bfloat16 as
+    ``ml_dtypes.bfloat16``: torch's ``.numpy()`` has no bfloat16)."""
+    if rows.dtype != torch.bfloat16:
+        return rows.numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        raise TypeError("bfloat16 rows need the ml_dtypes package to be "
+                        "numpy") from None
+    return rows.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
+def gather_rows_to_host(table, ids):
+    """Rows ``ids`` of ``table`` ``[V, D]`` as host numpy ``[N, D]``.
+    ``ids``: host integers [N] (numpy, a sequence, or a CPU tensor).  On
+    a CUDA table the ids are written into a pinned int64 buffer, K11
+    reads them there and writes the rows into a pinned output, in one
+    launch on the current stream, which is then synchronised; the array
+    returned is that output's memory and keeps it alive as long as it
+    lives.  On a CPU table: the plain version."""
+    ids = np.asarray(ids)
+    if ids.ndim != 1:
+        raise ValueError(f"gather_rows takes ids [N], not {ids.shape}")
+    if ids.size and ids.dtype.kind not in "iu":
+        raise TypeError(f"gather_rows takes integer ids, not {ids.dtype}")
+    ids = np.ascontiguousarray(ids, np.int64)
+    if table.device.type == "cpu":
+        return _host_numpy(gather_rows_reference(table,
+                                                 torch.from_numpy(ids)))
+    if table.device.type != "cuda":
+        raise ValueError(f"gather_rows runs on CUDA or CPU tables, not "
+                         f"{table.device}")
+    _check_table(table)
+    out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
+                      pin_memory=True)
+    if out.numel():
+        staged = torch.empty(ids.shape, dtype=torch.int64, pin_memory=True)
+        staged.numpy()[:] = ids
+        _launch(table, staged, out)
+        torch.cuda.current_stream(table.device).synchronize()
+    return _host_numpy(out)
 
 
 gather_rows.launches = 0

@@ -9,8 +9,9 @@ transport:
 - ``sparse_lookup`` — batched, deduped, SHARD-LOCAL indices in, value
   block out.  With ``device_table=True`` the block has a mirror on a
   device (``cuda:0`` unless a CPU place is given) and rows gather through
-  K11 (``sparse.gather``); the default gathers from the host block with
-  a numpy take (the CPU-pserver regime).
+  K11 straight into pinned host memory (``sparse.gather``); the default
+  gathers from the host block with a numpy take (the CPU-pserver
+  regime).
 - ``sparse_push`` — async touched-rows optimizer update applied on
   arrival under the table lock (no round barrier; read-your-writes
   ordering is the client's per-endpoint lane).
@@ -113,19 +114,22 @@ class SparseShardServer:
 
     def lookup_local(self, name, local_ids):
         """Rows for shard-local indices (host numpy) — the in-process
-        fast path the colocated trainer uses directly (no RPC)."""
+        fast path the colocated trainer uses directly (no RPC).  On a
+        CUDA mirror the rows come back through one K11 launch that reads
+        the ids from and writes the rows into pinned host memory
+        (``gather.gather_rows_to_host``)."""
         self._cfg(name)
         ids = np.asarray(local_ids).reshape(-1)
         self._check_local(name, ids)
         with self._lock:
             if self.device_table:
-                from .gather import gather_rows
+                from .gather import gather_rows_to_host
 
                 dev = self._dev.get(name)
                 if dev is None:
                     dev = self._dev[name] = torch.from_numpy(
                         self.values[name]).to(self.device, copy=True)
-                return gather_rows(dev, ids).cpu().numpy()
+                return gather_rows_to_host(dev, ids)
             return self.values[name][ids]
 
     def push_local(self, name, local_rows, grads):

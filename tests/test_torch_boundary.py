@@ -17,7 +17,9 @@ PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, fs in os.walk(os.path.join(REPO, "paddle_tpu_torch"))
     if "_build" not in os.path.relpath(d, REPO).split(os.sep)
-    for f in fs if f.endswith(".py")) + ["chip_smoke.py"]
+    for f in fs if f.endswith(".py")) + [
+        "chip_smoke.py", "k6_compare.py", "rnn_compare.py",
+        "k7_k11_compare.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 

@@ -143,15 +143,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    after the drain; tokens/s, per-token latency, the step's device-to-
    host copy.
 21. paged attention kernel vs plain: K4 (float32 and bf16 arenas) and
-   K5 (int8 arenas with fp32 per-token scales), one CUDA loop, against
-   their plain versions at bench_kernels.py's decode shape (S 64, H 8,
-   D 128, blocks of 16, 16 a slot, 513 in the arena, lengths 192-256), at
-   the disaggregated path's own call (one slot, H 8, D 64, blocks of 16,
-   48 tokens) and at ragged and odd shapes (D 4, 8, 64, 100 and 320,
-   above 256; blocks of 4 and 5; an empty slot, a 1-token slot, a shared
-   block): float32 and int8 within 2e-5, bf16 within 2e-2, empty slots
-   exactly 0; kernel, plain and two-call yardstick (index_select +
-   masked SDPA) times at the decode, disaggregated and D 320 shapes.
+   K5 (int8 arenas with fp32 per-token scales; up to D 256 a split-KV
+   kernel of its own) against their plain versions at bench_kernels.py's
+   decode shape (S 64, H 8, D 128, blocks of 16, 16 a slot, 513 in the
+   arena, lengths 192-256), at the disaggregated path's own call (one
+   slot, H 8, D 64, blocks of 16, 48 tokens) and at ragged and odd shapes
+   (D 4, 8, 64, 100 and 320, above 256; blocks of 4 and 5; an empty slot,
+   a 1-token slot, a shared block): float32 and int8 within 2e-5, bf16
+   within 2e-2, empty slots exactly 0; kernel, plain and two-call
+   yardstick (index_select + masked SDPA) times at the decode,
+   disaggregated and D 320 shapes, K5 also cold (L2 flushed).  Then K5's
+   split kernel: its SASS (asynchronous copies, LDGSTS, and no LDL/STL
+   in each instantiation), the decode shape over distinct blocks (a
+   permutation of 1024 blocks) and a long context (S 8, 256 blocks a
+   slot, lengths 3072-4096, a 67 MB arena) timed warm and cold, the split
+   edges (lengths 0, 1, 16, 17 and 256 in one batch), and one launch a
+   call from the profiler's host record (no second merge kernel).
 22. disaggregated decode: the trained model behind a DisaggRouter: one
    PrefillReplica whose prefill_fn runs the decode program over the
    prompt and quantizes every decoder layer's self-attention K/V
@@ -409,9 +416,24 @@ PAGED_CASES = [PAGED_BENCH, PAGED_DISAGG,
                 [48, 1, 0, 33, 64, 17, 16, 2]),
                ("d100_bs5_odd", 3, 5, 100, 5, 4, 13, [19, 20, 0]),
                PAGED_WIDE]
+# K5's split-KV kernel (int8 arenas only): the decode shape over distinct
+# blocks (a permutation of blocks 1..S*MB, as a pool gives each slot its
+# own; the 16.8 MB arena of PAGED_BENCH's 513 blocks sits in the 50 MB L2),
+# a long context with few slots (lengths 3072-4096; a 67 MB arena), and the
+# split edges: lengths 0, 1, one block, one block and a token, and MB * Bs
+# in one batch (16 splits of one block each: trailing splits empty)
+PAGED_DISTINCT = ("bench_distinct_n1025", 64, 8, 128, 16, 16, 1025, None)
+PAGED_LONG = ("long_s8_mb256_n2049", 8, 8, 128, 16, 256, 2049, None)
+PAGED_EDGES = ("split_edges_s5", 5, 8, 128, 16, 16, 81,
+               [0, 1, 16, 17, 256])
+PAGED_SPLIT_CASES = [PAGED_DISTINCT, PAGED_LONG, PAGED_EDGES]
+# tables that are a permutation of blocks 1..S*MB (N = S * MB + 1)
+PAGED_PERMUTED = {PAGED_DISTINCT[0], PAGED_LONG[0]}
 # kernel against its plain version on the same tensors: float32 and the
 # int8 arm (both dequantized in float32), bf16 (the output rounded to bf16)
 PAGED_ATOL = {"float32": 2e-5, "int8": 2e-5, "bfloat16": 2e-2}
+# paged_attention_quant calls under the profiler in k5_launch_check
+K5_PROFILED_CALLS = 8
 # the sequence-parallel slice (__graft_entry__.py:132-219, _dryrun_one):
 # K3 at the ring's shard shape [B 4, H 12, T/p 512, D 64] float32 (the
 # step's batch 8 cut over data 2), causal
@@ -2957,16 +2979,22 @@ def nmt_kernel_phase(torch):
 
 def paged_operands(torch, case, kind, rng):
     """(q, k, v, k_scale, v_scale, table, lengths) on the card for one
-    PAGED_CASES entry: float32 or bf16 arenas from normal draws, or the
-    int8 arm's arenas quantized from them with quantize_kv."""
+    paged case: float32 or bf16 arenas from normal draws, or the int8
+    arm's arenas quantized from them with quantize_kv; a random table
+    (slot 1 starting with slot 0's block), or for PAGED_PERMUTED cases a
+    permutation of blocks 1..S*MB."""
     from paddle_tpu_torch.ops import quant_kernels as qk
 
-    _, s_, h, d, bs, mb, n, lens = case
+    name, s_, h, d, bs, mb, n, lens = case
     if lens is None:
         lens = rng.randint(3 * mb * bs // 4, mb * bs + 1, s_)
-    table = rng.randint(1, n, (s_, mb)).astype(np.int32)
-    if s_ > 1:
-        table[1, 0] = table[0, 0]
+    if name in PAGED_PERMUTED:
+        table = rng.permutation(np.arange(1, n, dtype=np.int32)).reshape(
+            s_, mb)
+    else:
+        table = rng.randint(1, n, (s_, mb)).astype(np.int32)
+        if s_ > 1:
+            table[1, 0] = table[0, 0]
     q = rng.randn(s_, h, d).astype(np.float32)
     k = rng.randn(n, bs, h, d).astype(np.float32)
     v = rng.randn(n, bs, h, d).astype(np.float32)
@@ -3020,6 +3048,120 @@ def paged_bound(q, k, lens, quant):
     return bound_row(nbytes, 4 * live * h * d)
 
 
+def k5_sass_check():
+    """K5's split-KV kernel as built: asynchronous copies into shared
+    memory (LDGSTS) and no local-memory traffic (LDL, STL: register
+    spills), in each of its four instantiations (float32 and bf16 q, at
+    most 4 and 8 tokens a lane)."""
+    bad, seen = [], 0
+    for n, c in sorted(sass_counts("paged_attention").items()):
+        if "paged_attention_split_kernel" not in n:
+            continue
+        seen += 1
+        print(f"  SASS {n}: {c['instructions']} instructions, " +
+              " ".join(f"{op} {c[op]}" for op in SASS_OPS))
+        if not c["LDGSTS"] or c["LDL"] or c["STL"]:
+            bad.append(n)
+    if seen != 4 or bad:
+        raise SystemExit(f"paged_attention_split_kernel: {seen} "
+                         f"instantiations (want 4), without asynchronous "
+                         f"copies or spilling: {bad}")
+
+
+def k5_launch_check(torch, args):
+    """K5_PROFILED_CALLS calls of paged_attention_quant under the
+    profiler, after a warm-up call: its wrapper's counter and the host's
+    record of kernel launches (the CUDA runtime's launch calls) must both
+    count one a call, so the splits are merged in the same launch; the
+    device kernels traced are printed beside."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    qk.paged_attention_quant(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        before = qk.paged_attention_quant.launches
+        for _ in range(K5_PROFILED_CALLS):
+            qk.paged_attention_quant(*args)
+        torch.cuda.synchronize()
+    calls = qk.paged_attention_quant.launches - before
+    host = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and "Launch" in e.key}
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    # the _sleep ahead of the calls is one launch of its own
+    launched = sum(host.values()) - 1
+    print(f"  paged_attention_quant: {calls} calls, host launch calls "
+          f"{host} (less the _sleep: {launched}); device kernels traced: "
+          + ", ".join(f"{k[:60]} x{c}" for k, c in kernels.items()),
+          flush=True)
+    if calls != K5_PROFILED_CALLS or launched != K5_PROFILED_CALLS:
+        raise SystemExit(f"paged_attention_quant: {calls} counted and "
+                         f"{launched} launched in {K5_PROFILED_CALLS} "
+                         f"calls; want one launch a call")
+
+
+def paged_case(torch, case, kind, rng, timed, cold=None):
+    """One paged case on the card: the wrapper against its plain version
+    (within PAGED_ATOL, empty slots exactly zero), and where `timed`,
+    kernel, plain and two-call yardstick times against the bound, with
+    the kernel also timed cold (`cold`: the L2 flush) where given.
+    Returns (the row, the operands)."""
+    from paddle_tpu_torch.ops import paged_kernels as pk
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    q, k, v, ks, vs, table, lens = paged_operands(torch, case, kind, rng)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    if kind == "int8":
+        args = (q, k, v, ks, vs, table, lens)
+
+        def fn():
+            return qk.paged_attention_quant(*args)
+
+        def plain():
+            return qk.paged_attention_quant_reference(*args, scale)
+    else:
+        args = (q, k, v, table, lens)
+
+        def fn():
+            return pk.paged_attention(*args)
+
+        def plain():
+            return pk.paged_attention_reference(*args, scale)
+    out, ref = fn(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    empty = lens == 0
+    zeros = bool((out[empty] == 0).all().item())
+    row = {"max_abs_err": err, **paged_bound(q, k, lens, kind == "int8")}
+    times = ""
+    if timed:
+        row.update(ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain),
+                   library_ms=time_ms(torch, paged_library(
+                       torch, q, k, v, ks, vs, table, lens)))
+        times = (f" kernel {row['ms']:.6f} ms plain {row['plain_ms']:.6f} "
+                 f"ms index_select + masked SDPA {row['library_ms']:.6f} "
+                 f"ms bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+        if cold is not None:
+            row["cold_ms"] = time_ms(torch, fn, before=cold)
+            times += f"; kernel cold (L2 flushed) {row['cold_ms']:.6f} ms"
+    shown = lens.tolist() if case[7] else \
+        f"in [{lens.min().item()}, {lens.max().item()}]"
+    print(f"paged_attention {case[0]} {kind}: lengths {shown} max_abs_err "
+          f"{err:.3e} (atol {PAGED_ATOL[kind]}), empty slots zero "
+          f"{zeros}{times}", flush=True)
+    if not err <= PAGED_ATOL[kind] or not zeros:
+        raise SystemExit(f"paged attention ({kind}) disagrees with its "
+                         f"plain version on {case[0]}: {err}, empty slots "
+                         f"zero {zeros}")
+    return row, args
+
+
 def paged_kernel_phase(torch):
     """K4 (float32 and bf16 arenas) and K5 (int8 arenas with fp32 scale
     rows) against their plain versions on the same tensors, at
@@ -3028,59 +3170,33 @@ def paged_kernel_phase(torch):
     blocks of 4 and 5; an empty slot, a 1-token slot, a block shared by
     two slots): within PAGED_ATOL, empty slots exactly zero.  At the
     shapes of PAGED_TIMED: kernel, plain and two-call yardstick times
-    against the bound."""
+    against the bound (K5 also cold).  Then K5's split-KV kernel: its
+    SASS, the cases of PAGED_SPLIT_CASES (distinct blocks at the decode
+    shape and a long context, timed warm and cold; the split edges), and
+    one launch a call from the profiler's host record."""
     from paddle_tpu_torch.ops import paged_kernels as pk
-    from paddle_tpu_torch.ops import quant_kernels as qk
 
     phase("paged attention kernel vs plain (K4 float32/bf16, K5 int8)")
     rng = np.random.RandomState(SEED + 17)
+    flush = l2_flush(torch)
     rows = {}
     for case in PAGED_CASES:
         for kind in ("float32", "bfloat16", "int8"):
-            q, k, v, ks, vs, table, lens = paged_operands(torch, case, kind,
-                                                          rng)
-            if kind == "int8":
-                def fn():
-                    return qk.paged_attention_quant(q, k, v, ks, vs, table,
-                                                    lens)
-
-                def plain():
-                    return qk.paged_attention_quant_reference(
-                        q, k, v, ks, vs, table, lens,
-                        1.0 / q.shape[-1] ** 0.5)
-            else:
-                def fn():
-                    return pk.paged_attention(q, k, v, table, lens)
-
-                def plain():
-                    return pk.paged_attention_reference(
-                        q, k, v, table, lens, 1.0 / q.shape[-1] ** 0.5)
-            out, ref = fn(), plain()
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            empty = lens == 0
-            zeros = bool((out[empty] == 0).all().item())
-            row = {"max_abs_err": err, **paged_bound(q, k, lens,
-                                                     kind == "int8")}
-            times = ""
-            if case in PAGED_TIMED:
-                row.update(ms=time_ms(torch, fn), plain_ms=time_ms(
-                    torch, plain), library_ms=time_ms(torch, paged_library(
-                        torch, q, k, v, ks, vs, table, lens)))
-                times = (f" kernel {row['ms']:.6f} ms plain "
-                         f"{row['plain_ms']:.6f} ms index_select + masked "
-                         f"SDPA {row['library_ms']:.6f} ms bound "
-                         f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
-            rows[f"{case[0]}_{kind}"] = row
-            shown = lens.tolist() if case[7] else \
-                f"in [{lens.min().item()}, {lens.max().item()}]"
-            print(f"paged_attention {case[0]} {kind}: lengths {shown}"
-                  f" max_abs_err {err:.3e} (atol {PAGED_ATOL[kind]}), empty "
-                  f"slots zero {zeros}{times}", flush=True)
-            if not err <= PAGED_ATOL[kind] or not zeros:
-                raise SystemExit(f"paged attention ({kind}) disagrees with "
-                                 f"its plain version on {case[0]}: {err}, "
-                                 f"empty slots zero {zeros}")
+            rows[f"{case[0]}_{kind}"], _ = paged_case(
+                torch, case, kind, rng, case in PAGED_TIMED,
+                flush if kind == "int8" else None)
+    k5_sass_check()
+    for case in PAGED_SPLIT_CASES:
+        plan = pk.split_plan(*case[1:4], case[4], case[5])
+        print(f"  split plan {case[0]}: {plan}")
+        row, args = paged_case(torch, case, "int8", rng,
+                               case is not PAGED_EDGES, flush)
+        rows[f"{case[0]}_int8"] = row
+        if case is PAGED_DISTINCT:
+            k5_launch_check(torch, args)
+        del args
+        torch.cuda.empty_cache()
+    del flush
     return rows
 
 
@@ -4107,9 +4223,17 @@ def main():
                         bf16_bound_ms=bf16["bound_ms"],
                         bf16_library_ms=bf16["library_ms"],
                         bf16_max_abs_err=bf16["max_abs_err"]))
+    distinct = paged_rows[f"{PAGED_DISTINCT[0]}_int8"]
+    long_ctx = paged_rows[f"{PAGED_LONG[0]}_int8"]
     kernels.append(dict(KERNELS["paged_quant"],
                         launches=launches["paged_quant"],
-                        **paged_rows[f"{PAGED_BENCH[0]}_int8"]))
+                        **paged_rows[f"{PAGED_BENCH[0]}_int8"],
+                        distinct_ms=distinct["ms"],
+                        distinct_cold_ms=distinct["cold_ms"],
+                        distinct_bound_ms=distinct["bound_ms"],
+                        long_ms=long_ctx["ms"],
+                        long_cold_ms=long_ctx["cold_ms"],
+                        long_bound_ms=long_ctx["bound_ms"]))
     print(f"paged_attention launches: disaggregated decode "
           f"{launches['paged']} (float32 pool), paged_attention_quant "
           f"{launches['paged_quant']} (the decode pools' int8 arenas); "

@@ -2,8 +2,10 @@
 ``paddle_tpu/ops/pallas_kernels.py``: ``_paged_attn_kernel_impl`` (:958),
 reached through ``_paged_attention_call`` -> ``pl.pallas_call`` (:1064),
 becomes ``csrc/paged_attention.cu``, written by hand for Hopper.  The same
-CUDA loop serves K5, the int8-arena arm (``quant_kernels.
-paged_attention_quant``), as the reference's one flash loop served both.
+source serves K5, the int8-arena arm (``quant_kernels.
+paged_attention_quant``): above head dim 256 in K4's wide loop, at and
+below it in a split-KV kernel of its own, whose split plan
+(:func:`split_plan`) this module fixes from the shapes alone.
 
 - :func:`paged_attention` ``(q, k_arena, v_arena, block_table, lengths)``
   is the kernel's wrapper, with the reference's signature: one decode
@@ -24,7 +26,9 @@ paged_attention_quant``), as the reference's one flash loop served both.
 Inference only: no backward.
 """
 
+import collections
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -35,6 +39,57 @@ _SOURCE = "paged_attention"
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _libs = {}
+# the split-KV kernel's constants (csrc/paged_attention.cu): warps a CTA at
+# most, tokens staged at a time, a head group's padded row in bytes, and
+# the most CTAs a launch is cut into (two an SM of an H100's 132: fewer,
+# longer CTAs beat more, shorter ones on the card, PERF.md §6)
+SPLIT_WARPS, SPLIT_TILE, SPLIT_GROUP_BYTES = 8, 16, 1024
+SPLIT_CTAS = 2 * 132
+# per (device, stream): the split kernel's arrival counters, zeroed once
+# here and left zero by every launch
+_counters = {}
+
+SplitPlan = collections.namedtuple("SplitPlan",
+                                   "heads groups tile splits blocks")
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(s, h, d, bs, mb):
+    """How K5's split-KV kernel cuts the work of ``q [s, h, d]`` over
+    ``[N, bs, h, d]`` arenas and an ``[s, mb]`` table (head dims up to
+    256), from the shapes alone: the lengths are never read to the host.
+
+    - ``heads``: heads a group, at most ``1024 // roundup(d, 16)`` (a
+      tile's K and V rows of the group stay within 32 KB) and 8 (a warp a
+      head); ``groups = ceil(h / heads)``; ``s * groups`` rows;
+    - ``blocks`` a split and ``splits = ceil(mb / blocks)``: the most
+      splits that keep ``rows * splits <= SPLIT_CTAS`` (one wave of two
+      CTAs an SM), at least one, at most ``mb``;
+    - ``tile``: positions staged at a time, ``min(bs, 16)``: a block, or
+      16 positions of a larger one.
+    """
+    dp = -(-d // 16) * 16
+    heads = max(1, min(h, SPLIT_GROUP_BYTES // dp, SPLIT_WARPS))
+    groups = -(-h // heads)
+    blocks = -(-mb // max(1, min(mb, SPLIT_CTAS // (s * groups))))
+    return SplitPlan(heads, groups, min(bs, SPLIT_TILE), -(-mb // blocks),
+                     blocks)
+
+
+def split_counters(device, n):
+    """The split kernel's n arrival counters for `device` and its current
+    stream: int32, zero between launches (each launch's last CTA of a row
+    sets its counter back to 0), allocated with zeros at first use and when
+    a launch needs more; calls on one stream run in order, so they share
+    them."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 1024, 2 * (buf.numel() if buf is not None else 0))
+        buf = _counters[key] = torch.zeros(size, dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 def paged_attention_reference(q, k_arena, v_arena, block_table, lengths,
@@ -69,7 +124,7 @@ def _kernel():
         entry.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                           ctypes.c_void_p, ctypes.c_int] + \
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-            [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
         entry.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -117,8 +172,11 @@ def operands(q, k_arena, v_arena, block_table, lengths, scales=()):
 
 def launch(q, k, v, table, lens, scale, k_scale=None, v_scale=None):
     """Run csrc/paged_attention.cu on CUDA operands that `operands`
-    prepared; returns out [S, H, D] in q's dtype.  Raises on anything the
-    kernel does not take (no fallback)."""
+    prepared; returns out [S, H, D] in q's dtype.  Int8 arenas at head
+    dims up to 256 take the split-KV kernel under :func:`split_plan`
+    (with a workspace from torch.empty and the stream's counters), every
+    other arm its own loop.  One launch; raises on anything the kernel does
+    not take (no fallback)."""
     s_, h, d = q.shape
     n, bs = k.shape[:2]
     mb = table.shape[1]
@@ -139,13 +197,25 @@ def launch(q, k, v, table, lens, scale, k_scale=None, v_scale=None):
         return out
     fn, err_str = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    plan, work, counters = (0, 0, 0, 0), None, None
+    if k.dtype == torch.int8 and d <= 256:
+        p = split_plan(s_, h, d, bs, mb)
+        plan = (p.heads, p.tile, p.splits, p.blocks)
+        if p.splits > 1:
+            rows = s_ * p.groups
+            work = torch.empty(rows * p.splits * p.heads * (d + 2),
+                               dtype=torch.float32, device=q.device)
+            counters = split_counters(q.device, rows)
     with torch.cuda.device(q.device):
         rc = fn(ops[0].data_ptr(), _Q_CODES[q.dtype], ops[1].data_ptr(),
                 ops[2].data_ptr(), _KV_CODES[k.dtype],
                 scs[0].data_ptr() if scs[0] is not None else None,
                 scs[1].data_ptr() if scs[1] is not None else None,
                 ops[3].data_ptr(), ops[4].data_ptr(), out.data_ptr(),
-                s_, h, d, bs, mb, n, float(scale), stream)
+                s_, h, d, bs, mb, n, float(scale), *plan,
+                work.data_ptr() if work is not None else None,
+                counters.data_ptr() if counters is not None else None,
+                stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: "
                            f"{err_str(rc).decode()}")

@@ -303,8 +303,11 @@ def paged_attention_quant(q, k_arena, v_arena, k_scale, v_scale,
     float32 or bfloat16, ``k_arena``/``v_arena`` int8 ``[N, Bs, H, D]``,
     ``k_scale``/``v_scale`` fp32 ``[N, Bs]``, ``block_table [S, MB]``,
     ``lengths [S]`` -> ``[S, H, D]`` in q's dtype; ``scale`` defaults to
-    1/sqrt(D).  The kernel on a CUDA ``q``, the plain version on a CPU
-    ``q``; numpy operands move to q's device."""
+    1/sqrt(D).  On a CUDA ``q`` one launch of csrc/paged_attention.cu: the
+    split-KV kernel up to D 256 (each slot's chain cut into
+    ``paged_kernels.split_plan(...).splits`` parts walked a block at a
+    time, the parts merged in the same launch), the wide loop above; the
+    plain version on a CPU ``q``; numpy operands move to q's device."""
     del select, interpret
     k, v, table, lens, (ks, vs) = paged_kernels.operands(
         q, k_arena, v_arena, block_table, lengths, (k_scale, v_scale))

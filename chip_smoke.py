@@ -194,7 +194,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card (K1) and on the CPU, K3 and K2 launch counts, step time, idle
    share; then the dry run's BERT-block-shaped config (256, 4 heads)
    against the card's single-device run.
-26. report: a "kernels" JSON line, then the result line
+26. LeNet-5: bench.py's bench_mnist program (simple_img_conv_pool with 6
+   and 16 filters, Momentum 0.01/0.9, batch 256): 3 steps on one batch on
+   the card against the CPU, each update moving the loss; then examples/s
+   and step time (median of 30 steps after 5), and a profile of one step.
+27. ResNet-50: bench.py's bench_resnet50 program at amp=False
+   (resnet_imagenet depth 50, 1000 classes, Momentum 0.001/0.9, fp32,
+   TF32 off) fed through layers.py_reader(cache_on_device=True).  Card vs
+   CPU at batch 8, 224x224: each of 3 steps on the card from the CPU's
+   state before it (the free-running losses and the CPU's own spread from
+   a start state perturbed by 1e-7 printed beside); the is_test forward
+   of __graft_entry__.entry ([8, 3, 224, 224]) over calibrated moving
+   statistics on the card against the CPU.  Then batch 128 through the
+   reader: images/s and step time (median of 10 steps after 3, each
+   ended by a synchronisation), the bench's own throughput over the
+   window, peak memory, ops and torch calls a step, the share of the
+   67 TFLOP/s fp32 bound (12.27 GFLOP an image), and a profile of one
+   step with its top device operations.
+28. report: a "kernels" JSON line, then the result line
    {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
@@ -473,6 +490,19 @@ SP_CONFIGS = [("BERT-base attention width", 768, 12, 4, True),
 SP_PARITY_STEPS, SP_TIMED_STEPS, SP_LOSS_RTOL = 2, 4, 1e-5
 # bytes written between launches timed cold: above the H100's 50 MB L2
 L2_FLUSH_BYTES = 96 << 20
+# the dense image slice: bench.py's bench_mnist (LeNet-5) and
+# bench_resnet50 (amp=False); ResNet-50's training FLOPs an image
+# (bench.py:94-97: 3 x 4.09 GFLOP forward) against the fp32 peak
+LENET_B, LENET_WARMUP, LENET_ITERS = 256, 5, 30
+R50_PARITY_B, R50_B, R50_WARMUP, R50_ITERS = 8, 128, 3, 10
+R50_HW = 224
+R50_FLOP_PER_IMAGE = 12.27e9
+# ResNet-50's forced card steps: each leaf's change within LEAF_GAP
+# (2-norm) of the CPU's change of it.  On the H100 in fp32 the worst leaf
+# sat at 2.5e-2 to 3.1e-2 (median 1.2e-2 to 2.3e-2) over resnet50_parity's
+# two batches of three steps; with TF32 on, at 0.75 to 0.85 (median 0.37
+# to 0.60)
+LEAF_GAP = 0.1
 
 
 def phase(name):
@@ -2307,8 +2337,13 @@ def rnn_program(fluid, net, optimizer, **sizes):
     return main, startup, loss
 
 
+def host_state(scope):
+    return {n: t.cpu().numpy() for n, t in scope.vars.items()
+            if t is not None}
+
+
 def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
-                min_move=None, smi=None):
+                min_move=None, smi=None, forced=False):
     """One startup state (run on the CPU), the losses of `feeds` on the
     card and on the CPU, held to PARITY_RTOL; `counters` are set to 0
     just before the card's run and read just after.  With `min_move`
@@ -2316,10 +2351,18 @@ def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
     must each differ from its step-1 loss by at least that much,
     relatively: a card run that skipped the updates would repeat its
     step-1 loss and fail the comparison.  With `smi`, one more card step
-    on feeds[0] runs under the profiler.  Returns the card's launches."""
+    on feeds[0] runs under the profiler.  With `forced`, for a model
+    whose own trajectory is chaotic (a change of its start state at the
+    card's step-1 gap moves its later losses by more than the bars),
+    every card step starts from the CPU's state before it and is held to
+    the step-1 bar, and so is its update of every leaf
+    (forced_card_vs_cpu).  Returns the card's launches."""
     init = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
-    state = {n: t.numpy() for n, t in init.vars.items() if t is not None}
+    state = host_state(init)
+    if forced:
+        return forced_card_vs_cpu(fluid, main, loss, feeds, label, state,
+                                  min_move)
     losses, launches = {}, {}
     for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
         scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
@@ -2358,6 +2401,137 @@ def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
                                            fetch_list=[loss], scope=scope),
                     f"one step of {label}", smi)
     return launches
+
+
+def leaf_gaps(before, after, ref):
+    """{leaf: |after − ref| / |ref − before|} (2-norms) over the float
+    leaves of `before` that `ref`'s step changed: each leaf's change over
+    a step against the reference's change.  A leaf that `ref` left alone
+    and `after` changed gaps by inf."""
+    gaps = {}
+    for n, b in before.items():
+        if b.dtype.kind != "f":
+            continue
+        b = b.astype(np.float64)
+        moved = float(np.linalg.norm(ref[n] - b))
+        off = float(np.linalg.norm(after[n].astype(np.float64) - ref[n]))
+        if moved > 0:
+            gaps[n] = off / moved
+        elif off > 0:
+            gaps[n] = float("inf")
+    return gaps
+
+
+def gap_summary(gaps):
+    worst = max(gaps, key=gaps.get)
+    return (f"worst {worst} {gaps[worst]:.3e}, median "
+            f"{float(np.median(list(gaps.values()))):.3e} over "
+            f"{len(gaps)} leaves")
+
+
+def forced_card_vs_cpu(fluid, main, loss, feeds, label, state, min_move):
+    """card_vs_cpu(forced=True).  Each card step starts from the CPU's
+    state before it; its loss is held to the step-1 bar, and its change of
+    every leaf (parameters, optimizer accumulators, moving statistics) to
+    the CPU's change of that leaf, within LEAF_GAP of it (2-norms of the
+    leaf; the gradients of a chaotic model move by a share of themselves
+    under rounding).  The control runs each card step again with TF32 on
+    for the convolutions and matmuls: its leaves must land beyond
+    LEAF_GAP, or the check could not see a lower precision."""
+    import torch
+
+    def scope_of(st, place):
+        return fluid.io.state_from_numpy(st, scope=fluid.Scope(),
+                                         place=place, main_program=main)
+
+    def run(exe, scope, feed):
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0])
+
+    def card_step(before, feed, tf32):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            scope = scope_of(before, fluid.CUDAPlace(0))
+            return run(card_exe, scope, feed), host_state(scope)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+    card_exe = fluid.Executor(fluid.CUDAPlace(0))
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu_scope = scope_of(state, fluid.CPUPlace())
+    params = [p.name for p in main.all_parameters()]
+    card, cpu, ctl, sound, control = [], [], [], [], []
+    for feed in feeds:
+        before = host_state(cpu_scope)
+        value, card_after = card_step(before, feed, False)
+        card.append(value)
+        value, ctl_after = card_step(before, feed, True)
+        ctl.append(value)
+        cpu.append(run(cpu_exe, cpu_scope, feed))
+        cpu_after = host_state(cpu_scope)
+        sound.append(leaf_gaps(before, card_after, cpu_after))
+        control.append(leaf_gaps(before, ctl_after, cpu_after))
+        if len(card) == 1:
+            # how far the card's parameters depart from the CPU's after
+            # step 1: the 2-norm over all of them, relative
+            drift = float(np.sqrt(
+                sum(np.sum((card_after[n] - cpu_after[n]).astype(
+                    np.float64) ** 2) for n in params) /
+                sum(np.sum(cpu_after[n].astype(np.float64) ** 2)
+                    for n in params)))
+        del before, card_after, ctl_after, cpu_after
+
+    def rel(xs):
+        return [abs(a - b) / abs(b) for a, b in zip(xs, cpu)]
+
+    print(f"{label}, each card step from the CPU's state before it: card "
+          f"{card} cpu {cpu} relative differences {rel(card)} (bound "
+          f"{PARITY_RTOL[1]:g} at every step)", flush=True)
+    for i, (s, c) in enumerate(zip(sound, control)):
+        print(f"  step {i + 1}, each leaf's change against the CPU's "
+              f"(bound {LEAF_GAP:g}): {gap_summary(s)}; TF32 control "
+              f"(loss {ctl[i]}, relative {rel(ctl)[i]:.3e}; must exceed "
+              f"the bound): {gap_summary(c)}", flush=True)
+    # the free-running card beside the CPU from a start state nudged by
+    # the card's departure after step 1: how far a difference of that
+    # size carries
+    nudge = drift
+    free_scope = scope_of(state, fluid.CUDAPlace(0))
+    free = [run(card_exe, free_scope, feed) for feed in feeds]
+    rng = np.random.RandomState(SEED)
+    nudged = {n: (v * (1 + nudge * rng.standard_normal(v.shape))).astype(
+        v.dtype) if v.dtype == np.float32 else v for n, v in state.items()}
+    nudged_scope = scope_of(nudged, fluid.CPUPlace())
+    spread = [run(cpu_exe, nudged_scope, feed) for feed in feeds]
+    print(f"  free-running card {free}: relative {rel(free)}; the CPU from "
+          f"its start state nudged by {nudge:.3e} relative (the card's "
+          f"parameters after step 1 depart from the CPU's by that much, "
+          f"2-norm over all of them): {spread}, relative {rel(spread)} "
+          f"(not gated)",
+          flush=True)
+    if not np.isfinite(card + cpu).all() or \
+            max(rel(card)) > PARITY_RTOL[1]:
+        raise SystemExit(f"{label}: the card departs from the CPU: "
+                         f"{rel(card)}")
+    worst = max(max(s.values()) for s in sound)
+    if not worst <= LEAF_GAP:
+        raise SystemExit(f"{label}: a leaf's change on the card departs "
+                         f"from the CPU's by {worst}, over {LEAF_GAP}")
+    seen = min(max(c.values()) for c in control)
+    if not seen > LEAF_GAP:
+        raise SystemExit(f"{label}: the TF32 control stays within "
+                         f"{LEAF_GAP} ({seen}): the leaf check cannot see "
+                         f"a lower precision")
+    if min_move is not None:
+        moves = [abs(a - cpu[0]) / abs(cpu[0]) for a in cpu[1:]]
+        print(f"  the updates move the loss from step 1 by {moves} "
+              f"relative (at least {min_move:g} required)")
+        if min(moves) < min_move:
+            raise SystemExit(f"{label}: the updates move the loss by "
+                             f"{moves}, under {min_move:g}")
+    return {}
 
 
 def seq2seq_parity_phase(torch):
@@ -4130,6 +4304,258 @@ def sequence_parallel_phase(torch, smi):
     return result
 
 
+# ---------------------------------------------------------------------------
+# the dense image slice: LeNet-5 and ResNet-50 (cuDNN; no hand kernel)
+# ---------------------------------------------------------------------------
+
+def lenet_program(fluid):
+    """bench.py::bench_mnist's program, seeds fixed to SEED."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[1, 28, 28],
+                                dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        conv1 = fluid.nets.simple_img_conv_pool(
+            input=img, filter_size=5, num_filters=6, pool_size=2,
+            pool_stride=2, act="relu")
+        conv2 = fluid.nets.simple_img_conv_pool(
+            input=conv1, filter_size=5, num_filters=16, pool_size=2,
+            pool_stride=2, act="relu")
+        pred = fluid.layers.fc(input=conv2, size=10, act="softmax")
+        loss = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=pred, label=label))
+        fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9) \
+            .minimize(loss)
+    return main, startup, loss
+
+
+def lenet_phase(torch, smi):
+    """LeNet-5 at bench_mnist's configuration: card vs CPU, then timed."""
+    import paddle_tpu_torch as fluid
+
+    t_phase = time.perf_counter()
+    phase(f"LeNet-5 (bench_mnist): batch {LENET_B}, Momentum 0.01/0.9")
+    main, startup, loss = lenet_program(fluid)
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.randn(LENET_B, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (LENET_B, 1)).astype(np.int64)}
+    card_vs_cpu(fluid, main, startup, loss, [feed] * 3,
+                f"LeNet-5 batch {LENET_B}", min_move=MIN_MOVE)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    walls = []
+    for i in range(LENET_WARMUP + LENET_ITERS):
+        t0 = time.perf_counter()
+        (value,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        if i >= LENET_WARMUP:
+            walls.append(time.perf_counter() - t0)
+    step = statistics.median(walls)
+    if not np.isfinite(value):
+        raise SystemExit(f"LeNet-5 loss is not finite: {value}")
+    print(f"[{smi}] LeNet-5: step {step * 1e3:.6f} ms (median of "
+          f"{LENET_ITERS} after {LENET_WARMUP}; each fetches its loss), "
+          f"{LENET_B / step:.3f} examples/s, "
+          f"{len(main.global_block().ops)} ops a step", flush=True)
+    prof = profile_run(torch, lambda: exe.run(main, feed=feed,
+                                              fetch_list=[loss],
+                                              scope=scope),
+                       f"one LeNet-5 step (batch {LENET_B})", smi)
+    print(f"[{smi}] LeNet-5 phase: {time.perf_counter() - t_phase:.3f} s")
+    return {"step_ms": step * 1e3, "examples_s": LENET_B / step,
+            "busy": prof["busy"], "wall": prof["wall"]}
+
+
+def resnet50_program(fluid, is_test=False):
+    """bench.py::bench_resnet50's program at amp=False (its reader and
+    read_file, resnet_imagenet depth 50, Momentum 0.001/0.9), seeds fixed
+    to SEED; with `is_test`, __graft_entry__.entry's forward.  Names are
+    fresh, so the two programs' parameters share theirs."""
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if is_test:
+            img = fluid.layers.data(name="img", shape=[3, R50_HW, R50_HW],
+                                    dtype="float32")
+            return main, startup, resnet.resnet_imagenet(
+                img, class_dim=1000, depth=50, is_test=True)
+        reader = fluid.layers.py_reader(
+            capacity=4, shapes=[(-1, 3, R50_HW, R50_HW), (-1, 1)],
+            dtypes=["float32", "int64"], name="bench_reader",
+            cache_on_device=True)
+        img, label = fluid.layers.read_file(reader)
+        pred = resnet.resnet_imagenet(img, class_dim=1000, depth=50)
+        loss = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=pred, label=label))
+        fluid.optimizer.Momentum(learning_rate=0.001, momentum=0.9) \
+            .minimize(loss)
+    return main, startup, loss, reader
+
+
+def image_batch(rng, b):
+    return (rng.randn(b, 3, R50_HW, R50_HW).astype(np.float32),
+            rng.randint(0, 1000, (b, 1)).astype(np.int64))
+
+
+def resnet50_inference_check(fluid, state):
+    """__graft_entry__.entry's forward (is_test, [8, 3, 224, 224]) on the
+    card against the CPU: the logits (the last softmax's input) within
+    PARITY_RTOL[1] of their largest magnitude, the probabilities of
+    theirs.  The moving statistics are first calibrated: one
+    training-mode forward on the CPU with momentum 0 makes them one
+    batch's statistics (at the startup's 0 and 1 the is_test activations
+    grow without bound and the softmax saturates to 0 and 1)."""
+    main, _, pred = resnet50_program(fluid, is_test=True)
+    logits = [op for op in main.global_block().ops
+              if op.type == "softmax"][-1].inputs["X"][0]
+    calib = main.clone()
+    for op in calib.global_block().ops:
+        if op.type == "batch_norm":
+            op.attrs.update(is_test=False, momentum=0.0)
+    calib._is_test = False
+    rng = np.random.RandomState(SEED + 20)
+    scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                      place=fluid.CPUPlace(),
+                                      main_program=main)
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cpu.run(calib, feed={"img": image_batch(rng, 8)[0]}, fetch_list=[pred],
+            scope=scope)
+    state = host_state(scope)
+    img = image_batch(rng, 8)[0]
+    want = cpu.run(main, feed={"img": img}, fetch_list=[logits, pred],
+                   scope=scope)
+    card_scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                           place=fluid.CUDAPlace(0),
+                                           main_program=main)
+    got = fluid.Executor(fluid.CUDAPlace(0)).run(
+        main, feed={"img": img}, fetch_list=[logits, pred],
+        scope=card_scope)
+    errs = [float(np.abs(g - w).max() / np.abs(w).max())
+            for g, w in zip(got, want)]
+    print(f"ResNet-50 is_test forward [8, 3, {R50_HW}, {R50_HW}] "
+          f"(__graft_entry__.entry): logits max |cpu| "
+          f"{np.abs(want[0]).max():.6f}, softmax max {want[1].max():.6f}; "
+          f"card vs CPU max |diff| / max |cpu| {errs[0]:.3e} on the logits, "
+          f"{errs[1]:.3e} on the softmax (bound {PARITY_RTOL[1]:g} each); "
+          f"top-1 equal on "
+          f"{int((got[1].argmax(1) == want[1].argmax(1)).sum())} of 8",
+          flush=True)
+    if not all(np.isfinite(g).all() for g in got) or \
+            max(errs) > PARITY_RTOL[1]:
+        raise SystemExit(f"ResNet-50 inference: the card departs from the "
+                         f"CPU by {errs}")
+
+
+def resnet50_parity(fluid, main, startup, loss, reader):
+    """Three forced card steps against the CPU on each of two batches of
+    R50_PARITY_B, then the is_test forward."""
+    slots = [v.name for v in reader.feed_vars]
+    for seed in (SEED + 21, SEED + 22):
+        img, label = image_batch(np.random.RandomState(seed), R50_PARITY_B)
+        card_vs_cpu(fluid, main, startup, loss,
+                    [dict(zip(slots, (img, label)))] * 3,
+                    f"ResNet-50 batch {R50_PARITY_B} (seed {seed})",
+                    min_move=MIN_MOVE, forced=True)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    resnet50_inference_check(fluid, host_state(init))
+
+
+def resnet50_phase(torch, smi):
+    """ResNet-50 at bench_resnet50's fp32 configuration through the
+    port's py_reader: card vs CPU, the is_test forward, then timed."""
+    import paddle_tpu_torch as fluid
+
+    t_phase = time.perf_counter()
+    phase(f"ResNet-50 (bench_resnet50, amp=False): batch {R50_B}, "
+          f"{R50_HW}x{R50_HW}, Momentum 0.001/0.9, fp32, TF32 off")
+    main, startup, loss, reader = resnet50_program(fluid)
+    resnet50_parity(fluid, main, startup, loss, reader)
+    t_parity = time.perf_counter() - t_phase
+
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)               # bench.py's pool
+    pool = [image_batch(rng, R50_B) for _ in range(4)]
+    # + the window, the profile and the cudnn.benchmark steps
+    n_steps = R50_WARMUP + R50_ITERS + 2 + R50_WARMUP + R50_ITERS // 2
+    reader.decorate_batch_generator(
+        lambda: (pool[i % len(pool)] for i in range(n_steps)))
+    reader.start()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(R50_WARMUP + R50_ITERS):
+        t0 = time.perf_counter()
+        (out,) = exe.run(main, fetch_list=[loss], scope=scope,
+                         return_numpy=False)
+        torch.cuda.synchronize()
+        if i >= R50_WARMUP:
+            walls.append(time.perf_counter() - t0)
+    # bench.py's own window: no synchronisation between steps
+    t0 = time.perf_counter()
+    (out,) = exe.run(main, fetch_list=[loss], scope=scope,
+                     return_numpy=False)
+    final = float(out.item())
+    window = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step = statistics.median(walls)
+    ips = R50_B / step
+    n_ops = len(main.global_block().ops)
+    print(f"[{smi}] ResNet-50 fp32 batch {R50_B}: step {step * 1e3:.6f} ms "
+          f"(median of {R50_ITERS} after {R50_WARMUP}, each ended by a "
+          f"synchronisation; min {min(walls) * 1e3:.6f}, max "
+          f"{max(walls) * 1e3:.6f}), {ips:.3f} images/s; one unsynchronised "
+          f"step after them {window * 1e3:.6f} ms; peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB); {n_ops} ops a step; share of the "
+          f"fp32 bound ({R50_FLOP_PER_IMAGE / 1e9:g} GFLOP an image at "
+          f"{PEAK_FLOPS['float32'] / 1e12:g} TFLOP/s, least step "
+          f"{R50_B * R50_FLOP_PER_IMAGE / PEAK_FLOPS['float32'] * 1e3:.3f} "
+          f"ms) {ips * R50_FLOP_PER_IMAGE / PEAK_FLOPS['float32']:.4f}; "
+          f"loss {final:.6f}", flush=True)
+    if not np.isfinite(final):
+        raise SystemExit(f"ResNet-50 loss is not finite: {final}")
+    prof = profile_run(torch, lambda: exe.run(main, fetch_list=[loss],
+                                              scope=scope),
+                       f"one ResNet-50 step (batch {R50_B}, through "
+                       f"py_reader)", smi)
+    print(f"ResNet-50: {n_ops} ops and {prof['calls']} torch operator calls "
+          f"a step; the reader's device cache holds "
+          f"{len(reader._dev_cache)} arrays ({reader._cache_bytes} bytes)")
+    # what cuDNN's own algorithm search would give (printed only: the
+    # port leaves torch.backends.cudnn.benchmark to its user, off by
+    # default, and so does every number above)
+    torch.backends.cudnn.benchmark = True
+    try:
+        tuned = []
+        for i in range(R50_WARMUP + R50_ITERS // 2):
+            t0 = time.perf_counter()
+            exe.run(main, fetch_list=[loss], scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            if i >= R50_WARMUP:
+                tuned.append(time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    print(f"[{smi}] ResNet-50 with torch.backends.cudnn.benchmark on: step "
+          f"{statistics.median(tuned) * 1e3:.6f} ms (median of "
+          f"{len(tuned)} after {R50_WARMUP}), "
+          f"{R50_B / statistics.median(tuned):.3f} images/s (not gated)")
+    try:
+        exe.run(main, fetch_list=[loss], scope=scope)
+        raise SystemExit("ResNet-50: the reader did not end its epoch")
+    except fluid.EOFException:
+        pass
+    reader.reset()
+    print(f"[{smi}] ResNet-50 phase: {time.perf_counter() - t_phase:.3f} s "
+          f"({t_parity:.3f} s of it card vs CPU)")
+    del exe, scope
+    torch.cuda.empty_cache()
+    return {"step_ms": step * 1e3, "images_s": ips, "peak": peak,
+            "busy": prof["busy"], "wall": prof["wall"]}
+
+
 def main():
     import torch
 
@@ -4174,6 +4600,8 @@ def main():
     ring_phase(torch)
     seqpar = sequence_parallel_phase(torch, smi)
     launches["k3"] = seqpar["launches"]["k3"]
+    lenet = lenet_phase(torch, smi)
+    r50 = resnet50_phase(torch, smi)
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -4247,6 +4675,11 @@ def main():
           f"{launches['k3']} over {SP_TIMED_STEPS} steps (K2a/K2b "
           f"{seqpar['launches']['dkv']}/{seqpar['launches']['dq']}); step "
           f"{seqpar['step_ms']:.6f} ms, idle share {seqpar['idle']:.4f}")
+    print(f"[{smi}] LeNet-5 batch {LENET_B}: {lenet['examples_s']:.3f} "
+          f"examples/s, step {lenet['step_ms']:.6f} ms; ResNet-50 fp32 "
+          f"batch {R50_B}: {r50['images_s']:.3f} images/s, step "
+          f"{r50['step_ms']:.6f} ms, peak {r50['peak'] / 2**30:.3f} GiB, "
+          f"busy {r50['busy']:.6f} of {r50['wall']:.6f} ms profiled")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,11 @@ And it trains RNNs over lod (ragged) inputs: ``layers.dynamic_lstm``,
 ``dynamic_gru`` and ``DynamicRNN`` loop over the padded time steps, the
 cells running ``csrc/rnn_cells.cu`` and ``sequence_softmax`` running
 ``csrc/masked_softmax.cu`` on the card (the seq2seq model of Paddle's
-book).
+book).  And it trains image models: ``nets.simple_img_conv_pool``
+(LeNet-5), ``models.resnet`` and ``models.vgg`` build conv2d / pool2d /
+batch_norm programs that run on cuDNN (``ops/conv_ops.py``), fed by hand,
+by a ``DataFeeder`` or through ``layers.py_reader``, which stages each
+batch onto the card from pinned memory on a side stream.
 """
 
 from .core import framework, unique_name  # noqa: F401
@@ -45,6 +49,9 @@ from . import optimizer    # noqa: F401
 from . import regularizer  # noqa: F401
 from . import clip         # noqa: F401
 from . import io           # noqa: F401
+from . import nets         # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
+from .pyreader import EOFException  # noqa: F401  (fluid.core.EOFException)
 from .io import (save_vars, save_params, save_persistables,  # noqa: F401
                  load_vars, load_params, load_persistables,
                  save_inference_model, load_inference_model,

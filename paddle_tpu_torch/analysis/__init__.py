@@ -1,7 +1,7 @@
 """paddle_tpu_torch.analysis — static analyses over the Program IR (a
 copy of ``paddle_tpu/analysis``; it imports nothing of that package).
 
-The analysis layer of the IR pass pipeline (ROADMAP item 5, the
+The analysis layer of the IR pass pipeline (the
 reference's ``BuildStrategy``/``ir::Pass`` surface, PAPER.md §L4):
 
 - :mod:`dataflow` — def-use / SSA view, cross-sub-block resolution,

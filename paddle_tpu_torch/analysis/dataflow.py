@@ -1,6 +1,6 @@
 """Def-use / SSA-view dataflow analysis over Program blocks.
 
-The analysis layer of the IR pass pipeline (ROADMAP item 5, PAPER.md
+The analysis layer of the IR pass pipeline (PAPER.md
 §L4): everything here is a PURE QUERY over the ``Program``/``Block``/
 ``Operator`` IR (core/framework.py) — no mutation, no version bumps, no
 var creation — so program hint fingerprints (jitcache keys) are

@@ -15,6 +15,10 @@ Control flow: a ``dynamic_rnn`` op runs its step block once per time
 step through :func:`_run_block` (``ops/rnn_ops.py``); ``while`` and
 ``conditional_block`` raise until a later slice ports them.
 
+Feeds: a run with no feed on a program that declares ``py_reader``s
+takes each reader's next batch, staged on the executor's device
+(``pyreader.py``), and raises ``EOFException`` at the end of an epoch.
+
 Host ops: the sharded embedding engine's ``sharded_lookup_table`` and
 ``sharded_push_grad`` (``sparse/``) run on the host inside the same loop;
 ``close()`` flushes their in-flight pushes.  The reference's
@@ -315,6 +319,8 @@ class Executor:
             return program._run(self, feed=feed, fetch_list=fetch_list,
                                 scope=scope, return_numpy=return_numpy)
         program = program if program is not None else default_main_program()
+        if not feed and getattr(program, "_py_readers", None):
+            feed = self._reader_feed(program)
         feed = _normalize_feed(program, dict(feed) if feed else {})
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
         scope = scope if scope is not None else global_scope()
@@ -365,6 +371,20 @@ class Executor:
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return fetches
+
+    def _reader_feed(self, program):
+        """The next staged batch of each of the program's py_readers, on
+        this executor's device; EOFException when an epoch ends (the
+        reference's reader hook, ``paddle_tpu/core/executor.py:899``)."""
+        from ..pyreader import EOFException
+
+        feed = {}
+        for reader in program._py_readers:
+            batch = reader.next_feed(self.device)
+            if batch is None:
+                raise EOFException()
+            feed.update(batch)
+        return feed
 
     def _read_names(self, program, fetch_names):
         cache = self._reads.setdefault(program, {})

@@ -2,7 +2,7 @@
 
 from . import (control_flow, io, nn, nn_extra, ops, rnn,  # noqa: F401
                sequence, tensor)
-from .io import data                                   # noqa: F401
+from .io import data, py_reader, read_file             # noqa: F401
 from .nn import *          # noqa: F401,F403
 from .nn_extra import *    # noqa: F401,F403
 from .sequence import *    # noqa: F401,F403

@@ -1,4 +1,5 @@
-"""Input layers: fluid.layers.data (layers/io.py:39 in the reference)."""
+"""Input layers: fluid.layers.data (layers/io.py:39 in the reference),
+py_reader and read_file."""
 
 from ..core.framework import default_main_program, default_startup_program
 
@@ -31,3 +32,33 @@ def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
                 dtype="int32", stop_gradient=True, is_data=True)
     return main
 
+
+def py_reader(capacity, shapes, dtypes, lod_levels=None, name=None,
+              use_double_buffer=True, cache_on_device=False):
+    """Background host->device staged reader (layers/io.py:636 +
+    buffered_reader.cc double-buffer parity).  Returns a PyReader; unpack
+    its data variables with :func:`read_file`.  A run with no feed takes
+    its next batch on the run's device."""
+    from ..core import unique_name
+    from ..pyreader import PyReader
+
+    name = name or unique_name.generate("py_reader")
+    lod_levels = lod_levels or [0] * len(shapes)
+    feed_vars = []
+    for i, (shape, dtype, lod) in enumerate(zip(shapes, dtypes, lod_levels)):
+        feed_vars.append(data(name=f"{name}_slot{i}", shape=list(shape),
+                              dtype=dtype, lod_level=lod,
+                              append_batch_size=False))
+    reader = PyReader(feed_vars, capacity=capacity,
+                      cache_on_device=cache_on_device)
+    prog = default_main_program()
+    if not hasattr(prog, "_py_readers"):
+        prog._py_readers = []
+    prog._py_readers.append(reader)
+    return reader
+
+
+def read_file(reader):
+    """Unpack a py_reader's staged data variables (layers/io.py parity)."""
+    vs = reader.feed_vars
+    return vs[0] if len(vs) == 1 else tuple(vs)

@@ -3,6 +3,7 @@
 from . import registry      # noqa: F401
 from . import math_ops      # noqa: F401
 from . import nn_ops        # noqa: F401
+from . import conv_ops      # noqa: F401
 from . import tensor_ops    # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401

@@ -2,7 +2,7 @@
 execution (a copy of ``paddle_tpu/passes``; it imports nothing of that
 package).
 
-The transform layer of ROADMAP item 5 (reference: the
+The transform layer of the IR pass pipeline (reference: the
 ``BuildStrategy``/``ir::Pass`` stack, PAPER.md §L4; design discipline
 from MLIR's per-pass verifier, arXiv:2002.11054, and TASO's verified
 substitutions, SOSP'19).  Each pass is a pure, deterministic

@@ -129,7 +129,7 @@ def resolve_pipeline(spec):
             raise NotImplementedError(
                 f"FLAGS_pass_pipeline: {tok!r} names the memory-planning "
                 f"passes, which need memplan/ (not ported yet: ROADMAP "
-                f"queue 1 item 6)")
+                f"queue 1 item 7)")
         if tok.startswith("-"):
             name = tok[1:]
             if name not in PASSES:

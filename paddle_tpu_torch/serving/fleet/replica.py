@@ -13,7 +13,7 @@ multi-model hosting contract:
   cold grid.  ``add_model(..., warmup=False)`` opts out for tests.
 - **weight hot-swap**: the reference's ``swap_weights`` rides the
   engine's warm ``reload_weights``, which the port's ServingEngine does
-  not have yet (ROADMAP queue 3, deferred with the serving slice):
+  not have yet (ROADMAP queue 1 item 8, the serving engine remainder):
   ``swap_weights`` raises ``NotImplementedError`` naming it.
 - **outstanding-work accounting**: every accepted request bumps a
   counter that its done-callback decrements — the router's
@@ -281,7 +281,7 @@ class Replica:
         raise NotImplementedError(
             f"Replica.swap_weights({model!r}): the ServingEngine's warm "
             f"weight reload (reload_weights) is not ported yet (ROADMAP "
-            f"queue 3, deferred with the serving slice)")
+            f"queue 1 item 8)")
 
     # ---- lifecycle / observability ----
 

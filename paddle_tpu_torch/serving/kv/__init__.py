@@ -10,9 +10,11 @@ SOSP 2023, PAPERS.md), plus the speculative-decode draft/verify arm
 ``ContinuousConfig(kv=PagedKVConfig(...))`` and
 ``speculative=SpeculativeConfig(...)``.  The pool's value planes
 (``value_spec``, ``kv_value_spec`` with its int8 arena mode) are the
-K/V arenas a paged-attention kernel gathers through the block table;
-that kernel (the JAX package's ``paged_attention`` and its int8 arm) is
-not ported yet, and the decode step recomputes over ``token_view()``.
+K/V arenas a paged-attention kernel gathers through the block table:
+``ops/paged_kernels.paged_attention`` (K4) and its int8 arm
+``ops/quant_kernels.paged_attention_quant`` (K5).  As in the JAX
+package, the decode step does not call them: it recomputes over
+``token_view()``.
 """
 
 from .pool import (KVBlockPool, PagedKVConfig,  # noqa: F401

@@ -36,8 +36,9 @@ Sharing model (the vLLM prefix-cache design, refcounted):
 The pool stores a mandatory ``tokens`` plane (int64 ids; the dense
 ``token_view()`` is the step-function feed) plus arbitrary per-token
 value planes (``value_spec``) — the K/V arenas a paged-attention
-kernel gathers through ``table_view()`` (not ported yet: the decode
-step recomputes over ``token_view()``).
+kernel gathers through ``table_view()`` (K4/K5, ``ops/paged_kernels``
+and ``ops/quant_kernels``; the decode step, as the JAX package's, does
+not call them and recomputes over ``token_view()``).
 
 Block 0 is reserved as the all-pad block: unassigned table entries
 point at it, so the dense gather needs no second masking pass and the

@@ -21,7 +21,7 @@ Errors are NAMED: an unknown table or out-of-range index answers a
 client fails with a located message instead of a silent wrong row.
 ``complete`` counts trainers for a clean ``run_until_complete`` exit.
 ``checkpoint_notify`` raises until ``sparse/checkpoint.py`` is ported
-(ROADMAP queue 1 item 11).
+(ROADMAP queue 1 item 12).
 """
 
 import threading
@@ -165,7 +165,7 @@ class SparseShardServer:
         if method == "checkpoint_notify":
             raise NotImplementedError(
                 "checkpoint_notify needs sparse/checkpoint.py, which the "
-                "port has not ported yet (ROADMAP queue 1 item 11)")
+                "port has not ported yet (ROADMAP queue 1 item 12)")
         if method == "complete":
             with self._lock:
                 self._completed.add(msg.get("trainer_id", 0))

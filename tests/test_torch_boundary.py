@@ -17,9 +17,8 @@ PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, fs in os.walk(os.path.join(REPO, "paddle_tpu_torch"))
     if "_build" not in os.path.relpath(d, REPO).split(os.sep)
-    for f in fs if f.endswith(".py")) + [
-        "chip_smoke.py", "k6_compare.py", "rnn_compare.py",
-        "k7_k11_compare.py"]
+    for f in fs if f.endswith(".py")) + ["chip_smoke.py"] + sorted(
+        f for f in os.listdir(REPO) if f.endswith("_compare.py"))
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
@@ -37,8 +36,9 @@ def test_import_leaves_jax_and_paddle_tpu_out():
 # the CTR slice, the NMT slice (K10, decode serving), the disaggregated
 # tier (K4, K5, fault plans, the fleet router, kv_stream) and the
 # sequence-parallel slice (the mesh, ring attention with K3, gpipe,
-# CompiledProgram), imported with jax and paddle_tpu made unimportable (a
-# None entry in sys.modules)
+# CompiledProgram) and the dense image slice (conv ops, nets, ResNet, VGG,
+# the zoo, DataFeeder, dataio, PyReader), imported with jax and paddle_tpu
+# made unimportable (a None entry in sys.modules)
 NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.passes.quantize",
                "paddle_tpu_torch.ops.quant_kernels",
@@ -85,7 +85,15 @@ NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.ops.pipeline_ops",
                "paddle_tpu_torch.compiler",
                "paddle_tpu_torch.parallel_executor",
-               "paddle_tpu_torch.models.dryrun")
+               "paddle_tpu_torch.models.dryrun",
+               "paddle_tpu_torch.ops.conv_ops",
+               "paddle_tpu_torch.nets",
+               "paddle_tpu_torch.models.resnet",
+               "paddle_tpu_torch.models.vgg",
+               "paddle_tpu_torch.models.zoo",
+               "paddle_tpu_torch.data_feeder",
+               "paddle_tpu_torch.dataio",
+               "paddle_tpu_torch.pyreader")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

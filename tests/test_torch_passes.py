@@ -197,7 +197,7 @@ def test_verifier_findings_equal_jax_on_corrupted_programs(case):
                                   "default,-eager_deletion",
                                   "plan_donation"])
 def test_memory_passes_raise(spec):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         ppasses.resolve_pipeline(spec)
 
 

@@ -211,8 +211,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
    window, peak memory, ops and torch calls a step, the share of the
    67 TFLOP/s fp32 bound (12.27 GFLOP an image), and a profile of one
    step with its top device operations.
-28. report: a "kernels" JSON line, then the result line
-   {"ok": true, "device": {...}} last.
+28. bf16 kernels at the AMP paths' shapes: K1, K2a and K2b on bf16
+   operands at bench_bert's attention (batch 128, 12 heads, T 128, D 64,
+   a padding row bias rounded to bf16, dropout 0.1) and at bench_nmt's
+   T 64 bucket (a full bias in bf16), against their plain versions
+   (TRAIN_ATOL's bf16 bars), timed beside the plain versions, SDPA and
+   the bound; K10 in bf16 at BERT's hidden and FFN dropout planes and
+   NMT's FFN plane, bit for bit, timed beside F.dropout.
+29. AMP parity: contrib.mixed_precision.enable on both sides.  The
+   2-layer BERT-base-width pretraining at dropout 0 and 0.1 (K10 on the
+   card, the same bits as the CPU's plain dropout), 3 Adam steps card vs
+   CPU within AMP_PARITY_RTOL, K1, K2a, K2b (and K10) launched on bf16
+   operands only; ResNet-50 at batch 8, 224x224, each card step from
+   the CPU's state before it within AMP_R50_RTOL of the CPU's loss, and
+   each CPU step replayed on the card op by op on the CPU's inputs to
+   each op (op_replay): every output within AMP_OP_RTOL of the CPU's and
+   under half the distance of the same op in fp32 where precision moves
+   it; the gate must refuse a planted no-op of every state update and
+   the fp32 control at the convolutions' and batch norms' forward and
+   backward.
+30. AMP training: bench.py's bench_bert (BERT-base, batch 128, seq 128,
+   Adam), bench_resnet50 (batch 128 through py_reader, Momentum) and
+   bench_nmt (transformer-base, 4096 tokens at T 16, 32, 64) programs at
+   amp=True, every dropout through K10: step time, tokens or images a
+   second, peak memory, ops and torch calls a step, a profile of one
+   step with its idle share, ResNet-50's share of the 989 TFLOP/s dense
+   bf16 peak, and the launches a step of K1, K2a, K2b and K10, all on
+   bf16 operands, equal to the fp32 paths' (BERT-base 24, 12, 12, 74;
+   NMT 36, 18, 18, 84).
+31. AMP serving: the serving phase's BERT-base model dir through
+   AnalysisConfig.enable_bf16() -> ServingEngine: K1 12 times a batch on
+   bf16 operands, the answers within the JAX package's bf16 bar (rtol
+   0.05, atol 0.02) of the card's fp32 answers and of a CPU bf16
+   Predictor's on the same batches; latency, requests/s and a profile of
+   one batch.
+32. report: a "kernels" JSON line (K1, K2a, K2b and K10 with bf16_* keys
+   at the AMP shapes beside their fp32 main-path numbers), then the
+   result line {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
 package is not beside this script.
@@ -503,6 +538,44 @@ R50_FLOP_PER_IMAGE = 12.27e9
 # two batches of three steps; with TF32 on, at 0.75 to 0.85 (median 0.37
 # to 0.60)
 LEAF_GAP = 0.1
+# bf16 AMP (contrib.mixed_precision.enable, as bench.py's headline benches
+# call it at amp=True, and AnalysisConfig.enable_bf16): bench_bert's
+# BERT-base pretraining at batch 128 (16,384 tokens; 19 masked slots a
+# sequence, int(128 * 0.15)), bench_resnet50's ResNet-50 at batch 128 and
+# bench_nmt's transformer-base at 4096 tokens a batch, all with every
+# dropout through K10.  Their card-vs-CPU bars, set from a first run of
+# these checks on the H100 (PERF.md §6): both sides round the same
+# operands to bf16, but the card's K1 rounds the softmax weights to bf16
+# for the PV product and cuBLAS and the CPU sum in other orders, so each
+# step differs by bf16 rounding, which Adam's normalised steps carry on
+AMP_BERT_B, AMP_BERT_M = 128, 19
+AMP_WARMUP, AMP_STEPS = 2, 5
+# (2-layer BERT-base width over three runs: 1.5e-5 to 2.8e-4 at step 1,
+# 9.4e-5 to 1.44e-3 at steps 2 and 3)
+AMP_PARITY_RTOL = {1: 1e-3, 3: 5e-3}
+# ResNet-50's AMP step at batch 8, 224x224, card against CPU, held op by
+# op (op_replay, op_gate): every op of a CPU AMP step runs again on the
+# card on that op's own inputs.  Each float output (for an output that
+# updates its input in place, a parameter, velocity or moving statistic,
+# its change) sits within AMP_OP_RTOL of the CPU's (2-norm, relative);
+# where the same op in fp32 on the card, the control, lands
+# AMP_OP_MATERIAL or more from the CPU's, under half the control's
+# distance, and elsewhere within AMP_OP_MATERIAL: the op computes the
+# same at either precision.  A whole card step cannot be held so: at
+# batch 8 most leaves' one-step changes under bf16 are rounding, card
+# and CPU alike (PERF.md §6).  Each card step's loss (the Executor's,
+# from the CPU's state before it) sat 1.7e-4 to 5.5e-3 from the CPU's
+AMP_OP_RTOL, AMP_OP_MATERIAL = 1e-2, 1e-4
+# A max pool's grad routes each window's gradient to one of its maxima,
+# and bf16 inputs tie often (8 bits of mantissa): the card and the CPU
+# break the ties apart, both right, so that grad is held to AMP_OP_RTOL
+# only (ResNet-50's stem pool sat at 1.35e-3, 0.55 of its control's)
+AMP_OP_TIED = {"pool2d_grad[max]"}
+AMP_R50_RTOL = 1e-2
+AMP_PARITY_STEPS = 2
+# the JAX package's bar for a bf16 Predictor against fp32
+# (tests/test_predictor.py::test_predictor_bf16_config)
+AMP_SERVE_RTOL, AMP_SERVE_ATOL = 0.05, 0.02
 
 
 def phase(name):
@@ -2343,7 +2416,7 @@ def host_state(scope):
 
 
 def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
-                min_move=None, smi=None, forced=False):
+                min_move=None, smi=None, forced=False, rtol=PARITY_RTOL):
     """One startup state (run on the CPU), the losses of `feeds` on the
     card and on the CPU, held to PARITY_RTOL; `counters` are set to 0
     just before the card's run and read just after.  With `min_move`
@@ -2356,7 +2429,8 @@ def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
     card's step-1 gap moves its later losses by more than the bars),
     every card step starts from the CPU's state before it and is held to
     the step-1 bar, and so is its update of every leaf
-    (forced_card_vs_cpu).  Returns the card's launches."""
+    (forced_card_vs_cpu).  `rtol` holds the unforced run's step-1 and
+    step-3 bars.  Returns the card's launches."""
     init = fluid.Scope()
     fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
     state = host_state(init)
@@ -2380,11 +2454,11 @@ def card_vs_cpu(fluid, main, startup, loss, feeds, label, counters=(),
     card, cpu = losses[True], losses[False]
     rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
     print(f"{label}: card {card} cpu {cpu} relative differences {rel} "
-          f"(bounds {PARITY_RTOL[1]:g} at step 1, {PARITY_RTOL[3]:g} at "
+          f"(bounds {rtol[1]:g} at step 1, {rtol[3]:g} at "
           f"step 3)" + (f", card launches {launches}" if counters else ""),
           flush=True)
-    if not np.isfinite(card + cpu).all() or rel[0] > PARITY_RTOL[1] \
-            or max(rel) > PARITY_RTOL[3]:
+    if not np.isfinite(card + cpu).all() or rel[0] > rtol[1] \
+            or max(rel) > rtol[3]:
         raise SystemExit(f"{label}: the card departs from the CPU: {rel}")
     if min_move is not None:
         moves = [abs(a - cpu[0]) / abs(cpu[0]) for a in cpu[1:]]
@@ -4556,6 +4630,625 @@ def resnet50_phase(torch, smi):
             "busy": prof["busy"], "wall": prof["wall"]}
 
 
+# ---------------------------------------------------------------------------
+# bf16 AMP: the headline configurations (bench.py at amp=True)
+# ---------------------------------------------------------------------------
+
+def bf16_keys(row, launches):
+    """A kernel's bf16 row at an AMP path's shape, as bf16_* keys of the
+    kernels line."""
+    return {"bf16_launches": launches,
+            **{f"bf16_{k}": row[k] for k in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}}
+
+
+class launch_dtypes:
+    """Count the operand dtype of every K1, K2a, K2b and K10 launch made
+    on the card inside the block: {(kernel name, dtype): launches}."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import attention_kernels as ak
+        from paddle_tpu_torch.ops import dropout_kernels as dk
+
+        self.seen = {}
+        self.mods = (ak, dk)
+        self.saved = (ak._launch, dk.fused_dropout_fwd)
+        launch, drop = self.saved
+
+        def note(name, t):
+            if t.device.type == "cuda":
+                key = (name, str(t.dtype).replace("torch.", ""))
+                self.seen[key] = self.seen.get(key, 0) + 1
+
+        def rec_launch(name, q, *a, **kw):
+            note(name, q)
+            return launch(name, q, *a, **kw)
+
+        def rec_drop(x, *a, **kw):
+            note("fused_dropout", x)
+            return drop(x, *a, **kw)
+
+        ak._launch, dk.fused_dropout_fwd = rec_launch, rec_drop
+        return self.seen
+
+    def __exit__(self, *exc):
+        ak, dk = self.mods
+        ak._launch, dk.fused_dropout_fwd = self.saved
+
+
+def check_launch_dtypes(seen, label, main, steps, attention=True):
+    """K1, K2a and K2b (with `attention`) launched on bf16 operands
+    only; K10 on bf16 operands twice a step for each dropout op the AMP
+    plan (the pass pipeline's ``__amp__`` annotations of the program the
+    run took) marks bf16.  A dropout the plan leaves unmarked follows
+    its input, as in the JAX package: BERT's embedding dropout, after its
+    fp32 layer norm, runs K10 in fp32."""
+    print(f"{label}: launches by operand dtype {seen}")
+    ran = next(iter(main._pass_memo.values()))[0]
+    drops = [op.attrs.get("__amp__") for op in ran.global_block().ops
+             if op.type == "dropout" and 0 < op.attrs.get("dropout_prob",
+                                                          0.5) < 1]
+    attn = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+            "flash_attention_bwd_dq") if attention else ()
+    bad = {k: n for k, n in seen.items() if k[0] in attn and
+           k[1] != "bfloat16"}
+    missing = [k for k in attn if (k, "bfloat16") not in seen]
+    want = 2 * steps * drops.count("bf16")
+    got = seen.get(("fused_dropout", "bfloat16"), 0)
+    if bad or missing or got != want:
+        raise SystemExit(f"{label}: K1/K2a/K2b not all on bf16 operands "
+                         f"({bad or missing}), or K10 on bf16 {got} times "
+                         f"where the plan gives {want}: {seen}")
+
+
+def amp_kernel_phase(torch):
+    """K1, K2a, K2b and K10 in bf16 at the AMP paths' shapes, against
+    their plain versions on the same tensors, timed beside the plain
+    versions, the library call and the bound: bench_bert's attention
+    (batch 128, 12 heads, T 128, D 64, a row padding bias rounded to
+    bf16 as the gray rule rounds it, dropout 0.1), bench_nmt's at the T
+    64 bucket (64 x 8 heads, a full bias in bf16, dropout 0.1), and the
+    dropouts of both (BERT's hidden and FFN planes, downgrade_in_infer;
+    NMT's FFN plane, upscale_in_train), bit for bit."""
+    from paddle_tpu_torch.models.transformer import make_attn_biases
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+
+    phase("bf16 kernels at the AMP paths' shapes (K1, K2a, K2b, K10)")
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    b, h, t, d = AMP_BERT_B, BERT_BASE["num_heads"], TRAIN_T, 64
+    lens = torch.randint(t // 4, t + 1, (b,), generator=g, device="cuda")
+    pad = (torch.arange(t, device="cuda")[None, :] >= lens[:, None])
+    bert = ("amp_bert_b128_row_bf16_drop",
+            *[torch.randn(b, h, t, d, generator=g, device="cuda").to(bf16)
+              for _ in range(3)],
+            (pad.float() * -10000.0).reshape(b, 1, 1, t).to(bf16),
+            False, 0.1, False)
+    t2, h2 = max(NMT_BUCKETS), NMT["n_head"]
+    b2, d2 = NMT_TOKENS // t2, NMT["d_model"] // h2
+    nlens = np.random.RandomState(SEED + 31).randint(t2 // 2 + 1, t2 + 1, b2)
+    _, trg_bias, _ = make_attn_biases(nlens, nlens, h2, t2, t2)
+    nmt = (f"amp_nmt_t{t2}_full_bf16_drop",
+           *[torch.randn(b2, h2, t2, d2, generator=g, device="cuda")
+             .to(bf16) for _ in range(3)],
+           torch.from_numpy(trg_bias).cuda().to(bf16), False, 0.1, False)
+    rows = {"fwd": {}, "dkv": {}, "dq": {}}
+    for i, case in enumerate((bert, nmt)):
+        attention_case(torch, ak, case, SEED + 40 + i, rows)
+    drop = {}
+    for name, shape, upscale in (
+            ("amp_bert_b128_t128_d768", (b, t, 768), False),
+            ("amp_bert_b128_t128_d3072", (b, t, 3072), False),
+            ("amp_nmt_b128_t32_d2048", (128, 32, 2048), True)):
+        x = torch.randn(shape, generator=g, device="cuda").to(bf16)
+        cot = torch.randn(shape, generator=g, device="cuda").to(bf16)
+        leaf = x.detach().requires_grad_()
+        out = dk.fused_dropout(leaf, 0.1, SEED, upscale)
+        (dx,) = torch.autograd.grad(out, leaf, cot)
+        ref_leaf = x.detach().requires_grad_()
+        ref = dk.fused_dropout_reference(ref_leaf, 0.1, SEED, upscale)
+        (dref,) = torch.autograd.grad(ref, ref_leaf, cot)
+        torch.cuda.synchronize()
+        if not (bits_equal(torch, out, ref) and bits_equal(torch, dx, dref)):
+            raise SystemExit(f"fused_dropout bf16 disagrees with its plain "
+                             f"version on {name}")
+        n = x.numel()
+        drop[name] = {
+            "max_abs_err": max(max_err(torch, out, ref),
+                               max_err(torch, dx, dref)),
+            **bound_row(2 * 2 * n, n, "bfloat16"),
+            "ms": time_ms(torch, lambda: dk.fused_dropout_fwd(
+                x, 0.1, SEED, upscale)),
+            "plain_ms": time_ms(torch, lambda: dk.fused_dropout_reference(
+                x, 0.1, SEED, upscale)),
+            "library_ms": time_ms(torch, lambda: torch.nn.functional
+                                  .dropout(x, 0.1, training=True))}
+        r = drop[name]
+        print(f"fused_dropout {name} {shape} bf16 p 0.1 upscale {upscale}: "
+              f"Out and grad equal bit for bit; kernel {r['ms']:.6f} ms "
+              f"plain {r['plain_ms']:.6f} ms F.dropout "
+              f"{r['library_ms']:.6f} ms bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})", flush=True)
+    torch.cuda.empty_cache()
+    return rows, drop
+
+
+class op_replay:
+    """Inside the block, each op that an Executor's interpreter loop runs
+    (``registry.run_op``, not its nested calls) runs again on `device`,
+    on copies of its inputs taken before the run's own kernel: under AMP
+    as the run does, and in fp32 without AMP (every bf16 input cast up)
+    as the control.  For each float output of the run's, a row goes to
+    the list the block gets: (op, slot, name, the replay's gap, the
+    control's gap, a planted no-op's gap, the dtypes equal).  A gap is
+    the 2-norm distance from the run's output over the run's output's
+    norm; for an output that updates its input in place (the same
+    name), over the change, and then the planted no-op (the input left
+    as it was) gaps by 1; elsewhere the planted gap is None.  An output
+    the replay does not give gaps by inf."""
+
+    def __init__(self, device):
+        self.device, self.rows, self.depth = device, [], 0
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import registry
+
+        self.registry, self.run_op = registry, registry.run_op
+        registry.run_op = self.replay
+        return self.rows
+
+    def __exit__(self, *exc):
+        self.registry.run_op = self.run_op
+
+    def nested(self, op_type, ins, attrs):
+        self.depth += 1
+        try:
+            return self.run_op(op_type, ins, attrs)
+        finally:
+            self.depth -= 1
+
+    def replay(self, op_type, ins, attrs):
+        import torch
+
+        if self.depth:
+            return self.run_op(op_type, ins, attrs)
+        reg = self.registry
+        run = reg.current()
+        op = run.op
+        dev = {s: [v.to(self.device, copy=True)
+                   if isinstance(v, torch.Tensor) else v for v in vs]
+               for s, vs in ins.items()}
+        outs = self.nested(op_type, ins, attrs)
+        f32 = {s: [v.float() if isinstance(v, torch.Tensor) and
+                   v.dtype == torch.bfloat16 else v for v in vs]
+               for s, vs in dev.items()}
+        got = []
+        for amp, operands in ((True, dev), (False, f32)):
+            ctx = reg.ExecContext(device=self.device, seed=run.seed,
+                                  step=run.step, is_test=run.is_test,
+                                  masks={}, reads=run.reads, amp=amp)
+            ctx.op = op
+            with reg.exec_context(ctx):
+                got.append(self.nested(op_type, operands, attrs))
+        self.compare(op, dev, outs, *got)
+        return outs
+
+    def compare(self, op, ins, outs, card, control):
+        import torch
+
+        name = op.attrs.get("fw_type", op.type) + (
+            "_grad" if op.type == "generic_grad" else "")
+        if op.attrs.get("fw_attrs", op.attrs).get("pooling_type") == "max":
+            name += "[max]"
+        given = {n: v for s, names in op.inputs.items()
+                 for n, v in zip(names, ins.get(s, []))}
+        for slot, names in op.outputs.items():
+            for i, (n, c) in enumerate(zip(names, outs.get(slot, []))):
+                if not isinstance(c, torch.Tensor) or \
+                        not c.dtype.is_floating_point or c.numel() == 0:
+                    continue
+                before = given.get(n)
+                if not isinstance(before, torch.Tensor):
+                    before = None
+                base = 0 if before is None else before.double()
+                ref = c.to(self.device).double() - base
+                scale = float(ref.norm())
+
+                def gap(x):
+                    if not isinstance(x, torch.Tensor):
+                        return float("inf")
+                    off = float((x.double() - base - ref).norm())
+                    return off / scale if scale else (
+                        0.0 if off == 0 else float("inf"))
+
+                outs_of = [r.get(slot, []) for r in (card, control)]
+                g, k = (o[i] if i < len(o) else None for o in outs_of)
+                self.rows.append((
+                    name, slot, n, gap(g), gap(k),
+                    None if before is None else gap(before),
+                    isinstance(g, torch.Tensor) and g.dtype == c.dtype))
+
+
+def op_gate(gap, control, name=None):
+    """Whether an output of op `name` whose replay gaps by `gap` and
+    whose control by `control` passes (see AMP_OP_RTOL, AMP_OP_TIED)."""
+    if name in AMP_OP_TIED:
+        return gap <= AMP_OP_RTOL
+    if control >= AMP_OP_MATERIAL:
+        return gap <= AMP_OP_RTOL and gap < 0.5 * control
+    return gap <= AMP_OP_MATERIAL
+
+
+def amp_resnet50_parity(torch, fluid, main, startup, loss, feed):
+    """ResNet-50's AMP step, card against CPU, AMP_PARITY_STEPS times on
+    one batch.  Each card step (the Executor's, from the CPU's state
+    before it) gives a loss within AMP_R50_RTOL of the CPU's, and each
+    CPU step is replayed on the card op by op (op_replay), every output
+    passing op_gate.  The gate must refuse a planted no-op of every
+    output that updates state in place (a step that leaves parameters,
+    velocities or moving statistics as they were), and the fp32 control
+    wherever the precision moves an output: the convolutions' and the
+    batch norms' forward and backward among them."""
+    label = f"AMP ResNet-50 batch {R50_PARITY_B}"
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    card_exe = fluid.Executor(fluid.CUDAPlace(0))
+    init = fluid.Scope()
+    cpu_exe.run(startup, scope=init)
+
+    def scope_of(state, place):
+        return fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                         place=place, main_program=main)
+
+    cpu_scope = scope_of(host_state(init), fluid.CPUPlace())
+    losses, rows = [], []
+    for _ in range(AMP_PARITY_STEPS):
+        card_scope = scope_of(host_state(cpu_scope), fluid.CUDAPlace(0))
+        card = float(card_exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=card_scope)[0])
+        del card_scope
+        with op_replay(torch.device("cuda")) as seen:
+            cpu = float(cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=cpu_scope)[0])
+        losses.append((card, cpu))
+        rows += seen
+    rel = [abs(a - b) / abs(b) for a, b in losses]
+    print(f"{label}, each card step from the CPU's state before it: "
+          f"(card, cpu) losses {losses}, relative {rel} (bound "
+          f"{AMP_R50_RTOL:g})", flush=True)
+    by_op = {}
+    for r in rows:
+        by_op.setdefault(r[0], []).append(r)
+    for name, rs in sorted(by_op.items()):
+        material = [r for r in rs if r[4] >= AMP_OP_MATERIAL]
+        print(f"  {name}: {len(rs)} outputs, worst {max(r[3] for r in rs):.3e}"
+              f"; {len(material)} where the fp32 control moves the output, "
+              f"worst share of the control's distance "
+              f"{max((r[3] / r[4] for r in material), default=0.0):.3f}, "
+              f"control {min((r[4] for r in material), default=0.0):.3e} to "
+              f"{max((r[4] for r in material), default=0.0):.3e}",
+              flush=True)
+    bad = [r for r in rows if not (op_gate(r[3], r[4], r[0]) and r[6])]
+    planted = [r for r in rows if r[5] is not None]
+    noop_passed = [r for r in planted if op_gate(r[5], r[4], r[0])]
+    refused = {r[0] for r in rows if not op_gate(r[4], r[4], r[0])}
+    want = {"conv2d", "conv2d_grad", "batch_norm", "batch_norm_grad"}
+    print(f"{label}, op by op on the card (bounds {AMP_OP_RTOL:g}, half the "
+          f"fp32 control's distance where it is {AMP_OP_MATERIAL:g} or "
+          f"more, else {AMP_OP_MATERIAL:g}): {len(rows)} outputs over "
+          f"{AMP_PARITY_STEPS} steps, {len(bad)} refused {bad[:20]}; a "
+          f"planted no-op of the {len(planted)} outputs that update state "
+          f"refused at {len(planted) - len(noop_passed)}; the fp32 control "
+          f"refused at {sum(not op_gate(r[4], r[4], r[0]) for r in rows)} "
+          f"outputs of {sorted(refused)}", flush=True)
+    if not np.isfinite(losses).all() or max(rel) > AMP_R50_RTOL:
+        raise SystemExit(f"{label}: the card's loss departs from the "
+                         f"CPU's: {rel}")
+    if bad:
+        raise SystemExit(f"{label}: {len(bad)} outputs on the card depart "
+                         f"from the CPU's: {bad[:20]}")
+    updates = sum(op.type == "momentum" for op in main.global_block().ops)
+    if noop_passed or len(planted) < 2 * updates * AMP_PARITY_STEPS:
+        raise SystemExit(f"{label}: the gate lets a planted no-op through "
+                         f"({noop_passed[:20]}), or too few outputs update "
+                         f"state ({len(planted)})")
+    if not want <= refused:
+        raise SystemExit(f"{label}: the fp32 control passes every output "
+                         f"of {sorted(want - refused)}: the gate cannot "
+                         f"tell their precision")
+
+
+def amp_parity_phase(torch):
+    """Card against CPU, both under AMP: the 2-layer BERT-base-width
+    pretraining at dropout 0 and 0.1 (3 Adam steps, every dropout
+    through K10 on the card, the same bits as the CPU's plain version),
+    K1, K2a, K2b and K10 launched on bf16 operands; then ResNet-50 at
+    batch 8, 224x224 (amp_resnet50_parity): each card step's loss, and
+    each CPU step replayed on the card op by op."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+
+    mp = fluid.contrib.mixed_precision
+    phase("AMP parity: 2-layer BERT-base width and ResNet-50, card vs CPU, "
+          "both in bf16")
+    t0 = time.perf_counter()
+    fluid.set_flags({"use_fused_dropout": True})
+    counters = (ak.flash_attention, ak.flash_attention_bwd_dkv,
+                ak.flash_attention_bwd_dq, dk.fused_dropout)
+    feed = pretrain_feed(8, TRAIN_T, TRAIN_M, SEED)
+    for dropout in (0.0, 0.1):
+        main, startup, loss = pretrain_program(fluid, 2, dropout)
+        mp.enable(main)
+        with launch_dtypes() as seen:
+            launches = card_vs_cpu(fluid, main, startup, loss, [feed] * 3,
+                                   f"AMP 2-layer BERT-base width, dropout "
+                                   f"{dropout}", counters=counters,
+                                   rtol=AMP_PARITY_RTOL)
+        check_launch_dtypes(seen, f"AMP BERT parity, dropout {dropout}",
+                            main, 3)
+        if not all(launches[c.__name__] for c in counters[:3]):
+            raise SystemExit(f"AMP BERT parity: launches {launches}")
+    fluid.set_flags({"use_fused_dropout": False})
+    t_bert = time.perf_counter() - t0
+
+    main, startup, loss, reader = resnet50_program(fluid)
+    mp.enable(main)
+    slots = [v.name for v in reader.feed_vars]
+    img, label = image_batch(np.random.RandomState(SEED + 23), R50_PARITY_B)
+    amp_resnet50_parity(torch, fluid, main, startup, loss,
+                        dict(zip(slots, (img, label))))
+    print(f"AMP parity phase: {time.perf_counter() - t0:.3f} s ({t_bert:.3f}"
+          f" s of it BERT)", flush=True)
+    torch.cuda.empty_cache()
+
+
+def amp_steps(torch, exe, main, loss, scope, feeds, counters):
+    """Warm-up steps, then timed steps (each ended by a synchronisation)
+    with the counters set to 0 just before them and read just after, and
+    every launch's operand dtype counted: (losses, walls, launches,
+    dtypes, peak memory)."""
+    def step(feed):
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)[0]
+        torch.cuda.synchronize()
+        return out
+
+    for feed in feeds[:AMP_WARMUP]:
+        step(feed)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, walls = [], []
+    with launch_dtypes() as seen:
+        for feed in feeds[AMP_WARMUP:]:
+            t0 = time.perf_counter()
+            out = step(feed)
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(out.float().item()))
+    launches = {k: c.launches for k, c in counters.items()}
+    return losses, walls, launches, seen, torch.cuda.max_memory_allocated()
+
+
+def amp_training_phase(torch, smi):
+    """bench.py's three headline programs at amp=True on the card, full
+    width: BERT-base pretraining (batch 128, seq 128, Adam 1e-4),
+    ResNet-50 (batch 128, 224x224, Momentum, through py_reader) and
+    transformer-base NMT (4096 tokens at T 16, 32, 64), every dropout
+    through K10: step time, throughput, peak memory, ops and torch calls
+    a step, a profile of one step, and K1/K2a/K2b/K10 launches a step on
+    bf16 operands equal to the fp32 paths' counts."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+
+    mp = fluid.contrib.mixed_precision
+    counters = {"fwd": ak.flash_attention, "dkv": ak.flash_attention_bwd_dkv,
+                "dq": ak.flash_attention_bwd_dq, "dropout": dk.fused_dropout}
+    t_phase = time.perf_counter()
+    out = {}
+    fluid.set_flags({"use_fused_dropout": True})
+
+    def per_step(launches, steps, ops):
+        n_attn = sum(op.type == "fused_attention" for op in ops)
+        n_drop = sum(op.type == "dropout" for op in ops)
+        want = {"fwd": 2 * n_attn, "dkv": n_attn, "dq": n_attn,
+                "dropout": 2 * n_drop}
+        got = {k: v / steps for k, v in launches.items()}
+        print(f"launches a step {got} (expected {want}: K1 in the forward "
+              f"and the grad's recompute, K2a/K2b once, K10 forward and "
+              f"backward of each dropout)")
+        if got != want:
+            raise SystemExit(f"AMP launches a step {got}, expected {want}")
+        return {k: int(v) for k, v in got.items()}
+
+    # BERT-base
+    phase(f"AMP training BERT-base: 12 layers, batch {AMP_BERT_B}, seq "
+          f"{TRAIN_T}, dropout 0.1 through K10, Adam 1e-4, bf16")
+    main, startup, loss = pretrain_program(fluid, 12, 0.1)
+    mp.enable(main)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = [pretrain_feed(AMP_BERT_B, TRAIN_T, AMP_BERT_M, SEED + 32 + i)
+             for i in range(2)]
+    feeds = [feeds[i % 2] for i in range(AMP_WARMUP + AMP_STEPS)]
+    losses, walls, launches, seen, peak = amp_steps(
+        torch, exe, main, loss, scope, feeds, counters)
+    check_launch_dtypes(seen, "AMP BERT-base", main, AMP_STEPS)
+    step = statistics.median(walls)
+    ops = main.global_block().ops
+    print(f"[{smi}] AMP BERT-base batch {AMP_BERT_B}: step "
+          f"{step * 1e3:.6f} ms (median of {AMP_STEPS} after {AMP_WARMUP}),"
+          f" {AMP_BERT_B * TRAIN_T / step:.3f} tokens/s, peak memory {peak}"
+          f" bytes ({peak / 2**30:.3f} GiB), {len(ops)} ops; losses "
+          f"{losses}", flush=True)
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"AMP BERT-base losses are not finite: {losses}")
+    bert_launches = per_step(launches, AMP_STEPS, ops)
+    prof = profile_run(torch, lambda: exe.run(main, feed=feeds[0],
+                                              fetch_list=[loss],
+                                              scope=scope),
+                       f"one AMP BERT-base step (batch {AMP_BERT_B})", smi)
+    out["bert"] = {"step_ms": step * 1e3, "launches": bert_launches,
+                   "tokens_s": AMP_BERT_B * TRAIN_T / step, "peak": peak,
+                   "busy": prof["busy"], "wall": prof["wall"]}
+    del exe, scope
+    torch.cuda.empty_cache()
+
+    # ResNet-50
+    phase(f"AMP training ResNet-50: batch {R50_B}, {R50_HW}x{R50_HW}, "
+          f"Momentum 0.001/0.9, bf16, through py_reader")
+    main, startup, loss, reader = resnet50_program(fluid)
+    mp.enable(main)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)               # bench.py's pool
+    pool = [image_batch(rng, R50_B) for _ in range(4)]
+    n_steps = AMP_WARMUP + R50_ITERS + 1         # + the profiled step
+    reader.decorate_batch_generator(
+        lambda: (pool[i % len(pool)] for i in range(n_steps)))
+    reader.start()
+    losses, walls, _, _, peak = amp_steps(
+        torch, exe, main, loss, scope,
+        [None] * (AMP_WARMUP + R50_ITERS), {})
+    step = statistics.median(walls)
+    ips = R50_B / step
+    share = ips * R50_FLOP_PER_IMAGE / PEAK_FLOPS["bfloat16"]
+    least = R50_B * R50_FLOP_PER_IMAGE / PEAK_FLOPS["bfloat16"] * 1e3
+    n_ops = len(main.global_block().ops)
+    print(f"[{smi}] AMP ResNet-50 batch {R50_B}: step {step * 1e3:.6f} ms "
+          f"(median of {R50_ITERS} after {AMP_WARMUP}; min "
+          f"{min(walls) * 1e3:.6f}, max {max(walls) * 1e3:.6f}), "
+          f"{ips:.3f} images/s; peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB); {n_ops} ops a step; share of the "
+          f"dense bf16 tensor-core peak ({R50_FLOP_PER_IMAGE / 1e9:g} "
+          f"GFLOP an image at {PEAK_FLOPS['bfloat16'] / 1e12:g} TFLOP/s, "
+          f"least step {least:.3f} ms) {share:.4f}; losses {losses[-3:]}",
+          flush=True)
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"AMP ResNet-50 losses are not finite: {losses}")
+    prof = profile_run(torch, lambda: exe.run(main, fetch_list=[loss],
+                                              scope=scope),
+                       f"one AMP ResNet-50 step (batch {R50_B})", smi)
+    print(f"AMP ResNet-50: {n_ops} ops and {prof['calls']} torch operator "
+          f"calls a step")
+    reader.reset()
+    out["resnet50"] = {"step_ms": step * 1e3, "images_s": ips,
+                       "share": share, "peak": peak, "busy": prof["busy"],
+                       "wall": prof["wall"]}
+    del exe, scope
+    torch.cuda.empty_cache()
+
+    # transformer-base NMT
+    phase(f"AMP training NMT: transformer-base, {NMT_TOKENS} tokens a batch "
+          f"at T {NMT_BUCKETS}, dropout 0.1 through K10, Adam 2e-4, bf16")
+    main, startup, loss, _, _ = nmt_program(fluid, **NMT)
+    mp.enable(main)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 33)
+    batches = [(t, *nmt_batch(rng, t, NMT["vocab"], NMT["n_head"]))
+               for t in NMT_BUCKETS for _ in range(NMT_BATCHES_PER_BUCKET)]
+    for _, feed, _ in batches:                   # warm every bucket shape
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, walls = [], {}
+    with launch_dtypes() as seen:
+        for t, feed, _ in batches:
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope)[0]))
+            walls.setdefault(t, []).append(time.perf_counter() - t0)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check_launch_dtypes(seen, "AMP NMT", main, len(batches))
+    ntok = sum(n for _, _, n in batches)
+    total = sum(sum(w) for w in walls.values())
+    for t, w in walls.items():
+        print(f"[{smi}] AMP NMT bucket T {t} (batch {NMT_TOKENS // t}): "
+              f"step {statistics.median(w) * 1e3:.6f} ms (median of "
+              f"{len(w)})")
+    print(f"[{smi}] AMP NMT: {ntok} real target tokens in {total:.6f} s: "
+          f"{ntok / total:.3f} target tokens/s; peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB); losses {losses}", flush=True)
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"AMP NMT losses are not finite: {losses}")
+    nmt_launches = per_step(launches, len(batches), main.global_block().ops)
+    feed32 = batches[2][1]
+    prof = profile_run(torch, lambda: exe.run(main, feed=feed32,
+                                              fetch_list=[loss],
+                                              scope=scope),
+                       f"one AMP NMT step (T 32, batch {NMT_TOKENS // 32})",
+                       smi)
+    out["nmt"] = {"tokens_s": ntok / total, "launches": nmt_launches,
+                  "step_ms": {t: statistics.median(w) * 1e3
+                              for t, w in walls.items()},
+                  "peak": peak, "busy": prof["busy"], "wall": prof["wall"]}
+    fluid.set_flags({"use_fused_dropout": False})
+    del exe, scope
+    torch.cuda.empty_cache()
+    print(f"[{smi}] AMP training phase: {time.perf_counter() - t_phase:.3f}"
+          f" s", flush=True)
+    return out
+
+
+def amp_serving_phase(torch, smi, fp32):
+    """The serving phase's BERT-base model dir through ServingEngine over
+    a Predictor with enable_bf16(): the answers within the JAX package's
+    bar of the card's fp32 Predictor's (the serving phase's) and of a CPU
+    bf16 Predictor's on the same batches; K1 launched on bf16 operands;
+    latency and throughput."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    phase("AMP serving BERT-base: AnalysisConfig.enable_bf16() -> "
+          "ServingEngine")
+    cfg = fluid.AnalysisConfig(fp32["model_dir"])
+    cfg.enable_bf16()
+    pred = fluid.create_paddle_predictor(cfg)
+    reqs, feeds = fp32["reqs"], sorted(fp32["batch"])
+    with launch_dtypes() as seen:
+        run = serve(fluid, pred, reqs, fp32["max_batch"],
+                    {"fwd": ak.flash_attention})
+    print(f"AMP serving: launches by operand dtype {seen}")
+    if set(seen) != {("flash_attention_fwd", "bfloat16")}:
+        raise SystemExit(f"AMP serving: K1 not on bf16 operands: {seen}")
+    layers = fp32["cfg"].num_layers
+    if run["launches"]["fwd"] != layers * run["batches"]:
+        raise SystemExit(f"AMP serving: K1 ran {run['launches']} times for "
+                         f"{run['batches']} batches")
+    cpu_cfg = fluid.AnalysisConfig(fp32["model_dir"])
+    cpu_cfg.disable_gpu()
+    cpu_cfg.enable_bf16()
+    cpu_pred = fluid.create_paddle_predictor(cpu_cfg)
+    mb = fp32["max_batch"]
+    cpu = np.concatenate([
+        cpu_pred.run({n: np.concatenate([r[n] for r in reqs[i:i + mb]])
+                      for n in feeds})[0]
+        for i in range(0, len(reqs), mb)])
+    served = run["served"]
+    for label, want in (("the card's fp32 Predictor", fp32["served"]),
+                        ("a CPU bf16 Predictor", cpu)):
+        err = float(np.abs(served - want).max())
+        ok = np.allclose(served, want, rtol=AMP_SERVE_RTOL,
+                         atol=AMP_SERVE_ATOL)
+        print(f"AMP served vs {label}: max_abs_err {err:.3e} (rtol "
+              f"{AMP_SERVE_RTOL:g}, atol {AMP_SERVE_ATOL:g})")
+        if not ok:
+            raise SystemExit(f"AMP serving departs from {label}: {err}")
+    print(f"AMP serving [{smi}]: {run['line']}; fp32 serving p50 "
+          f"{fp32['p50']:.6f} ms p99 {fp32['p99']:.6f} ms "
+          f"{fp32['req_s']:.3f} req/s")
+    batch = {n: np.concatenate([r[n] for r in reqs[:mb]]) for n in feeds}
+    prof = profile_batch(torch, pred, batch, smi)
+    run.update(busy=prof["busy"], wall=prof["wall"])
+    return run
+
+
 def main():
     import torch
 
@@ -4602,6 +5295,10 @@ def main():
     launches["k3"] = seqpar["launches"]["k3"]
     lenet = lenet_phase(torch, smi)
     r50 = resnet50_phase(torch, smi)
+    amp_attn_rows, amp_drop_rows = amp_kernel_phase(torch)
+    amp_parity_phase(torch)
+    amp = amp_training_phase(torch, smi)
+    amp_serve = amp_serving_phase(torch, smi, fp32)
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -4623,8 +5320,11 @@ def main():
           f"flash_attention_fwd in NMT decode {decode['fwd']}")
     # the main paths' shapes: BERT-base training, fp32, dropout 0.1; and
     # the int8 serving batch's q/k/v/out projection (4 of 6 per layer)
+    amp_bert = "amp_bert_b128_row_bf16_drop"
     kernels = [dict(KERNELS[k], launches=launches[k],
-                    **train_rows[k]["bert_row_f32_drop"])
+                    **train_rows[k]["bert_row_f32_drop"],
+                    **bf16_keys(amp_attn_rows[k][amp_bert],
+                                amp["bert"]["launches"][k] * AMP_STEPS))
                for k in ("fwd", "dkv", "dq")]
     kernels.append(dict(KERNELS["quant"],
                         launches=quant["launches"]["quant"],
@@ -4640,8 +5340,12 @@ def main():
     kernels.append(dict(KERNELS["gather"], launches=launches["gather"],
                         **gather_rows["deep_n65536_d16_f32"]))
     # the NMT slice's FFN-hidden dropout (T 32 bucket), fp32, p 0.1
+    nmt_steps_amp = len(NMT_BUCKETS) * NMT_BATCHES_PER_BUCKET
     kernels.append(dict(KERNELS["dropout"], launches=launches["dropout"],
-                        **dropout_rows["nmt_b128_t32_d2048"]))
+                        **dropout_rows["nmt_b128_t32_d2048"],
+                        **bf16_keys(amp_drop_rows["amp_nmt_b128_t32_d2048"],
+                                    amp["nmt"]["launches"]["dropout"]
+                                    * nmt_steps_amp)))
     # the decode shape of bench_kernels.py: K4 with float32 arenas (the
     # disaggregated path's float32 pool; its bf16 arm beside it), K5 int8
     bf16 = paged_rows[f"{PAGED_BENCH[0]}_bfloat16"]
@@ -4680,6 +5384,16 @@ def main():
           f"batch {R50_B}: {r50['images_s']:.3f} images/s, step "
           f"{r50['step_ms']:.6f} ms, peak {r50['peak'] / 2**30:.3f} GiB, "
           f"busy {r50['busy']:.6f} of {r50['wall']:.6f} ms profiled")
+    b, n, r = amp["bert"], amp["nmt"], amp["resnet50"]
+    print(f"[{smi}] AMP (bf16): BERT-base batch {AMP_BERT_B} step "
+          f"{b['step_ms']:.6f} ms, {b['tokens_s']:.3f} tokens/s, launches a "
+          f"step {b['launches']}; ResNet-50 batch {R50_B} step "
+          f"{r['step_ms']:.6f} ms, {r['images_s']:.3f} images/s, "
+          f"{r['share']:.4f} of the bf16 peak (fp32 {r50['step_ms']:.6f} ms)"
+          f"; NMT {n['tokens_s']:.3f} target tokens/s, steps "
+          f"{n['step_ms']} ms, launches a step {n['launches']}; serving "
+          f"p50 {amp_serve['p50']:.6f} ms p99 {amp_serve['p99']:.6f} ms "
+          f"{amp_serve['req_s']:.3f} req/s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

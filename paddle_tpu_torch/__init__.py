@@ -29,7 +29,10 @@ book).  And it trains image models: ``nets.simple_img_conv_pool``
 (LeNet-5), ``models.resnet`` and ``models.vgg`` build conv2d / pool2d /
 batch_norm programs that run on cuDNN (``ops/conv_ops.py``), fed by hand,
 by a ``DataFeeder`` or through ``layers.py_reader``, which stages each
-batch onto the card from pinned memory on a side stream.
+batch onto the card from pinned memory on a side stream.  And it trains
+and serves in bf16 mixed precision: ``contrib.mixed_precision.enable(
+main)`` before training, ``AnalysisConfig.enable_bf16()`` before serving
+(parameters and optimizer state stay fp32).
 """
 
 from .core import framework, unique_name  # noqa: F401
@@ -50,6 +53,7 @@ from . import regularizer  # noqa: F401
 from . import clip         # noqa: F401
 from . import io           # noqa: F401
 from . import nets         # noqa: F401
+from . import contrib      # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
 from .pyreader import EOFException  # noqa: F401  (fluid.core.EOFException)
 from .io import (save_vars, save_params, save_persistables,  # noqa: F401

@@ -15,6 +15,13 @@ Control flow: a ``dynamic_rnn`` op runs its step block once per time
 step through :func:`_run_block` (``ops/rnn_ops.py``); ``while`` and
 ``conditional_block`` raise until a later slice ports them.
 
+Seams: ``run`` passes every program through the verifier and then,
+unless it holds host ops, the IR pass pipeline before it interprets it,
+as the reference does (``passes/``: ``amp_propagate`` there decides each
+op's precision in a program under ``contrib.mixed_precision``, whose
+casts ``registry.get_kernel`` applies when the run's context has
+``amp`` set).
+
 Feeds: a run with no feed on a program that declares ``py_reader``s
 takes each reader's next batch, staged on the executor's device
 (``pyreader.py``), and raises ``EOFException`` at the end of an epoch.
@@ -231,8 +238,7 @@ def _run_block(block, env, read):
                 collect = pending.pop(n, None)
                 if collect is not None:
                     collect()
-            if op.type in host_ops.HOST_OP_TYPES or \
-                    op.type in host_ops.QUEUED_HOST_OP_TYPES:
+            if host_ops.is_host_op(op.type):
                 for n in op.input_arg_names:
                     if n not in env:
                         read(n)
@@ -287,7 +293,13 @@ def _to_numpy(t):
 
 
 class Executor:
-    """fluid.Executor parity surface (executor.py:451)."""
+    """fluid.Executor parity surface (executor.py:451).
+
+    ``run`` memoizes the verifier's verdict and the pass pipeline's
+    transformed clone per (program version, feeds, fetches), as the
+    reference does.  So code that edits a program's ops in place (desc
+    surgery, outside the layers and passes that already do so) must bump
+    ``program._version``, or the next run takes the stale clone."""
 
     def __init__(self, place=None):
         self.place = place if place is not None else CUDAPlace(0)
@@ -324,9 +336,34 @@ class Executor:
         feed = _normalize_feed(program, dict(feed) if feed else {})
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
         scope = scope if scope is not None else global_scope()
+        program = self._at_seams(program, sorted(feed), fetch_names)
         return self._run_program(program, feed, fetch_names, scope,
                                  return_numpy,
                                  self._read_names(program, fetch_names))
+
+    @staticmethod
+    def _at_seams(program, feed_names, fetch_names):
+        """The reference's two seams before a run
+        (``paddle_tpu/core/executor.py:922-963``): the verifier
+        (FLAGS_validate_program) on every program, then the IR pass
+        pipeline (FLAGS_pass_pipeline) on every program without the
+        sharded engine's host ops, which the reference runs on its eager
+        path without it.  Both memoize per (version, feeds, fetches), so
+        a steady-state step pays dict probes.  Returns the program to
+        run: the input itself when the pipeline changes nothing, else
+        its transformed clone (the clone keeps ``_amp`` and the step
+        blocks; the reader feed was taken from the input)."""
+        from ..analysis.verifier import validate_at_seam
+        from ..distributed.host_ops import is_host_op
+        from ..passes import apply_at_seam
+
+        validate_at_seam(program, feed_names=feed_names,
+                         fetch_names=fetch_names, where="Executor.run")
+        if any(is_host_op(op.type) for blk in program.blocks
+               for op in blk.ops):
+            return program
+        return apply_at_seam(program, feed_names=feed_names,
+                             fetch_names=fetch_names, where="Executor.run")
 
     def _run_program(self, program, feed, fetch_names, scope, return_numpy,
                      reads, mesh=None):
@@ -359,7 +396,7 @@ class Executor:
             device=self.device, generator=self.generator,
             seed=program.random_seed, step=self._step,
             is_test=program._is_test or registry.in_test_mode(), masks={},
-            reads=reads, mesh=mesh)
+            reads=reads, mesh=mesh, amp=getattr(program, "_amp", False))
         with torch.no_grad(), registry.exec_context(ctx):
             _run_block(block, env, read)
             fetches = [env[n] if n in env else read(n) for n in fetch_names]

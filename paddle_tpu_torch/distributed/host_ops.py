@@ -25,6 +25,12 @@ QUEUED_HOST_OP_TYPES = {"send", "recv", "send_barrier", "fetch_barrier",
                         "distributed_lookup_table", "send_sparse_grad"}
 
 
+def is_host_op(op_type):
+    """Whether the Executor runs `op_type` here instead of through a
+    kernel (the engine's host ops and the parameter-server tier's)."""
+    return op_type in HOST_OP_TYPES or op_type in QUEUED_HOST_OP_TYPES
+
+
 def issue_lookup_op(op, env, attrs, tid):
     """Dispatch the ISSUE phase of a lookup host op; returns its
     collect() continuation."""

@@ -9,16 +9,19 @@ The predictor loads an inference model dir (``io.load_inference_model``)
 into its own Scope, runs the static verifier (``FLAGS_validate_program``)
 and the IR pass pipeline (``FLAGS_pass_pipeline``) over the loaded
 program in the reference's order, and runs the result with the port's
-Executor in inference mode.  With ``enable_quantize()`` the pipeline's
-``quantize_weights`` pass annotates the program's matmuls and the
-predictor converts their weights to int8 with per-channel scales once, at
-load; the annotated ops run the int8 kernel K6
+Executor in inference mode.  With ``enable_bf16()`` the program runs
+under the bf16 cast policy (``contrib/mixed_precision.py``), its
+precision decided op by op by the pipeline's ``amp_propagate``.  With
+``enable_quantize()`` the pipeline's ``quantize_weights`` pass annotates
+the program's matmuls and the predictor converts their weights to int8
+with per-channel scales once, at load; the annotated ops run the int8
+kernel K6
 (``ops/quant_kernels.py``).  ``AnalysisConfig`` runs on the GPU unless
 ``disable_gpu()`` is called; with no CUDA device it raises rather than
-run on the CPU.  Not ported yet: AOT ``export_serialized``,
-``ZeroCopyTensor``, ``enable_bf16``, and the quantize-at-swap of a warm
-reload (``passes.quantize.quantize_values`` exists; the engine has no
-warm reload to call it).
+run on the CPU.  Not ported yet: AOT ``export_serialized`` (and with it
+the ``amp`` meta of a serialized bf16 artifact), ``ZeroCopyTensor``, and
+the quantize-at-swap of a warm reload (``passes.quantize.quantize_values``
+exists; the engine has no warm reload to call it).
 """
 
 import numpy as np
@@ -65,8 +68,12 @@ class AnalysisConfig:
         pass
 
     def enable_bf16(self):
-        raise NotImplementedError(
-            "enable_bf16 is not ported to the PyTorch package yet")
+        """Run the loaded program under the bf16 cast policy (the
+        float16_transpiler capability): the pass pipeline's
+        amp_propagate annotates the program, and matmuls run in bf16 on
+        the tensor cores.  Requires nothing of the saved model: its
+        weights stay fp32."""
+        self._bf16 = True
 
     def enable_quantize(self):
         """Serve the loaded program with per-channel int8 weights
@@ -106,6 +113,9 @@ class Predictor:
                 params_filename=config.params_file)
         self._feed_names = list(feed_names)
         self._fetch_names = [v.name for v in fetch_vars]
+        if getattr(config, "_bf16", False):
+            program._amp = True
+            program._version += 1
         if getattr(config, "_quant", False):
             program._quant = True
             program._version += 1

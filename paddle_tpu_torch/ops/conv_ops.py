@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import (register, register_vjp, first, as_out, current,
-                       has_out_grad)
+                       has_out_grad, amp_inputs)
 
 
 def _conv_args(attrs):
@@ -84,12 +84,19 @@ def depthwise_conv2d_transpose(ins, attrs):
 
 def _conv_vjp(ins, attrs, transposed, depthwise):
     """dInput and dFilter of a convolution from its inputs and dOutput,
-    one ``aten.convolution_backward`` call (cuDNN on the card)."""
+    one ``aten.convolution_backward`` call (cuDNN on the card).  In an
+    AMP run it computes on the operands the forward's cast wrap gave its
+    kernel (``registry.amp_inputs``: bf16 for these white ops) and
+    returns each grad in its input's own dtype, as autograd of the casts
+    does: an fp32 filter's grad is fp32."""
     if not has_out_grad(ins, "Output"):
         return None
     fw = _depthwise(ins, attrs["fw_attrs"]) if depthwise \
         else attrs["fw_attrs"]
-    x, w = first(ins, "Input"), first(ins, "Filter")
+    x0, w0 = first(ins, "Input"), first(ins, "Filter")
+    cast = amp_inputs(attrs["fw_type"], {"Input": [x0], "Filter": [w0]},
+                      attrs["fw_attrs"])
+    x, w = first(cast, "Input"), first(cast, "Filter")
     g = first(ins, "Output@GRAD_OUT").to(x.dtype)
     needs = {s for s, _ in attrs["needs_input_grad"]}
     strides, pads, dilations = _conv_args(fw)
@@ -98,9 +105,9 @@ def _conv_vjp(ins, attrs, transposed, depthwise):
         fw.get("groups", 1), ["Input" in needs, "Filter" in needs, False])
     outs = {}
     if "Input" in needs:
-        outs["Input@GRAD"] = [dx]
+        outs["Input@GRAD"] = [dx.to(x0.dtype)]
     if "Filter" in needs:
-        outs["Filter@GRAD"] = [dw]
+        outs["Filter@GRAD"] = [dw.to(w0.dtype)]
     return outs
 
 

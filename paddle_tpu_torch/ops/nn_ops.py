@@ -30,7 +30,7 @@ from ..core.selected_rows import SelectedRows
 from ..flags import get_flag
 from . import dropout_kernels
 from .registry import (register, register_grad, register_vjp, first, as_out,
-                       current, dropout_keep, generic_grad_kernel,
+                       amp_inputs, current, dropout_keep, generic_grad_kernel,
                        has_out_grad, op_seed, output_read)
 from .sequence_kernels import length_mask
 from .tensor_ops import take_rows
@@ -99,14 +99,17 @@ def dropout_vjp(ins, attrs):
     arm, whose generic grad recomputes the forward over the run's cached
     mask."""
     fw = attrs["fw_attrs"]
-    x = first(ins, "X")
+    x0 = first(ins, "X")
+    # in an AMP run, at the forward's precision: K10's bf16 arm on a bf16
+    # cotangent where the wrap handed the forward a bf16 X
+    x = first(amp_inputs("dropout", {"X": [x0]}, fw), "X")
     if not _fused_dropout(x, fw) or not has_out_grad(ins, "Out"):
         return None
     impl = fw.get("dropout_implementation", "downgrade_in_infer")
     g = first(ins, "Out@GRAD_OUT").to(x.dtype).contiguous()
     return {"X@GRAD": [dropout_kernels.fused_dropout(
         g, fw.get("dropout_prob", 0.5), op_seed(fw),
-        upscale=impl == "upscale_in_train")]}
+        upscale=impl == "upscale_in_train").to(x0.dtype)]}
 
 
 def _labels(label):

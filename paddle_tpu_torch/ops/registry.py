@@ -15,10 +15,18 @@ a thread-local :class:`ExecContext` (the counterpart of the reference's
 ``TRACE_CTX``), so a serving worker thread and a caller thread never see
 each other's run.
 
+In a bf16 mixed-precision run (``ExecContext.amp``) :func:`get_kernel`
+wraps each differentiable kernel in the reference's AMP cast policy (see
+``_AMP_WHITE`` below); custom grad kernels run unwrapped, as in the
+reference, and the registered vjps compute at their forward's precision
+through :func:`amp_inputs`.
+
 The registry also holds the generic reverse-mode grad kernel: ``*_grad``
 ops recompute the forward op under torch autograd and take its vector-
 Jacobian product (:func:`generic_grad_kernel`), where the reference
-recomputes under ``jax.vjp``.  Ops may register a custom grad kernel with
+recomputes under ``jax.vjp``; the recompute goes through :func:`get_kernel`
+with the forward's attrs, so it runs under the forward's precision.  Ops
+may register a custom grad kernel with
 :func:`register_grad`; the set of custom grads and of ops marked
 ``not_differentiable`` is the reference's, because ``append_backward``
 reads both and so they shape the program, not only the numbers.  Kernels
@@ -37,9 +45,26 @@ _CUSTOM_GRADS = {}
 _VJPS = {}
 _NOT_DIFFERENTIABLE = set()
 
-# The JAX package's bf16 AMP lists (paddle_tpu/ops/registry.py:82-97), as
-# data: the passes (amp_propagate, the verifier's amp-dtype-mix rule) read
-# them.  The AMP cast wrap around kernel dispatch is not ported yet.
+# ---------------------------------------------------------------------------
+# bf16 mixed precision (the reference's registry.py:66-124): a cast policy
+# wraps kernel dispatch in a run whose context has `amp` set (a program
+# under contrib.mixed_precision or AnalysisConfig.enable_bf16), so the
+# same policy applies inside the generic grad's recompute: backward runs
+# in bf16 where forward did, and the grads of fp32 parameters come out
+# fp32 through autograd of the casts.  Parameters and optimizer
+# accumulators stay fp32 (master weights) because the optimizer ops are
+# not differentiable and so never wrapped.  bf16 keeps fp32's exponent
+# range, so there is no loss scaling.
+#
+# WHITE ops run in bf16 on the tensor cores; BLACK ops need fp32 numerics
+# (losses, reductions, exp/log); everything else is GRAY and follows its
+# inputs (fp32 operands are cast down when any input is already bf16, so
+# activation chains stay bf16 between matmuls).  EXEMPT ops manage their
+# own precision: fp32 statistics over bf16 activations, and
+# softmax_with_cross_entropy upcasts only inside its reductions.  The
+# passes (amp_propagate, the verifier's amp-dtype-mix rule) read the
+# lists too.
+# ---------------------------------------------------------------------------
 _AMP_WHITE = {"conv2d", "depthwise_conv2d", "conv2d_transpose", "mul",
               "matmul"}
 _AMP_BLACK = {"softmax", "cross_entropy",
@@ -47,6 +72,45 @@ _AMP_BLACK = {"softmax", "cross_entropy",
               "reduce_sum", "sum", "exp", "log", "square", "cos_sim",
               "sqrt", "rsqrt", "pow"}
 _AMP_EXEMPT = {"batch_norm", "layer_norm", "softmax_with_cross_entropy"}
+
+
+def _cast_ins(ins, src, dst):
+    return {s: [v.to(dst) if isinstance(v, torch.Tensor) and v.dtype == src
+                else v for v in vs]
+            for s, vs in ins.items()}
+
+
+def _amp_cast(op_type, ins, mode):
+    """The inputs the AMP wrap hands `op_type`'s kernel.  `mode` is the
+    pass pipeline's ``__amp__`` annotation ("bf16"/"fp32",
+    passes/amp.py), which forces the direction; None keeps the per-site
+    white/black/gray rule."""
+    if mode == "bf16" or (mode is None and op_type in _AMP_WHITE):
+        return _cast_ins(ins, torch.float32, torch.bfloat16)
+    if mode == "fp32" or (mode is None and op_type in _AMP_BLACK):
+        return _cast_ins(ins, torch.bfloat16, torch.float32)
+    if any(getattr(v, "dtype", None) == torch.bfloat16
+           for vs in ins.values() for v in vs):
+        return _cast_ins(ins, torch.float32, torch.bfloat16)
+    return ins
+
+
+def _amp_applies(op_type, attrs):
+    """Whether the AMP wrap runs around `op_type` in the current run:
+    `amp` set, and the op differentiable, not exempt and not quantized
+    (a quantized matmul manages its own precision)."""
+    return current().amp and op_type not in _NOT_DIFFERENTIABLE \
+        and op_type not in _AMP_EXEMPT \
+        and not (isinstance(attrs, dict) and attrs.get("__quant__"))
+
+
+def amp_inputs(op_type, ins, attrs):
+    """`ins` as the AMP wrap would hand them to `op_type`'s kernel in the
+    current run (unchanged outside AMP): what a registered vjp computes
+    on, so that it runs at its forward's precision."""
+    if not _amp_applies(op_type, attrs):
+        return ins
+    return _amp_cast(op_type, ins, (attrs or {}).get("__amp__"))
 
 
 class ExecContext:
@@ -60,10 +124,13 @@ class ExecContext:
     optional output is read at all.  `mesh` is the device mesh
     (``parallel.mesh.Mesh``) of a ``CompiledProgram`` run and None for a
     plain Executor run: the reference's ``TRACE_CTX.mesh``, which the
-    ring attention and gpipe ops read."""
+    ring attention and gpipe ops read.  `amp` is the reference's
+    ``TRACE_CTX.amp``: the run is a bf16 mixed-precision one, and
+    :func:`get_kernel` wraps kernels in the AMP cast policy."""
 
     def __init__(self, device=None, generator=None, seed=0, step=0,
-                 is_test=False, masks=None, reads=None, mesh=None):
+                 is_test=False, masks=None, reads=None, mesh=None,
+                 amp=False):
         self.device = device if device is not None else torch.device("cpu")
         self.generator = generator
         self.seed = seed            # program.random_seed
@@ -72,6 +139,7 @@ class ExecContext:
         self.masks = masks
         self.reads = reads
         self.mesh = mesh
+        self.amp = amp
         self.op = None
 
 
@@ -243,8 +311,11 @@ def get_kernel(op_type, attrs=None):
     """The kernel of `op_type`.  An op the quantize pass annotated
     (``__quant__`` in `attrs`, passes/quantize.py) runs the quantized
     matmul over its int8 weight and Scale operand instead
-    (``ops/quant_kernels.make_quant_kernel``).  Other annotations
-    (``__isolate__``, ``__amp__``) change nothing here."""
+    (``ops/quant_kernels.make_quant_kernel``), with no AMP wrap on top.
+    Otherwise, in an AMP run, a differentiable op that is not exempt
+    runs inside the AMP cast wrap, in the direction of its ``__amp__``
+    annotation when it has one.  (``__isolate__`` changes nothing
+    here.)"""
     if op_type not in _KERNELS:
         raise NotImplementedError(
             f"No kernel registered for op {op_type!r} in the PyTorch port. "
@@ -254,7 +325,10 @@ def get_kernel(op_type, attrs=None):
         from . import quant_kernels
 
         return quant_kernels.make_quant_kernel(op_type, quant)
-    return _KERNELS[op_type]
+    kern = _KERNELS[op_type]
+    if _amp_applies(op_type, attrs):
+        return lambda ins, a: kern(amp_inputs(op_type, ins, attrs), a)
+    return kern
 
 
 def get_custom_grad(op_type):

@@ -1,10 +1,11 @@
 """AMP black/white-list propagation: bf16 regions with fp32 islands.
 
-A copy of ``paddle_tpu/passes/amp.py``.  In the port it annotates
-(``program._amp`` is set by nobody yet: ``AnalysisConfig.enable_bf16``
-raises until AMP dispatch is ported, and the registry holds the AMP
-lists as data only), so a bf16 program comes out of both pipelines
-alike.
+A copy of ``paddle_tpu/passes/amp.py``: a program under
+``contrib.mixed_precision.enable`` or a Predictor with
+``AnalysisConfig.enable_bf16`` sets ``program._amp``, the Executor's and
+the Predictor's pipeline seams run this pass, and the registry's AMP wrap
+reads its annotations, so a bf16 program gets the JAX package's
+precision plan op for op.
 
 Replaces the purely LOCAL trace-time gray rule (ops/registry.py wraps
 each kernel, deciding from the runtime dtypes it happens to see) with a
@@ -27,9 +28,10 @@ exempt ops, optimizer state, gradient-consuming gray ops whose mixed
 fp32-param-grad/bf16-activation-grad inputs the static tracker cannot
 see) keep their measured-win behavior.
 
-Grad ops: ``generic_grad`` recomputes the forward under ``jax.vjp``,
-so the decision rides in ``fw_attrs["__amp__"]`` — backward runs bf16
-exactly where forward does, mirroring the wrap-the-dispatch design.
+Grad ops: ``generic_grad`` recomputes the forward (under ``jax.vjp`` in
+the JAX package, under autograd in the port), so the decision rides in
+``fw_attrs["__amp__"]`` — backward runs bf16 exactly where forward does,
+mirroring the wrap-the-dispatch design.
 
 Identity for programs without ``_amp`` set, and for already-annotated
 programs (idempotent): the annotation is part of the program structure,

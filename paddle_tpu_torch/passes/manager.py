@@ -2,7 +2,8 @@
 copy of ``paddle_tpu/passes/manager.py``).  The memory-planning passes
 (``remat``, ``eager_deletion``, ``plan_donation``: the "memory" preset,
 and "all") need ``memplan/``, which is not ported: a spec naming them
-raises NotImplementedError.  The port's Predictor is its only seam.
+raises NotImplementedError.  The port's seams are ``Executor.run``,
+``CompiledProgram`` and the Predictor, as in the reference.
 
 ``FLAGS_pass_pipeline`` is the user surface (flags.py contract —
 ``FLAGS_pass_pipeline=default,-cse python train.py``):
@@ -14,11 +15,10 @@ raises NotImplementedError.  The port's Predictor is its only seam.
 * unknown tokens raise immediately — a typo must not silently run a
   different pipeline than the one the flag author believed they chose.
 
-``apply_at_seam`` is the single entry point a seam calls (in the port:
-the Predictor) — it memoizes the transformed program per (program
-version, feeds, fetches, pipeline spec) so a repeated call pays
-a dict probe.  A pipeline with nothing to do returns the input object
-itself.
+``apply_at_seam`` is the single entry point a seam calls — it memoizes
+the transformed program per (program version, feeds, fetches, pipeline
+spec) so a repeated call pays a dict probe.  A pipeline with nothing to
+do returns the input object itself.
 
 Invariant gate: after every pass that changed the program, the
 verifier must report no NEW error-severity finding (baseline = the

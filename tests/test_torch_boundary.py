@@ -40,6 +40,8 @@ def test_import_leaves_jax_and_paddle_tpu_out():
 # the zoo, DataFeeder, dataio, PyReader), imported with jax and paddle_tpu
 # made unimportable (a None entry in sys.modules)
 NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
+               "paddle_tpu_torch.contrib",
+               "paddle_tpu_torch.contrib.mixed_precision",
                "paddle_tpu_torch.passes.quantize",
                "paddle_tpu_torch.ops.quant_kernels",
                "paddle_tpu_torch.inference",
@@ -141,8 +143,8 @@ def test_analysis_config_defaults_to_gpu():
     assert cfg.use_gpu() and isinstance(cfg.place(), fluid.CUDAPlace)
     cfg.disable_gpu()
     assert not cfg.use_gpu() and isinstance(cfg.place(), fluid.CPUPlace)
-    with pytest.raises(NotImplementedError):
-        cfg.enable_bf16()
+    cfg.enable_bf16()
+    assert cfg._bf16
     cfg.enable_quantize()
     assert cfg._quant
 

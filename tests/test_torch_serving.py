@@ -14,6 +14,7 @@ from paddle_tpu import flags as jax_flags
 from paddle_tpu import initializer as jax_init
 from paddle_tpu.core import unique_name as jax_unique_name
 from paddle_tpu.models import bert as jax_bert
+from paddle_tpu_torch import flags as port_flags
 from paddle_tpu_torch import initializer as port_init
 from paddle_tpu_torch.core import unique_name as port_unique_name
 from paddle_tpu_torch.models import bert as port_bert
@@ -228,10 +229,17 @@ def test_executor_dead_after_and_error_note():
     feed = {"x": np.array([[-1.0, 0.5, 2.0]], np.float32)}
     (got,) = exe.run(main, feed=feed, fetch_list=[y], scope=pfluid.Scope())
     np.testing.assert_array_equal(got, [[0.0, 1.0, 4.0]])
+    # y is fetched too, so the pass pipeline keeps the op that drops x
     with pytest.raises(RuntimeError, match="has no value in scope"):
-        exe.run(main, feed=feed, fetch_list=[x], scope=pfluid.Scope())
+        exe.run(main, feed=feed, fetch_list=[y, x], scope=pfluid.Scope())
+    # with the pipeline off the program runs as written: x alone fails too
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(port_flags._overrides, "pass_pipeline", "off")
+        with pytest.raises(RuntimeError, match="has no value in scope"):
+            exe.run(main, feed=feed, fetch_list=[x], scope=pfluid.Scope())
     bad = {"x": np.zeros((1, 3), np.float32)}
     main.global_block().ops[1].type = "no_such_op"
+    main._version += 1          # desc surgery: the seams' memos are stale
     with pytest.raises(NotImplementedError) as err:
         exe.run(main, feed=bad, fetch_list=[y], scope=pfluid.Scope())
     assert "while running op 'no_such_op'" in str(err.value.__notes__)

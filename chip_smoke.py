@@ -1560,9 +1560,26 @@ def serving_phase(torch, smi):
     return run
 
 
+class interpreted:
+    """Within it, `pred`'s executor runs its programs op by op: a check
+    that swaps a kernel's Python wrapper, or records what the wrapper is
+    handed, needs the wrappers called, and a captured CUDA graph's replay
+    calls none."""
+
+    def __init__(self, pred):
+        self.exe = pred._exe
+
+    def __enter__(self):
+        self.exe._captured = lambda program: False
+
+    def __exit__(self, *exc):
+        del self.exe._captured
+
+
 def code_flips(qk, card_pred, cpu_pred, feed):
     """The int8 activation codes of every quantized matmul of one batch,
-    on the card and on the CPU: how many differ, per matmul."""
+    on the card (op by op) and on the CPU: how many differ, per
+    matmul."""
     codes, quantize = [], qk.quantize_activation
 
     def recording(x):
@@ -1572,7 +1589,8 @@ def code_flips(qk, card_pred, cpu_pred, feed):
 
     qk.quantize_activation = recording
     try:
-        card_pred.run(feed)
+        with interpreted(card_pred):
+            card_pred.run(feed)
         card = codes[:]
         codes.clear()
         cpu_pred.run(feed)
@@ -1624,11 +1642,14 @@ def quant_serving_phase(torch, smi, fp32):
                          f"recorded), expected {want}")
     # the path with K6 against the same path with K6's plain version, on
     # the card, on one executed batch: the rest of the path is the same
-    # deterministic sequence of kernels, so the answers must be equal
+    # deterministic sequence of kernels, so the answers must be equal.
+    # The engine's batch replayed its captured graph; the plain version
+    # runs op by op (a replay would not call the swapped wrapper)
     feed, outs = executed[0]
     qk.int8_matmul = qk.int8_matmul_reference
     try:
-        (plain,) = pred.run(feed)
+        with interpreted(pred):
+            (plain,) = pred.run(feed)
     finally:
         qk.int8_matmul = int8_matmul
     path_err = float(np.abs(outs[0] - plain).max())
@@ -4643,18 +4664,47 @@ def bf16_keys(row, launches):
                 "max_abs_err")}}
 
 
+class _Tally:
+    """One (kernel name, dtype) entry of launch_dtypes' dict as a launch
+    counter, which a CUDA-graph capture notes and its replays add to."""
+
+    def __init__(self, seen, key):
+        self.seen, self.key = seen, key
+
+    @property
+    def launches(self):
+        return self.seen.get(self.key, 0)
+
+    @launches.setter
+    def launches(self, n):
+        self.seen[self.key] = n
+
+
 class launch_dtypes:
     """Count the operand dtype of every K1, K2a, K2b and K10 launch made
-    on the card inside the block: {(kernel name, dtype): launches}."""
+    on the card inside the block: {(kernel name, dtype): launches}.  A
+    replayed CUDA graph runs no wrapper, so each entry is also a launch
+    counter of ``cuda_build.launch_counters`` while the block is open: a
+    capture inside the block notes its delta, and every replay adds it
+    (the block must hold the capture, and so the signature's first,
+    op-by-op run too)."""
 
     def __enter__(self):
         from paddle_tpu_torch.ops import attention_kernels as ak
+        from paddle_tpu_torch.ops import cuda_build
         from paddle_tpu_torch.ops import dropout_kernels as dk
 
         self.seen = {}
-        self.mods = (ak, dk)
-        self.saved = (ak._launch, dk.fused_dropout_fwd)
-        launch, drop = self.saved
+        self.mods = (ak, dk, cuda_build)
+        self.saved = (ak._launch, dk.fused_dropout_fwd,
+                      cuda_build.launch_counters)
+        launch, drop, counters = self.saved
+        tallies = {}
+
+        def all_counters():
+            for key in self.seen:
+                tallies.setdefault(key, _Tally(self.seen, key))
+            return counters() + list(tallies.values())
 
         def note(name, t):
             if t.device.type == "cuda":
@@ -4670,11 +4720,13 @@ class launch_dtypes:
             return drop(x, *a, **kw)
 
         ak._launch, dk.fused_dropout_fwd = rec_launch, rec_drop
+        cuda_build.launch_counters = all_counters
         return self.seen
 
     def __exit__(self, *exc):
-        ak, dk = self.mods
-        ak._launch, dk.fused_dropout_fwd = self.saved
+        ak, dk, cuda_build = self.mods
+        ak._launch, dk.fused_dropout_fwd, cuda_build.launch_counters = \
+            self.saved
 
 
 def check_launch_dtypes(seen, label, main, steps, attention=True):
@@ -5007,21 +5059,22 @@ def amp_parity_phase(torch):
 def amp_steps(torch, exe, main, loss, scope, feeds, counters):
     """Warm-up steps, then timed steps (each ended by a synchronisation)
     with the counters set to 0 just before them and read just after, and
-    every launch's operand dtype counted: (losses, walls, launches,
-    dtypes, peak memory)."""
+    every launch's operand dtype counted over the warm-up and timed
+    steps (the warm-up holds the CUDA-graph capture whose launches the
+    replays count): (losses, walls, launches, dtypes, peak memory)."""
     def step(feed):
         out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
                       return_numpy=False)[0]
         torch.cuda.synchronize()
         return out
 
-    for feed in feeds[:AMP_WARMUP]:
-        step(feed)
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
     losses, walls = [], []
     with launch_dtypes() as seen:
+        for feed in feeds[:AMP_WARMUP]:
+            step(feed)
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
         for feed in feeds[AMP_WARMUP:]:
             t0 = time.perf_counter()
             out = step(feed)
@@ -5075,7 +5128,8 @@ def amp_training_phase(torch, smi):
     feeds = [feeds[i % 2] for i in range(AMP_WARMUP + AMP_STEPS)]
     losses, walls, launches, seen, peak = amp_steps(
         torch, exe, main, loss, scope, feeds, counters)
-    check_launch_dtypes(seen, "AMP BERT-base", main, AMP_STEPS)
+    check_launch_dtypes(seen, "AMP BERT-base", main,
+                        AMP_WARMUP + AMP_STEPS)
     step = statistics.median(walls)
     ops = main.global_block().ops
     print(f"[{smi}] AMP BERT-base batch {AMP_BERT_B}: step "
@@ -5150,14 +5204,15 @@ def amp_training_phase(torch, smi):
     rng = np.random.RandomState(SEED + 33)
     batches = [(t, *nmt_batch(rng, t, NMT["vocab"], NMT["n_head"]))
                for t in NMT_BUCKETS for _ in range(NMT_BATCHES_PER_BUCKET)]
-    for _, feed, _ in batches:                   # warm every bucket shape
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
     losses, walls = [], {}
+    # the dtype count holds the warm pass, where each bucket is captured
     with launch_dtypes() as seen:
+        for _, feed, _ in batches:               # warm every bucket shape
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
         for t, feed, _ in batches:
             t0 = time.perf_counter()
             losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
@@ -5165,7 +5220,7 @@ def amp_training_phase(torch, smi):
             walls.setdefault(t, []).append(time.perf_counter() - t0)
     launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    check_launch_dtypes(seen, "AMP NMT", main, len(batches))
+    check_launch_dtypes(seen, "AMP NMT", main, 2 * len(batches))
     ntok = sum(n for _, _, n in batches)
     total = sum(sum(w) for w in walls.values())
     for t, w in walls.items():
@@ -5249,6 +5304,448 @@ def amp_serving_phase(torch, smi, fp32):
     return run
 
 
+# ---------------------------------------------------------------------------
+# the compiled step: _CompiledBlock as one CUDA-graph capture per feed
+# signature
+# ---------------------------------------------------------------------------
+
+DEVICE_KEY_STEPS = (0, 1, 12345, 2**20)
+# each captured step's loss against the uncaptured block's: bit for bit
+# expected, and held to this relative bar
+COMPILED_RTOL = 1e-6
+# each leaf's update over a step, uncaptured against captured from one
+# state: 2-norm of the difference over the 2-norm of the change.  A
+# stale or skipped write-back gives 1 (or inf); the atomics' rounding in
+# the embedding grads gives far less
+COMPILED_LEAF_GAP = 0.05
+COMPILED_STEPS = 6
+# K1, K2a, K2b and K10 launches a step (the tentpole's figures): BERT-base
+# 12 layers, every dropout through K10; transformer-base NMT 6 + 6 layers
+COMPILED_LAUNCHES = {"bert": {"fwd": 24, "dkv": 12, "dq": 12, "dropout": 74},
+                     "nmt": {"fwd": 36, "dkv": 18, "dq": 18, "dropout": 84}}
+# device kernels of each wrapper, by the names the profiler records
+KERNEL_NAMES = {"fwd": ("flash_fwd_kernel", "wide_fwd_kernel"),
+                "dkv": ("flash_bwd_dkv_kernel", "wide_dkv_kernel"),
+                "dq": ("flash_bwd_dq_kernel", "wide_dq_kernel"),
+                "dropout": ("fused_dropout_kernel",)}
+
+
+def device_key_check(torch):
+    """K1, K2a, K2b and K10 keyed by a device step word
+    (``registry.DeviceSeed``) against the same kernels keyed by the host
+    int of that step: bit for bit at steps DEVICE_KEY_STEPS, at BERT-base's
+    attention (batch 32, row mask, p 0.1) and NMT's FFN dropout plane; and
+    each timed in both forms.  Returns {kernel: device-key ms}."""
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+    from paddle_tpu_torch.ops import registry
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, dout = (torch.randn(TRAIN_B, 12, TRAIN_T, 64, generator=g,
+                                 device="cuda") for _ in range(4))
+    bias = torch.zeros(TRAIN_B, 1, 1, TRAIN_T, device="cuda")
+    bias[:, ..., TRAIN_T // 2:] = -10000.0
+    x = torch.randn(128, 32, 2048, generator=g, device="cuda")
+    word = torch.zeros(1, dtype=torch.int64, device="cuda")
+    base, p = 987654, 0.1
+    scale = 0.125
+    ms = {}
+    for step in DEVICE_KEY_STEPS:
+        word.fill_(step)
+        dev = registry.DeviceSeed(base, word)
+        host = base ^ (step * registry.STEP_MULTIPLIER)
+        outs = {}
+        for form, seed in (("device", dev), ("host", host)):
+            out, lse = ak.flash_attention_fwd(q, k, v, bias, False, scale, p,
+                                              seed, with_lse=True)
+            delta = ak.attention_delta(dout, out)
+            args = (q, k, v, bias, dout, lse, delta, False, scale, p, seed)
+            outs[form] = (out, *ak.flash_attention_bwd_dkv(*args),
+                          ak.flash_attention_bwd_dq(*args)[0],
+                          dk.fused_dropout_fwd(x, p, seed))
+        same = [bits_equal(torch, a, b)
+                for a, b in zip(outs["device"], outs["host"])]
+        print(f"step {step}: K1 out, K2a dK/dV, K2b dQ, K10 out under the "
+              f"device key equal the host key's bit for bit: {same}")
+        if not all(same):
+            raise SystemExit(f"a device-keyed kernel departs from the host "
+                             f"key at step {step}: {same}")
+    out, lse = ak.flash_attention_fwd(q, k, v, bias, False, scale, p, dev,
+                                      with_lse=True)
+    delta = ak.attention_delta(dout, out)
+    for form, seed in (("host", host), ("device", dev)):
+        args = (q, k, v, bias, dout, lse, delta, False, scale, p, seed)
+        row = {"fwd": time_ms(torch, lambda: ak.flash_attention_fwd(
+                   q, k, v, bias, False, scale, p, seed, with_lse=True)),
+               "dkv": time_ms(torch,
+                              lambda: ak.flash_attention_bwd_dkv(*args)),
+               "dq": time_ms(torch, lambda: ak.flash_attention_bwd_dq(*args)),
+               "dropout": time_ms(torch,
+                                  lambda: dk.fused_dropout_fwd(x, p, seed))}
+        print(f"{form} key: K1 {row['fwd']:.6f} ms, K2a {row['dkv']:.6f} "
+              f"ms, K2b {row['dq']:.6f} ms (BERT-base attention, batch "
+              f"{TRAIN_B}, p {p}); K10 {row['dropout']:.6f} ms (NMT "
+              f"[128, 32, 2048] fp32)")
+        ms[form] = row
+    return ms["device"]
+
+
+def device_record(torch, run):
+    """run() under torch.profiler, the device's activity only: (wall ms,
+    device busy ms, {kernel: launches} for KERNEL_NAMES).  It reads the
+    profiler's raw device events: building `key_averages()` over an
+    op-by-op step's ~30,000 events took a second or more a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [(e.name(), e.duration_ns()) for e in
+              prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    busy = sum(ns for _, ns in events) / 1e6
+    counts = {k: sum(any(n in name for n in names) for name, _ in events)
+              for k, names in KERNEL_NAMES.items()}
+    return wall, busy, counts
+
+
+def clone_state(scope):
+    return {n: t.clone() for n, t in scope.vars.items()
+            if hasattr(t, "clone")}
+
+
+def scope_from(fluid, state):
+    scope = fluid.Scope()
+    for n, t in state.items():
+        scope.set_var(n, t.clone())
+    return scope
+
+
+def uncaptured(fluid, exe, main, loss):
+    """A step function over `_CompiledBlock(use_graph=False)` on `exe`'s
+    device and step count: the compiled step's bookkeeping, op by op."""
+    from paddle_tpu_torch.core.executor import (_CompiledBlock,
+                                                _normalize_feed)
+
+    blocks = {}
+
+    def step(feed, scope):
+        feed = _normalize_feed(main, dict(feed))
+        program = exe._at_seams(main, sorted(feed), [loss.name])
+        block = blocks.get(id(program))
+        if block is None:
+            block = blocks[id(program)] = _CompiledBlock(
+                program, sorted(feed), [loss.name], use_graph=False,
+                captures=exe._captures())
+        (value,) = block.run(feed, scope, exe._step)
+        exe._step += 1
+        return float(value)
+
+    return step, blocks
+
+
+def device_leaf_gaps(torch, before, after, ref):
+    """{leaf: ||after − ref|| / ||ref − before||} (2-norms, float64, on
+    the card) over the float leaves `ref`'s step changed, inf for one it
+    left alone and `after` changed: leaf_gaps for device states."""
+    names = [n for n, b in before.items() if b.is_floating_point()]
+    norms = torch.stack([torch.stack([
+        torch.linalg.vector_norm(ref[n].double() - before[n].double()),
+        torch.linalg.vector_norm(after[n].double() - ref[n].double())])
+        for n in names]).cpu().tolist()         # one copy to the host
+    gaps = {}
+    for n, (moved, off) in zip(names, norms):
+        if moved > 0:
+            gaps[n] = off / moved
+        elif off > 0:
+            gaps[n] = float("inf")
+    return gaps
+
+
+def compiled_arm(torch, fluid, main, loss, start, feeds, captured, held,
+                 counters):
+    """COMPILED_STEPS steps of (main, loss) on a fresh executor: through
+    Executor.run from `start` (the captured arm, which appends to `held`
+    its state before each step and after the last), or through the
+    uncaptured block, each step from held[i] and its update held against
+    held[i + 1] (device_leaf_gaps).  Returns losses, the worst leaf gap
+    of each step, walls, launches of the last (replayed) step, peak
+    memory, the executor and scope."""
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = scope_from(fluid, start)
+    if captured:
+        def step(feed, scope):
+            return float(exe.run(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)[0])
+    else:
+        step, _ = uncaptured(fluid, exe, main, loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gaps, walls = [], [], []
+    for i, feed in enumerate(feeds):
+        if captured:
+            held.append(clone_state(scope))
+        else:
+            scope = scope_from(fluid, held[i])
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        losses.append(step(feed, scope))
+        walls.append(time.perf_counter() - t0)
+        if not captured:
+            g = device_leaf_gaps(torch, held[i], {
+                n: scope.find_var(n) for n in held[i]}, held[i + 1])
+            worst = max(g, key=g.get)
+            gaps.append((worst, g[worst],
+                         sum(v == 0.0 for v in g.values()), len(g)))
+    if captured:
+        held.append(clone_state(scope))
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # the step wall, each step ended by the fetch's copy to the host: the
+    # uncaptured arm's last half of the compared steps; the captured arm
+    # runs the last half of the batches once more (all replays), since
+    # its compared steps hold the warm-ups and the captures
+    walls = walls[len(feeds) // 2:]
+    if captured:
+        walls = []
+        for feed in feeds[len(feeds) // 2:]:
+            t0 = time.perf_counter()
+            step(feed, scope)
+            walls.append(time.perf_counter() - t0)
+    return {"losses": losses, "gaps": gaps, "walls": walls,
+            "launches": launches, "peak": peak, "exe": exe, "scope": scope,
+            "step": step}
+
+
+def compiled_path(torch, smi, fluid, label, build, feeds, signatures,
+                  launches_key=None):
+    """One training path, captured against uncaptured: the captured arm
+    runs COMPILED_STEPS steps from the startup state, and the uncaptured
+    block runs each of them from the captured arm's state before it (the
+    embedding and gather grads' `index_add_` adds with atomics, and
+    cuDNN's weight grads may too, so two free runs part by rounding):
+    each step's loss (bit for bit expected, COMPILED_RTOL) and each
+    leaf's update (within COMPILED_LEAF_GAP of the captured one's); the
+    captured signatures, the launches of a replayed step from the
+    counters and the profiler's device record, and each arm's step wall,
+    device busy, idle share and peak memory.  Returns the captured arm's
+    numbers."""
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+
+    t_path = time.perf_counter()
+    main, startup, loss = build()
+    feeds = feeds(main) if callable(feeds) else feeds
+    init_exe, init = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    init_exe.run(startup, scope=init)
+    start = clone_state(init)
+    del init_exe, init
+    counters = {"fwd": ak.flash_attention, "dkv": ak.flash_attention_bwd_dkv,
+                "dq": ak.flash_attention_bwd_dq, "dropout": dk.fused_dropout}
+    held = []
+    arms = {}
+    for captured in (True, False):
+        arm = compiled_arm(torch, fluid, main, loss, start, feeds, captured,
+                           held, counters)
+        exe, scope, step = arm["exe"], arm["scope"], arm["step"]
+        wall, busy, kernels = device_record(
+            torch, lambda: step(feeds[-1], scope))
+        arm.update(wall=wall, busy=busy, kernels=kernels,
+                   compiles=exe.compile_count,
+                   capture_ms=exe.capture_ms)
+        if captured and label == "BERT-base fp32":
+            arm["dropout"] = replay_dropout_check(torch, fluid, exe, scope,
+                                                  step, feeds[-1])
+        exe.close()
+        del arm["exe"], arm["scope"], arm["step"], exe, scope, step
+        torch.cuda.empty_cache()
+        arms[captured] = arm
+    del held, start
+    torch.cuda.empty_cache()
+    cap, unc = arms[True], arms[False]
+    rel = [abs(a - b) / abs(b) for a, b in zip(cap["losses"], unc["losses"])]
+    worst_gap = max(g[1] for g in unc["gaps"])
+    print(f"{label}: captured losses {cap['losses']}, uncaptured "
+          f"{unc['losses']} (each step from the captured arm's state before "
+          f"it); bit for bit {cap['losses'] == unc['losses']}, largest "
+          f"relative gap {max(rel):.3e} (bar {COMPILED_RTOL:g})")
+    print(f"{label}: each step's update, uncaptured against captured (worst "
+          f"leaf, its gap, leaves equal bit for bit of leaves moved): "
+          f"{unc['gaps']} (bar {COMPILED_LEAF_GAP:g})")
+    print(f"{label}: captured signatures {cap['compiles']} (expected "
+          f"{signatures}), capture ms {cap['capture_ms']}")
+    for name, arm in (("captured", cap), ("uncaptured", unc)):
+        step_ms = statistics.median(arm["walls"]) * 1e3
+        print(f"[{smi}] {label} {name}: step {step_ms:.6f} ms (median of "
+              f"{len(arm['walls'])}: " + ("replays after the compared steps"
+                                          if arm is cap else "the last "
+                                          "compared steps") + "), "
+              f"profiled step {arm['wall']:.6f} ms, device busy "
+              f"{arm['busy']:.6f} ms, idle share "
+              f"{1.0 - arm['busy'] / arm['wall']:.4f}, peak memory "
+              f"{arm['peak']} bytes ({arm['peak'] / 2**30:.3f} GiB); "
+              f"launches of the last step {arm['launches']}, in the "
+              f"profiled step's device record {arm['kernels']}",
+              flush=True)
+        arm["step_ms"] = step_ms
+    if not np.isfinite(cap["losses"] + unc["losses"]).all() or \
+            max(rel) > COMPILED_RTOL or not worst_gap <= COMPILED_LEAF_GAP:
+        raise SystemExit(f"{label}: the captured step departs from the "
+                         f"uncaptured one: losses {rel}, updates "
+                         f"{unc['gaps']}")
+    if cap["compiles"] != signatures:
+        raise SystemExit(f"{label}: {cap['compiles']} captured signatures, "
+                         f"expected {signatures}")
+    if launches_key is not None:
+        want = COMPILED_LAUNCHES[launches_key]
+        for name, arm in (("captured", cap), ("uncaptured", unc)):
+            if arm["launches"] != want or arm["kernels"] != want:
+                raise SystemExit(f"{label} {name}: launches a step "
+                                 f"{arm['launches']}, device record "
+                                 f"{arm['kernels']}, expected {want}")
+    print(f"{label}: {time.perf_counter() - t_path:.3f} s", flush=True)
+    cap["uncaptured"] = {k: unc[k] for k in ("step_ms", "busy", "wall",
+                                             "peak")}
+    cap["worst_gap"] = worst_gap
+    return cap
+
+
+def replay_dropout_check(torch, fluid, exe, scope, step, feed):
+    """Two consecutive replays from one state on one batch draw different
+    dropout masks, so their losses differ; the control replays twice at
+    one step (what a graph with its key baked in would do) and must give
+    one loss bit for bit, or the check could not see a baked key."""
+    state = clone_state(scope)
+
+    def replay_at(n):
+        exe._step = n
+        for name, t in state.items():
+            scope.set_var(name, t.clone())
+        return step(feed, scope)
+
+    n = exe._step
+    a, b, c = replay_at(n), replay_at(n + 1), replay_at(n + 1)
+    print(f"consecutive replays from one state: losses {a} and {b} "
+          f"(must differ); the same step twice (a baked key): {b} and {c} "
+          f"(must be equal)")
+    if a == b or b != c:
+        raise SystemExit(f"dropout masks: consecutive replays {a}, {b}; "
+                         f"same-step control {b}, {c}")
+    return (a, b, c)
+
+
+def compiled_serving(torch, smi, fluid, fp32, bf16):
+    """BERT-base serving through ServingEngine over a Predictor whose
+    engine warm-up captures the bucket grid: answers equal to an
+    uncaptured engine's on the same requests, and no capture after the
+    warm-up."""
+    label = "bf16" if bf16 else "fp32"
+    cfgs = []
+    for _ in range(2):
+        cfg = fluid.AnalysisConfig(fp32["model_dir"])
+        if bf16:
+            cfg.enable_bf16()
+        cfgs.append(cfg)
+    pred = fluid.create_paddle_predictor(cfgs[0])
+    plain = fluid.create_paddle_predictor(cfgs[1])
+    counts = {}
+    run = serve(fluid, pred, fp32["reqs"], fp32["max_batch"], {},
+                on_start=lambda: counts.setdefault(
+                    "warm", pred._exe.compile_count))
+    counts["after"] = pred._exe.compile_count
+    with interpreted(plain):
+        ref = serve(fluid, plain, fp32["reqs"], fp32["max_batch"], {})
+    err = float(np.abs(run["served"] - ref["served"]).max())
+    bitwise = bool(np.array_equal(run["served"], ref["served"]))
+    print(f"{label} serving: captured signatures after the warm-up "
+          f"{counts['warm']}, after serving {counts['after']}; capture ms "
+          f"{pred._exe.capture_ms}; answers vs the uncaptured engine: bit "
+          f"for bit {bitwise}, max_abs_err {err:.3e}")
+    print(f"[{smi}] {label} serving captured: {run['line']}")
+    print(f"[{smi}] {label} serving uncaptured: {ref['line']}")
+    buckets = len(fluid.serving.buckets.default_batch_buckets(
+        fp32["max_batch"]))
+    if counts["warm"] != buckets or counts["after"] != counts["warm"]:
+        raise SystemExit(f"{label} serving: {counts} captured signatures, "
+                         f"expected {buckets} and none after the warm-up")
+    if err > COMPILED_RTOL * float(np.abs(ref["served"]).max()):
+        raise SystemExit(f"{label} serving: captured answers depart from "
+                         f"the uncaptured engine's by {err}")
+    return {"p50": run["p50"], "p99": run["p99"], "req_s": run["req_s"],
+            "plain_p50": ref["p50"], "plain_p99": ref["p99"]}
+
+
+def compiled_step_phase(torch, smi, fp32):
+    """The compiled step on the card: Executor.run captures each eligible
+    program once per feed signature and replays it.  BERT-base training
+    fp32 (batch 32, dropout 0.1 through K10) and AMP (batch 128),
+    transformer-base NMT at T 16/32/64 fp32 and AMP, fp32 ResNet-50 at
+    batch 128, each captured against `_CompiledBlock(use_graph=False)`
+    step by step from the same states (compiled_path); BERT-base serving
+    in fp32 and
+    bf16 against an uncaptured engine.  First the device-keyed kernels
+    against the host-keyed ones."""
+    import paddle_tpu_torch as fluid
+
+    phase("compiled step: one CUDA graph per feed signature, against the "
+          "uncaptured block")
+    t0 = time.perf_counter()
+    key_ms = device_key_check(torch)
+    mp = fluid.contrib.mixed_precision
+    fluid.set_flags({"use_fused_dropout": True})
+
+    # each model is built once: its AMP path runs the same program after
+    # contrib.mixed_precision.enable (a new version, so new signatures)
+    bert = pretrain_program(fluid, 12, 0.1)
+    nmt = nmt_program(fluid, **NMT)[:3]
+
+    def amp(prog):
+        mp.enable(prog[0])
+        return prog
+
+    def resnet():
+        main, startup, loss, reader = resnet50_program(fluid)
+        return main, startup, loss
+
+    rng = np.random.RandomState(SEED + 40)
+    nmt_feeds = [nmt_batch(rng, t, NMT["vocab"], NMT["n_head"])[0]
+                 for _ in range(2) for t in NMT_BUCKETS]
+    out = {}
+    out["bert"] = compiled_path(
+        torch, smi, fluid, "BERT-base fp32", lambda: bert,
+        [pretrain_feed(TRAIN_B, TRAIN_T, TRAIN_M, SEED + 41 + i % 2)
+         for i in range(COMPILED_STEPS)], 1, "bert")
+    out["bert_amp"] = compiled_path(
+        torch, smi, fluid, "BERT-base AMP", lambda: amp(bert),
+        [pretrain_feed(AMP_BERT_B, TRAIN_T, AMP_BERT_M, SEED + 43 + i % 2)
+         for i in range(COMPILED_STEPS)], 1, "bert")
+    out["nmt"] = compiled_path(torch, smi, fluid, "NMT fp32", lambda: nmt,
+                               nmt_feeds, len(NMT_BUCKETS), "nmt")
+    out["nmt_amp"] = compiled_path(torch, smi, fluid, "NMT AMP",
+                                   lambda: amp(nmt), nmt_feeds,
+                                   len(NMT_BUCKETS), "nmt")
+    fluid.set_flags({"use_fused_dropout": False})
+
+    def images(main):
+        slots = [v.name for v in main._py_readers[0].feed_vars]
+        img_rng = np.random.RandomState(0)
+        return [dict(zip(slots, image_batch(img_rng, R50_B)))
+                for _ in range(COMPILED_STEPS)]
+
+    out["resnet50"] = compiled_path(torch, smi, fluid, "ResNet-50 fp32",
+                                    resnet, images, 1)
+    out["serving"] = compiled_serving(torch, smi, fluid, fp32, False)
+    out["serving_bf16"] = compiled_serving(torch, smi, fluid, fp32, True)
+    out["key_ms"] = key_ms
+    print(f"[{smi}] compiled step phase: {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -5299,6 +5796,7 @@ def main():
     amp_parity_phase(torch)
     amp = amp_training_phase(torch, smi)
     amp_serve = amp_serving_phase(torch, smi, fp32)
+    compiled = compiled_step_phase(torch, smi, fp32)
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -5324,7 +5822,8 @@ def main():
     kernels = [dict(KERNELS[k], launches=launches[k],
                     **train_rows[k]["bert_row_f32_drop"],
                     **bf16_keys(amp_attn_rows[k][amp_bert],
-                                amp["bert"]["launches"][k] * AMP_STEPS))
+                                amp["bert"]["launches"][k] * AMP_STEPS),
+                    device_key_ms=compiled["key_ms"][k])
                for k in ("fwd", "dkv", "dq")]
     kernels.append(dict(KERNELS["quant"],
                         launches=quant["launches"]["quant"],
@@ -5345,7 +5844,8 @@ def main():
                         **dropout_rows["nmt_b128_t32_d2048"],
                         **bf16_keys(amp_drop_rows["amp_nmt_b128_t32_d2048"],
                                     amp["nmt"]["launches"]["dropout"]
-                                    * nmt_steps_amp)))
+                                    * nmt_steps_amp),
+                        device_key_ms=compiled["key_ms"]["dropout"]))
     # the decode shape of bench_kernels.py: K4 with float32 arenas (the
     # disaggregated path's float32 pool; its bf16 arm beside it), K5 int8
     bf16 = paged_rows[f"{PAGED_BENCH[0]}_bfloat16"]
@@ -5394,6 +5894,23 @@ def main():
           f"{n['step_ms']} ms, launches a step {n['launches']}; serving "
           f"p50 {amp_serve['p50']:.6f} ms p99 {amp_serve['p99']:.6f} ms "
           f"{amp_serve['req_s']:.3f} req/s")
+    for key, label in (("bert", "BERT-base fp32"), ("bert_amp",
+                                                     "BERT-base AMP"),
+                       ("nmt", "NMT fp32"), ("nmt_amp", "NMT AMP"),
+                       ("resnet50", "ResNet-50 fp32")):
+        c = compiled[key]
+        u = c["uncaptured"]
+        print(f"[{smi}] compiled {label}: step {c['step_ms']:.6f} ms "
+              f"(uncaptured {u['step_ms']:.6f}), busy {c['busy']:.6f} ms "
+              f"of {c['wall']:.6f} profiled (uncaptured {u['busy']:.6f} of "
+              f"{u['wall']:.6f}), peak {c['peak'] / 2**30:.3f} GiB "
+              f"(uncaptured {u['peak'] / 2**30:.3f}), capture ms "
+              f"{c['capture_ms']}")
+    for key in ("serving", "serving_bf16"):
+        c = compiled[key]
+        print(f"[{smi}] compiled {key}: p50 {c['p50']:.6f} ms p99 "
+              f"{c['p99']:.6f} ms {c['req_s']:.3f} req/s (uncaptured p50 "
+              f"{c['plain_p50']:.6f} p99 {c['plain_p99']:.6f})")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,33 @@
-"""Executor: run a Program block op by op over torch tensors.
+"""Executor: run a Program block over torch tensors, op by op or as a
+captured CUDA graph.
 
-The port of ``paddle_tpu/core/executor.py``.  Where the reference traces a
-whole block into one jitted XLA computation, this Executor is the
+The port of ``paddle_tpu/core/executor.py``.  Its interpreter is the
 reference framework's own shape (``Executor::Run``, ``executor.cc:185``):
-an interpreter loop that calls one registered kernel per op
-(``ops/registry.py``) on tensors that live on the executor's device.
-There is no jit and no buffer donation: persistable state the block
+a loop that calls one registered kernel per op (``ops/registry.py``) on
+tensors that live on the executor's device.  Persistable state the block
 writes (an optimizer's ``ParamOut`` under the parameter's own name) is
 stored back into the Scope after the run, so the next run reads it.
 Kernels never update a tensor in place, because a grad op reads forward
 inputs from the run's environment after later ops have run.
+
+The compiled step: where the reference traces a (program, feeds,
+fetches) into one jitted executable (``_CompiledBlock``, cached by
+``_ProgramCache`` under ``FLAGS_executor_cache_capacity``), ``run`` on a
+CUDA place captures it as one CUDA graph per feed signature.  Whether a
+program is captured is decided from the program before it runs
+(:func:`capturable`); every other program, and every program on the CPU,
+is interpreted.  The first run of a signature is an ordinary op-by-op
+step (the warmup of cuBLAS, cuDNN and the kernels' build), the second
+captures the step and replays it, and later runs replay.  A replay
+copies the feeds into the graph's static buffers, writes the step into
+the executor's device step word (the random ops' key: ``registry.
+DeviceSeed``), replays, and returns copies of the fetches.  The graph
+ends by copying each written persistable into the Scope's own tensor (the
+reference's donation plays that role), so the Scope's tensors keep their
+identity from the capture on; a Scope tensor swapped in between runs is
+copied into the static buffer before the replay (a new shape or dtype
+recaptures).  ``compile_count`` counts captured signatures and
+``precompile`` captures one without running a step.
 
 Control flow: a ``dynamic_rnn`` op runs its step block once per time
 step through :func:`_run_block` (``ops/rnn_ops.py``); ``while`` and
@@ -36,6 +54,10 @@ Entry points run on the card unless the caller asks for the CPU:
 instead of carrying on on the CPU.  Pass ``CPUPlace()`` to run on the CPU.
 """
 
+import contextlib
+import gc
+import threading
+import time
 import weakref
 
 import numpy as np
@@ -285,11 +307,564 @@ def _absent(op, slot, name, read):
     return read(name)
 
 
+def _scope_read(scope, n, device):
+    """Scope value of a name the program reads, with the interpreter's
+    errors for a missing one and one on another device."""
+    val = scope.find_var(n)
+    if val is None:
+        raise RuntimeError(
+            f"Variable {n!r} is read by the program but has no value in "
+            "scope — did you run the startup program?")
+    if isinstance(val, torch.Tensor) and val.device != device:
+        raise RuntimeError(
+            f"Variable {n!r} lives on {val.device}, this executor runs on "
+            f"{device}")
+    return val
+
+
+def _written_state(block, env):
+    """The persistables (not data) a run wrote: name -> value."""
+    return {n: v for n, v in env.items()
+            if block.has_var(n) and block.var(n).persistable
+            and not block.var(n).is_data}
+
+
+def _swap_state(scope, new):
+    for n, v in new.items():
+        scope.set_var(n, v)
+
+
+def _interpret(program, feed, fetch_names, scope, device, step, reads,
+               generator=None, mesh=None, write=_swap_state):
+    """One op-by-op run of `program` on normalized feeds at `step`:
+    returns the fetches, and hands the persistables it wrote to
+    `write(scope, {name: tensor})` (None: the run writes no state)."""
+    block = program.global_block()
+    env = {}
+    for n, val in feed.items():
+        dtype = block.var(n).dtype if block.has_var(n) else \
+            str(np.asarray(val).dtype)
+        env[n] = registry.cast_feed(val, dtype, device)
+
+    def read(n):
+        env[n] = val = _scope_read(scope, n, device)
+        return val
+
+    ctx = registry.ExecContext(
+        device=device, generator=generator, seed=program.random_seed,
+        step=step, is_test=program._is_test or registry.in_test_mode(),
+        masks={}, reads=reads, mesh=mesh,
+        amp=getattr(program, "_amp", False))
+    with torch.no_grad(), registry.exec_context(ctx):
+        _run_block(block, env, read)
+        fetches = [env[n] if n in env else read(n) for n in fetch_names]
+    if write is not None:
+        write(scope, _written_state(block, env))
+    return fetches
+
+
 def _to_numpy(t):
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# The compiled step: one captured CUDA graph per feed signature
+# ---------------------------------------------------------------------------
+
+# one capture at a time in the process: a capture's entry synchronizes
+# the device and frees cached memory, which another thread's capture in
+# flight forbids (two serving replicas, each with its executor)
+_CAPTURE_LOCK = threading.Lock()
+
+# flags a kernel reads as it runs: a graph replays the setting it was
+# captured under, so they are part of a signature, as are the matmul and
+# convolution settings torch.backends holds
+_KERNEL_FLAGS = ("use_fused_dropout", "ring_flash")
+
+
+def capturable(program):
+    """Whether ``Executor.run`` captures `program` on a CUDA place, decided
+    from the program alone before it runs.  Not when an op of any of its
+    blocks, or the forward op of a grad op, is
+      - a host op of the sharded embedding engine (RPC on the host; the
+        reference runs these on its eager path, ``_has_host_ops``),
+      - ``dynamic_rnn``, ``gpipe``, ``while`` or ``conditional_block`` (a
+        Python loop over steps or sub-blocks),
+      - drawn through a reseeded torch generator
+        (``registry.generator_for``: its seed is host state), or
+      - sparse (``is_sparse``: merging a SelectedRows grad reads its rows
+        on the host).
+    Those programs run op by op, as every program does on the CPU."""
+    from ..distributed.host_ops import is_host_op
+
+    for blk in program.blocks:
+        for op in blk.ops:
+            kinds = [op.type]
+            fw_attrs = op.attrs.get("fw_attrs")
+            fw_attrs = fw_attrs if isinstance(fw_attrs, dict) else {}
+            if op.type == "generic_grad":
+                kinds.append(op.attrs.get("fw_type"))
+            elif op.type.endswith("_grad"):
+                kinds.append(op.type[:-5])
+            for t in kinds:
+                if t in _SUB_BLOCK_OPS or t in SELF_CONTAINED_BLOCK_OPS \
+                        or is_host_op(t) or registry.draws_from_generator(t):
+                    return False
+            if op.attrs.get("is_sparse") or fw_attrs.get("is_sparse"):
+                return False
+    return True
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """No cyclic garbage collection inside: a graph collected during a
+    capture (an executor or predictor left in a reference cycle) would be
+    destroyed on the capturing thread, a call the capture forbids, and
+    the capture would fail.  torch.cuda.graph collects once on entry."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _matches(a, b):
+    return isinstance(a, torch.Tensor) and a.shape == b.shape and \
+        a.dtype == b.dtype and a.device == b.device
+
+
+def _write_into(pairs):
+    """Copy each (target, value) pair's value into its target, as of
+    before any of the copies: a value that shares storage with a target
+    (an op that hands a state tensor on) is cloned first."""
+    targets = {_storage(t) for t, _ in pairs}
+    pending = [(t, v.clone() if _storage(v) in targets else v)
+               for t, v in pairs if v is not t]
+    for t, v in pending:
+        t.copy_(v)
+
+
+class _Captures:
+    """What the compiled steps of one Executor share: its device, the
+    device step word the random ops key their draws by, one graph memory
+    pool and capture stream, the lock that orders captures and replays
+    (a serving engine runs them on its own thread), and the tensors
+    adopted as static state buffers with the Scope bound to them."""
+
+    def __init__(self, device):
+        self.device = device
+        self.step_word = torch.zeros(1, dtype=torch.int64, device=device)
+        self.lock = threading.RLock()
+        self._adopted = weakref.WeakValueDictionary()     # id -> tensor
+        self._scope = None                 # weakref: the bound Scope
+        self._pool = self._stream = None
+        self.capture_ms = []               # one entry per capture
+
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def owns(self, t):
+        return isinstance(t, torch.Tensor) and self._adopted.get(id(t)) is t
+
+    def fresh(self, like):
+        """A new adopted tensor of `like`'s shape and dtype."""
+        t = torch.empty(like.shape, dtype=like.dtype, device=self.device)
+        self._adopted[id(t)] = t
+        return t
+
+    def adopt(self, cur, taken):
+        """The static buffer of a Scope tensor: the tensor itself when it
+        is adopted already and no other name of the step took it
+        (`taken`, storage addresses), else a new one that the first run
+        fills (``_Step.bind``)."""
+        t = cur if self.owns(cur) and _storage(cur) not in taken else \
+            self.fresh(cur)
+        taken.add(_storage(t))
+        return t
+
+    def enter(self, scope):
+        """Bind `scope` to the adopted tensors: the Scope bound before
+        gets a copy of each adopted tensor it holds, so two scopes run on
+        one executor never share state, as with the interpreter."""
+        old = self._scope() if self._scope is not None else None
+        if old is not None and old is not scope:
+            for n, t in list(old.vars.items()):
+                if self.owns(t):
+                    old.vars[n] = t.clone()
+        self._scope = weakref.ref(scope)
+
+    def write_adopted(self, scope, new):
+        """The warmup's state write: in place into the Scope tensors that
+        are adopted (so every captured signature binds the same tensors),
+        a swap for the rest, as the interpreter writes."""
+        pairs = []
+        for n, v in new.items():
+            cur = scope.find_var(n)
+            if self.owns(cur) and _matches(v, cur):
+                pairs.append((cur, v))
+            else:
+                scope.set_var(n, v)
+        _write_into(pairs)
+
+
+class _Step:
+    """One feed signature of a ``_CompiledBlock``: its static feed
+    buffers, the static state buffers of the names it reads (`state`,
+    `reads`) and writes (`targets`), and with a graph the captured graph,
+    its fetch tensors and each launch counter's delta over the step."""
+
+    def __init__(self):
+        self.feeds, self.state, self.reads, self.targets = {}, {}, [], {}
+        self.graph, self.fetches, self.launches = None, None, ()
+
+    def bind(self, scope, device):
+        """Point the Scope at the static buffers before a run: a name
+        whose Scope tensor is another one is copied into its buffer.
+        False when one has another shape or dtype (the step is captured
+        again)."""
+        for n in self.reads:
+            t = self.state[n]
+            cur = _scope_read(scope, n, device)
+            if cur is t:
+                continue
+            if not _matches(cur, t):
+                return False
+            t.copy_(cur)
+            scope.set_var(n, t)
+        return True
+
+    def release(self):
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.fetches = None
+        self.feeds, self.state, self.targets = {}, {}, {}
+
+
+class _CompiledBlock:
+    """The compiled step of (program, feeds, fetches): the reference's
+    ``_CompiledBlock`` (``paddle_tpu/core/executor.py:352``) with one
+    captured CUDA graph per feed signature where it holds one XLA
+    executable.  A signature is the feeds' shapes and dtypes with what a
+    capture bakes in besides: test mode, the kernel flags and
+    ``torch.backends``' matmul and convolution settings.
+
+    ``state_in`` (names read before written, and fetches not written),
+    ``state_out`` (persistables written), ``donated_in`` (read and
+    written) and ``readonly_in`` are the reference's sets, from the same
+    dataflow.  Every Scope tensor of ``state_in`` and ``state_out`` is
+    bound to an adopted static buffer; the step reads the buffers and
+    ends by copying what it wrote into them.
+
+    ``use_graph=False`` (the reference's ``use_jit=False``) runs the same
+    bookkeeping — static buffers, in-place write-back, fetch copies, the
+    device step word — op by op at every run, with no graph: it runs on
+    the CPU and is the uncaptured arm the graph is held against.
+    ``compile_count`` counts signatures set up (captured)."""
+
+    def __init__(self, program, feed_names, fetch_names, device=None,
+                 use_graph=True, captures=None):
+        self.program = program
+        self.feed_names = list(feed_names)
+        self.fetch_names = list(fetch_names)
+        self.use_graph = use_graph
+        self.captures = captures if captures is not None else _Captures(
+            device if device is not None else torch.device("cpu"))
+        self.device = self.captures.device
+        if use_graph and self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph captures CUDA work, not work on "
+                             f"{self.device}: pass use_graph=False")
+        block = program.global_block()
+
+        # dataflow analysis: which names must come from the Scope (read
+        # before written), and which persistables the block writes
+        written = set(self.feed_names)
+        state_in, seen_in = [], set()
+
+        def scan_block(blk, written):
+            for op in blk.ops:
+                for n in op.input_arg_names:
+                    if n not in written and n not in seen_in:
+                        seen_in.add(n)
+                        state_in.append(n)
+                if _recurse_into_blocks(op):
+                    for v in op.attrs.values():
+                        if isinstance(v, Block):
+                            scan_block(v, set(written))
+                written.update(op.output_arg_names)
+
+        scan_block(block, written)
+        written.update(_block_io(block)[1])
+        for n in self.fetch_names:
+            if n not in written and n not in seen_in:
+                seen_in.add(n)
+                state_in.append(n)
+        self.state_in = sorted(state_in)
+        self.state_out = sorted(
+            n for n in written
+            if block.has_var(n) and block.var(n).persistable)
+        out_set = set(self.state_out)
+
+        def _donatable(n):
+            v = block._find_var_recursive(n)
+            return getattr(v, "donate", None) is not False
+
+        self.donated_in = sorted(n for n in self.state_in
+                                 if n in out_set and _donatable(n))
+        donated = set(self.donated_in)
+        self.readonly_in = sorted(n for n in self.state_in
+                                  if n not in donated)
+        # what a run writes back: the interpreter's persistables (not
+        # data, not fed)
+        self._writes = [n for n in self.state_out
+                        if not block.var(n).is_data
+                        and n not in self.feed_names]
+        self.reads = read_names(block, self.fetch_names)
+        self._steps = {}           # signature -> _Step
+        self._warm = set()         # signatures whose warmup ran
+        self.compile_count = 0
+
+    def signature(self, feed):
+        from ..flags import get_flag
+
+        block = self.program.global_block()
+        feeds = []
+        for n in self.feed_names:
+            v = feed[n]
+            if isinstance(v, torch.Tensor):
+                shape, dtype = tuple(v.shape), str(v.dtype)[6:]
+            else:
+                v = np.asarray(v)
+                shape, dtype = v.shape, str(v.dtype)
+            if block.has_var(n):
+                dtype = str(block.var(n).dtype)
+            feeds.append((n, shape, dtype))
+        be = torch.backends
+        return (tuple(feeds), registry.in_test_mode(),
+                tuple(get_flag(f) for f in _KERNEL_FLAGS),
+                (be.cuda.matmul.allow_tf32, be.cudnn.allow_tf32,
+                 be.cudnn.benchmark, be.cudnn.deterministic,
+                 torch.get_float32_matmul_precision()))
+
+    def run(self, feed, scope, step):
+        """One step on normalized feeds at executor step `step`; returns
+        the fetches as tensors of their own."""
+        sig = self.signature(feed)
+        self.captures.enter(scope)
+        st = self._steps.get(sig)
+        if st is None and self.use_graph and sig not in self._warm:
+            # the first run of a signature: an ordinary op-by-op step,
+            # and the warmup of what a capture must find done (cuBLAS and
+            # cuDNN handles, the hand kernels' build)
+            self._warm.add(sig)
+            return self._interpret(feed, scope, step,
+                                   self.captures.write_adopted)
+        if st is None:
+            st = self._setup(sig, scope, step)
+        if not st.bind(scope, self.device):
+            self._steps.pop(sig).release()
+            st = self._setup(sig, scope, step)
+            st.bind(scope, self.device)
+        return self._replay(st, feed, scope, step)
+
+    def precompile(self, feed, scope, step):
+        """Set up (capture) `feed`'s signature without running a step: its
+        warmup runs op by op on the feeds and writes no state, and the
+        capture runs nothing, so the Scope is left as it is."""
+        sig = self.signature(feed)
+        if sig in self._steps:
+            return
+        self._interpret(feed, scope, step, None)
+        self._warm.add(sig)
+        self._setup(sig, scope, step)
+
+    def release(self):
+        """Free every signature's graph and buffers (eviction, close)."""
+        for st in self._steps.values():
+            st.release()
+        self._steps.clear()
+
+    def _interpret(self, feed, scope, step, write):
+        return _interpret(self.program, feed, self.fetch_names, scope,
+                          self.device, step, self.reads, write=write)
+
+    def _setup(self, sig, scope, step):
+        caps = self.captures
+        st = _Step()
+        for n, shape, dtype in sig[0]:
+            st.feeds[n] = torch.empty(shape, dtype=registry.torch_dtype(
+                dtype), device=self.device)
+        taken = set()
+        for n in dict.fromkeys(self.state_in + self.state_out):
+            cur = scope.find_var(n)
+            if isinstance(cur, torch.Tensor) and cur.device == self.device:
+                st.state[n] = caps.adopt(cur, taken)
+            elif cur is not None and n in self.state_in:
+                _scope_read(scope, n, self.device)      # another device
+                raise TypeError(
+                    f"Variable {n!r} holds a {type(cur).__name__}: a "
+                    "compiled step binds tensors")
+        st.reads = [n for n in self.state_in if n in st.state]
+        if self.use_graph:
+            self._capture(st, step)
+        self._steps[sig] = st
+        self.compile_count += 1
+        return st
+
+    def _body(self, st, step):
+        """The step over the static buffers: run the block, copy each
+        written persistable into its buffer, return the fetches."""
+        block = self.program.global_block()
+        env = dict(st.feeds)
+
+        def read(n):
+            t = st.state.get(n)
+            if t is None:
+                raise RuntimeError(
+                    f"Variable {n!r} is read by the program but has no "
+                    "value in scope — did you run the startup program?")
+            env[n] = t
+            return t
+
+        ctx = registry.ExecContext(
+            device=self.device, seed=self.program.random_seed, step=step,
+            is_test=self.program._is_test or registry.in_test_mode(),
+            masks={}, reads=self.reads,
+            amp=getattr(self.program, "_amp", False),
+            step_word=self.captures.step_word)
+        with torch.no_grad(), registry.exec_context(ctx):
+            _run_block(block, env, read)
+            fetches = [env[n] if n in env else read(n)
+                       for n in self.fetch_names]
+            pairs = []
+            for n in self._writes:
+                v = env.get(n)
+                if v is None:
+                    continue
+                if not isinstance(v, torch.Tensor):
+                    raise TypeError(
+                        f"Variable {n!r} was written as a "
+                        f"{type(v).__name__}: a compiled step writes "
+                        "tensors")
+                t = st.targets.get(n)
+                if t is None:
+                    t = st.state.get(n)
+                    t = st.targets[n] = t if _matches(v, t) else \
+                        self.captures.fresh(v)
+                pairs.append((t, v))
+            _write_into(pairs)
+        return fetches
+
+    def _capture(self, st, step):
+        """Capture the step into one CUDA graph on the executor's pool and
+        stream.  Capture runs nothing; the launch counters' deltas over
+        the captured step are kept for the replays, and the counters
+        left as they were.  A failed capture raises, naming the op."""
+        from ..ops.cuda_build import launch_counters
+
+        caps = self.captures
+        before = {id(c): c.launches for c in launch_counters()}
+        graph = torch.cuda.CUDAGraph()
+        failed = []
+        t0 = time.perf_counter()
+        try:
+            with _CAPTURE_LOCK, _no_collection():
+                with torch.cuda.graph(graph, pool=caps.pool(),
+                                      stream=caps.stream(),
+                                      capture_error_mode="thread_local"):
+                    try:
+                        st.fetches = self._body(st, step)
+                    except BaseException as e:
+                        failed.append(e)
+                        raise
+        except Exception as e:
+            cause = failed[0] if failed else e
+            notes = "; ".join(getattr(cause, "__notes__", ()))
+            raise RuntimeError(
+                "capturing the step as a CUDA graph failed "
+                f"({notes or 'outside any op'}): {cause!r}") from cause
+        finally:
+            deltas = []
+            for c in launch_counters():
+                b = before.get(id(c), 0)
+                deltas.append((c, c.launches - b))
+                c.launches = b
+        st.graph = graph
+        st.launches = tuple((c, d) for c, d in deltas if d)
+        caps.capture_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def _replay(self, st, feed, scope, step):
+        for n, buf in st.feeds.items():
+            v = feed[n]
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.ascontiguousarray(
+                    v, dtype=registry.np_dtype(str(buf.dtype)[6:])))
+            buf.copy_(v)
+        self.captures.step_word.fill_(step)
+        if st.graph is not None:
+            st.graph.replay()
+            for counter, delta in st.launches:
+                counter.launches += delta
+            fetches = st.fetches
+        else:
+            fetches = self._body(st, step)
+        for n, t in st.targets.items():
+            scope.set_var(n, t)
+        return [f.clone() for f in fetches]
+
+
+class _ProgramCache:
+    """Bounded LRU over compiled program blocks (the reference's
+    ``Executor._cache``): an evicted block's graphs are freed, and its
+    count is kept so ``compile_count`` survives eviction."""
+
+    def __init__(self, capacity):
+        import collections
+
+        self.capacity = max(int(capacity), 1)
+        self._d = collections.OrderedDict()
+        self.evicted_compiles = 0
+
+    def __len__(self):
+        return len(self._d)
+
+    def get(self, key):
+        cb = self._d.get(key)
+        if cb is not None:
+            self._d.move_to_end(key)
+        return cb
+
+    def put(self, key, cb):
+        self._d[key] = cb
+        self._d.move_to_end(key)
+        while len(self._d) > self.capacity:
+            _, old = self._d.popitem(last=False)
+            self.evicted_compiles += old.compile_count
+            old.release()
+
+    def values(self):
+        return self._d.values()
+
+    def clear(self):
+        for cb in self._d.values():
+            self.evicted_compiles += cb.compile_count
+            cb.release()
+        self._d.clear()
 
 
 class Executor:
@@ -299,9 +874,18 @@ class Executor:
     transformed clone per (program version, feeds, fetches), as the
     reference does.  So code that edits a program's ops in place (desc
     surgery, outside the layers and passes that already do so) must bump
-    ``program._version``, or the next run takes the stale clone."""
+    ``program._version``, or the next run takes the stale clone.
+
+    On a CUDA place ``run`` captures each :func:`capturable` program once
+    per feed signature (``_CompiledBlock``, cached per (program, version,
+    feeds, fetches) in a ``_ProgramCache`` of
+    ``FLAGS_executor_cache_capacity`` entries) unless
+    ``use_program_cache=False``; everything else is interpreted op by
+    op."""
 
     def __init__(self, place=None):
+        from ..flags import get_flag
+
         self.place = place if place is not None else CUDAPlace(0)
         self.device = device_of(self.place)
         # the reference's per-trace rng keys: one generator per executor,
@@ -311,6 +895,10 @@ class Executor:
         # read sets (read_names) by program, then by (its version, fetch
         # list): the key the reference's executable cache uses
         self._reads = weakref.WeakKeyDictionary()
+        self._capturable = weakref.WeakKeyDictionary()
+        self._cache = _ProgramCache(
+            get_flag("executor_cache_capacity") or 64)
+        self._graphs = None          # _Captures, at the first capture
         self._dist_endpoints = set()
         self._dist_trainer_id = 0
         # the reference's StepGuard verdict of the last run (None: the
@@ -337,9 +925,82 @@ class Executor:
         fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
         scope = scope if scope is not None else global_scope()
         program = self._at_seams(program, sorted(feed), fetch_names)
+        if use_program_cache and self._captured(program):
+            with self._captures().lock:
+                fetches = self._compiled(program, feed, fetch_names).run(
+                    feed, scope, self._step)
+                self._step += 1
+            return [_to_numpy(f) for f in fetches] if return_numpy \
+                else fetches
         return self._run_program(program, feed, fetch_names, scope,
                                  return_numpy,
                                  self._read_names(program, fetch_names))
+
+    def precompile(self, program=None, feed=None, fetch_list=None,
+                   scope=None):
+        """Capture (program, feed signature) without running a step (the
+        reference's ``precompile``): the warmup runs op by op on the
+        feeds and writes no state, and the capture runs nothing, so the
+        Scope is left as it is.  Only the feeds' shapes and dtypes
+        matter.  A program ``run`` would interpret (the CPU, a
+        ``CompiledProgram``, one :func:`capturable` refuses) captures
+        nothing."""
+        from ..compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            return
+        program = program if program is not None else default_main_program()
+        feed = _normalize_feed(program, dict(feed) if feed else {})
+        fetch_names = [_as_fetch_name(f) for f in (fetch_list or [])]
+        scope = scope if scope is not None else global_scope()
+        program = self._at_seams(program, sorted(feed), fetch_names)
+        if not self._captured(program):
+            return
+        with self._captures().lock:
+            self._compiled(program, feed, fetch_names).precompile(
+                feed, scope, self._step)
+
+    @property
+    def compile_count(self):
+        """Feed signatures captured so far, over every program this
+        executor ran; survives ``_ProgramCache`` eviction."""
+        return self._cache.evicted_compiles + sum(
+            c.compile_count for c in self._cache.values())
+
+    @property
+    def capture_ms(self):
+        """The wall time of each capture, in order (ms)."""
+        return list(self._graphs.capture_ms) if self._graphs else []
+
+    def _captured(self, program):
+        """Whether `program` runs as a captured step here: a CUDA place
+        and :func:`capturable`, memoized per program version."""
+        if self.device.type != "cuda":
+            return False
+        memo = self._capturable.get(program)
+        if memo is None or memo[0] != program._version:
+            memo = self._capturable[program] = (program._version,
+                                                capturable(program))
+        return memo[1]
+
+    def _captures(self):
+        if self._graphs is None:
+            self._graphs = _Captures(self.device)
+        return self._graphs
+
+    def _compiled(self, program, feed, fetch_names):
+        """The cached ``_CompiledBlock`` of (program, feeds, fetches).  It
+        pins the program, so a live entry keeps id(program) from being
+        reused."""
+        feed_names = sorted(feed)
+        key = (id(program), program._version, tuple(feed_names),
+               tuple(fetch_names))
+        compiled = self._cache.get(key)
+        if compiled is None:
+            compiled = _CompiledBlock(program, feed_names, fetch_names,
+                                      captures=self._captures())
+            self._cache.put(key, compiled)
+        return compiled
 
     @staticmethod
     def _at_seams(program, feed_names, fetch_names):
@@ -367,44 +1028,14 @@ class Executor:
 
     def _run_program(self, program, feed, fetch_names, scope, return_numpy,
                      reads, mesh=None):
-        """Run `program` once on normalized feeds: `reads` is its read set
-        (:func:`read_names`) and `mesh` the device mesh a
+        """Run `program` once, op by op, on normalized feeds: `reads` is
+        its read set (:func:`read_names`) and `mesh` the device mesh a
         ``CompiledProgram`` runs it over (None: one device)."""
         self._track_dist_endpoints(program)
-        block = program.global_block()
-
-        env = {}
-        for n, val in feed.items():
-            dtype = block.var(n).dtype if block.has_var(n) else \
-                str(np.asarray(val).dtype)
-            env[n] = registry.cast_feed(val, dtype, self.device)
-
-        def read(n):
-            val = scope.find_var(n)
-            if val is None:
-                raise RuntimeError(
-                    f"Variable {n!r} is read by the program but has no "
-                    "value in scope — did you run the startup program?")
-            if isinstance(val, torch.Tensor) and val.device != self.device:
-                raise RuntimeError(
-                    f"Variable {n!r} lives on {val.device}, this executor "
-                    f"runs on {self.device}")
-            env[n] = val
-            return val
-
-        ctx = registry.ExecContext(
-            device=self.device, generator=self.generator,
-            seed=program.random_seed, step=self._step,
-            is_test=program._is_test or registry.in_test_mode(), masks={},
-            reads=reads, mesh=mesh, amp=getattr(program, "_amp", False))
-        with torch.no_grad(), registry.exec_context(ctx):
-            _run_block(block, env, read)
-            fetches = [env[n] if n in env else read(n) for n in fetch_names]
+        fetches = _interpret(program, feed, fetch_names, scope, self.device,
+                             self._step, reads, generator=self.generator,
+                             mesh=mesh)
         self._step += 1
-        for n, v in env.items():
-            if block.has_var(n) and block.var(n).persistable and \
-                    not block.var(n).is_data:
-                scope.set_var(n, v)
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return fetches
@@ -441,10 +1072,12 @@ class Executor:
                 self._dist_trainer_id = op.attrs.get("trainer_id", 0)
 
     def close(self):
-        """Graceful trainer exit: wait for the in-flight pushes of the
-        sharded tables this executor ran, then send ``complete`` to their
-        shards (Executor::Close -> SendComplete, executor.cc:138-146).
-        A failed push is raised after the shards were notified."""
+        """Graceful trainer exit: free the captured steps' graphs, wait
+        for the in-flight pushes of the sharded tables this executor ran,
+        then send ``complete`` to their shards (Executor::Close ->
+        SendComplete, executor.cc:138-146).  A failed push is raised
+        after the shards were notified."""
+        self._cache.clear()
         if not self._dist_endpoints:
             return
         from ..distributed.host_ops import flush_pending_sends, send_complete

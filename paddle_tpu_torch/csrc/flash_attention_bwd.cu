@@ -172,8 +172,17 @@ __device__ __forceinline__ float exp_lse(float x, float lse) {
 // K2a: dK, dV
 // ---------------------------------------------------------------------------
 
+// Two CTAs an SM for fp32 at W <= 64: its 3xTF32 products fill the 168
+// registers three would leave a thread, and the dropout key taken at the
+// step word's step (registry.DeviceSeed) then spilled; at two it runs as
+// fast (NVIDIA H100, BERT-base's attention with dropout).
 template <int W, typename T>
-__global__ void __launch_bounds__(NTHREADS, W <= 64 ? 3 : 1)
+constexpr int dkv_min_ctas() {
+  return W <= 64 ? (std::is_same<T, float>::value ? 2 : 3) : 1;
+}
+
+template <int W, typename T>
+__global__ void __launch_bounds__(NTHREADS, (dkv_min_ctas<W, T>()))
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, Bias bias,
                      const T* __restrict__ dout,
@@ -249,6 +258,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* dl = dl_s + st * BN;
     // the causal mask may hide the warp's whole block: no products then
     const bool live = !causal || k0 + 16 * w <= q0 + BN - 1;
+    // this tile's keep bits (bit 4 j + e: element (kj, qi) of s[j][e]
+    // below), drawn before S^T and dP^T are: the 4 NJ Philox chains then
+    // run beside the accumulators alone, and the key taken at the step
+    // word's step (a register pair) lives only through them
+    uint32_t keep = 0u;
+    if (drop.on) {
+      const Dropout dr = drop.at_step();
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          keep |= (uint32_t)dr.keep(k0 + kr + 8 * (e >> 1),
+                                    q0 + 8 * j + 2 * t + (e & 1), bh)
+                  << (4 * j + e);
+    }
 
     // S^T = K Q^T and dP^T = V dO^T: 16 K rows x BN q columns a warp
     float s[NJ][4] = {}, dp[NJ][4] = {};
@@ -282,8 +306,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float2 dlv = *reinterpret_cast<const float2*>(dl + qc);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const bool kp =
-              drop.keep(k0 + kr + 8 * (e >> 1), q0 + qc + (e & 1), bh);
+          const bool kp = (keep >> (4 * j + e)) & 1u;
           const float p = s[j][e];
           s[j][e] = kp ? p * drop.inv_keep : 0.f;
           dp[j][e] = p * ((kp ? dp[j][e] * drop.inv_keep : 0.f) -
@@ -360,7 +383,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     float* __restrict__ dbias, int dbias_mode, int H,
                     int Tq, int Tk, int d, float scale, int causal,
-                    Dropout drop) {
+                    Dropout drop_arg) {
+  const Dropout drop = drop_arg.at_step();
   constexpr int LD = ld<W>();
   constexpr int BN = bn<W>();
   constexpr bool SPLIT = std::is_same<T, float>::value;
@@ -602,7 +626,8 @@ wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, int H, int Tq, int Tk, int dp,
-                float scale, int causal, Dropout drop) {
+                float scale, int causal, Dropout drop_arg) {
+  const Dropout drop = drop_arg.at_step();
   using namespace wide;
   __shared__ float Kc[ROWS * CLD], Vc[ROWS * CLD], Qc[ROWS * CLD],
       Oc[ROWS * CLD], Pt[ROWS * CLD], St[ROWS * CLD], ls_s[ROWS],
@@ -709,7 +734,8 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ dout, const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dq,
                float* __restrict__ dbias, int dbias_mode, int H, int Tq,
-               int Tk, int dp, float scale, int causal, Dropout drop) {
+               int Tk, int dp, float scale, int causal, Dropout drop_arg) {
+  const Dropout drop = drop_arg.at_step();
   using namespace wide;
   __shared__ float Qc[ROWS * CLD], Oc[ROWS * CLD], Kc[ROWS * CLD],
       Vc[ROWS * CLD], Ss[ROWS * CLD];
@@ -917,11 +943,12 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
                int H, int Tq, int Tk, int D, long long sb, long long sh,
                long long sq, long long sk, float scale, int causal,
                int dropout, unsigned threshold, unsigned key0,
-               unsigned key1, float inv_keep) {
+               unsigned key1, const void* step, float inv_keep) {
   return Args{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), B, H, Tq, Tk, D, scale,
               causal, Bias{static_cast<const float*>(bias), sb, sh, sq, sk},
-              Dropout{dropout, threshold, key0, key1, inv_keep}};
+              Dropout{dropout, threshold, key0, key1, inv_keep,
+                      static_cast<const long long*>(step)}};
 }
 
 }  // namespace
@@ -930,7 +957,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
 // multiple of 4 (fp32) or 8 (bf16), above 256 in the wide arm; bias may be
 // null; lse
 // and delta are [B*H, Tq] fp32; q, k, v, dout and the gradients are
-// 16-byte aligned (cp.async copies 16 bytes).  Return a cudaError_t (0 on
+// 16-byte aligned (cp.async copies 16 bytes).  The dropout key is (key0,
+// key1), or, when `step` (an int64 in device memory) is not null, the key
+// at that step (key_at_step).  Return a cudaError_t (0 on
 // success); the launch is asynchronous on `stream`.
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* bias,
@@ -938,7 +967,7 @@ extern "C" int flash_attention_bwd_dkv(
     void* dv, int B, int H, int Tq, int Tk, int D, int dtype, long long sb,
     long long sh, long long sq, long long sk, float scale, int causal,
     int dropout, unsigned threshold, unsigned key0, unsigned key1,
-    float inv_keep, void* stream) {
+    const void* step, float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return cudaErrorInvalidValue;
   if ((dtype != 0 && dtype != 1) || !head_dim_ok(D, dtype == 0 ? 4 : 2))
     return cudaErrorInvalidValue;
@@ -947,7 +976,7 @@ extern "C" int flash_attention_bwd_dkv(
     return cudaErrorMisalignedAddress;
   const Args a = make_args(q, k, v, bias, dout, lse, delta, B, H, Tq, Tk, D,
                            sb, sh, sq, sk, scale, causal, dropout, threshold,
-                           key0, key1, inv_keep);
+                           key0, key1, step, inv_keep);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_dkv<float>(a, dk, dv, st);
   return dispatch_dkv<__nv_bfloat16>(a, dk, dv, st);
@@ -961,7 +990,7 @@ extern "C" int flash_attention_bwd_dq(
     void* dbias, int dbias_mode, int B, int H, int Tq, int Tk, int D,
     int dtype, long long sb, long long sh, long long sq, long long sk,
     float scale, int causal, int dropout, unsigned threshold, unsigned key0,
-    unsigned key1, float inv_keep, void* stream) {
+    unsigned key1, const void* step, float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return cudaErrorInvalidValue;
   if ((dtype != 0 && dtype != 1) || !head_dim_ok(D, dtype == 0 ? 4 : 2))
     return cudaErrorInvalidValue;
@@ -972,7 +1001,7 @@ extern "C" int flash_attention_bwd_dq(
     return cudaErrorMisalignedAddress;
   const Args a = make_args(q, k, v, bias, dout, lse, delta, B, H, Tq, Tk, D,
                            sb, sh, sq, sk, scale, causal, dropout, threshold,
-                           key0, key1, inv_keep);
+                           key0, key1, step, inv_keep);
   float* db = static_cast<float*>(dbias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_dq<float>(a, dq, db, dbias_mode, st);

@@ -58,13 +58,41 @@ __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
   return philox4(c0, c1, c2, c3, k0, k1).x;
 }
 
+// The Philox key of a seed whose step lies in device memory (the
+// Executor's step word, which a captured CUDA graph's replays rewrite):
+// (k0, k1) are the low and high words of the seed's base, and the key is
+// the two words of base ^ (step * 40503) — registry.op_seed's recipe, so
+// the bits equal those of the host-int seed at that step.  A null `step`
+// leaves (k0, k1) as given.
+__device__ __forceinline__ void key_at_step(const long long* step,
+                                            uint32_t& k0, uint32_t& k1) {
+  if (step == nullptr) return;
+  // a volatile read: a kernel that takes the key once a tile re-reads
+  // the word rather than hold it in registers across tiles
+  const unsigned long long s =
+      (((unsigned long long)k1 << 32) | k0) ^
+      ((unsigned long long)*(const volatile long long*)step * 40503ull);
+  k0 = (uint32_t)s;
+  k1 = (uint32_t)(s >> 32);
+}
+
 // Dropout on the softmax weights: element (q, k) of head bh is kept when
 // word 0 of Philox at counter (k, q, bh, 0) under key (k0, k1) is below
 // `threshold` = round((1-p) * 2^32); kept weights are scaled by inv_keep.
+// With a `step` address the key is taken at that step (key_at_step):
+// a kernel calls at_step() once, on entry, or (K2a) once a tile where it
+// draws that tile's keep bits, so the key's registers are not held
+// across its products.
 struct Dropout {
   int on;
   uint32_t threshold, k0, k1;
   float inv_keep;
+  const long long* step;
+  __device__ __forceinline__ Dropout at_step() const {
+    Dropout d = *this;
+    if (on) key_at_step(step, d.k0, d.k1);
+    return d;
+  }
   __device__ __forceinline__ bool keep(int kj, int qi, int bh) const {
     return philox_word0((uint32_t)kj, (uint32_t)qi, (uint32_t)bh, 0u, k0,
                         k1) < threshold;

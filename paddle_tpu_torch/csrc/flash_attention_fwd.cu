@@ -129,7 +129,8 @@ __global__ void __launch_bounds__(Cfg<W, T>::NT, Cfg<W, T>::MINB)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, Bias bias, T* __restrict__ out,
                  float* __restrict__ lse, int H, int Tq, int Tk, int d,
-                 float scale, int causal, Dropout drop) {
+                 float scale, int causal, Dropout drop_arg) {
+  const Dropout drop = drop_arg.at_step();
   using C = Cfg<W, T>;
   constexpr int NT = C::NT, BM = C::BM, BN = C::BN, LD = C::LD;
   constexpr bool F32 = C::F32, QREG = C::QREG;
@@ -453,7 +454,8 @@ __global__ void __launch_bounds__(WIDE_NT)
 wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, Bias bias, T* __restrict__ out,
                 float* __restrict__ lse, int H, int Tq, int Tk, int dp,
-                float scale, int causal, Dropout drop) {
+                float scale, int causal, Dropout drop_arg) {
+  const Dropout drop = drop_arg.at_step();
   using namespace wide;
   constexpr int NT = WIDE_NT, NJ = 4, NA = GC / 8;
   __shared__ float Qc[ROWS * CLD], Kc[ROWS * CLD], Ps[ROWS * CLD];
@@ -615,21 +617,24 @@ bool aligned16(const void* p) {
 // the wide arm; q, k, v and out 16-byte aligned
 // (cp.async copies 16 bytes).  bias and lse may be null.  The dropout arm
 // is on when `dropout` is non-zero: keep when Philox word 0 < threshold,
-// kept weights times inv_keep.  Returns a cudaError_t (0 on success); the
+// kept weights times inv_keep; the key is (key0, key1), or, when `step`
+// (an int64 in device memory) is not null, the key at that step
+// (key_at_step).  Returns a cudaError_t (0 on success); the
 // launch is asynchronous on `stream`.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias,
     void* out, void* lse, int B, int H, int Tq, int Tk, int D, int dtype,
     long long sb, long long sh, long long sq, long long sk, float scale,
     int causal, int dropout, unsigned threshold, unsigned key0,
-    unsigned key1, float inv_keep, void* stream) {
+    unsigned key1, const void* step, float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return cudaErrorInvalidValue;
   if ((dtype != 0 && dtype != 1) || !head_dim_ok(D, dtype == 0 ? 4 : 2))
     return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
     return cudaErrorMisalignedAddress;
   const Bias bb{static_cast<const float*>(bias), sb, sh, sq, sk};
-  const Dropout dr{dropout, threshold, key0, key1, inv_keep};
+  const Dropout dr{dropout, threshold, key0, key1, inv_keep,
+                   static_cast<const long long*>(step)};
   float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D > kMaxHeadDim)

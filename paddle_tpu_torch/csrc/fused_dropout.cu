@@ -74,8 +74,10 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
     fused_dropout_kernel(const T* __restrict__ x, T* __restrict__ out,
                          long long n, uint32_t threshold, uint32_t k0,
-                         uint32_t k1, float scale, int vec) {
+                         uint32_t k1, const long long* step, float scale,
+                         int vec) {
   using V = typename Vec<T>::type;
+  flash::key_at_step(step, k0, k1);
   const long long groups = (n + 3) >> 2;
   const long long stride = (long long)gridDim.x * THREADS;
   for (long long j = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -100,8 +102,8 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T>
 int launch(const void* x, void* out, long long n, uint32_t threshold,
-           uint32_t k0, uint32_t k1, float scale, int vec,
-           cudaStream_t stream) {
+           uint32_t k0, uint32_t k1, const long long* step, float scale,
+           int vec, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -111,26 +113,30 @@ int launch(const void* x, void* out, long long n, uint32_t threshold,
   if (blocks > cap) blocks = cap;
   fused_dropout_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), n, threshold, k0, k1,
-      scale, vec);
+      step, scale, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x and out dense [n] of one type: dtype 0 = float32, 1 = bfloat16.  `vec`
-// is set when both pointers are aligned to four elements (16 B fp32, 8 B
-// bf16).  Returns a cudaError_t (0 on success); the launch is asynchronous
-// on `stream`.
+// x and out dense [n] of one type: dtype 0 = float32, 1 = bfloat16.  The
+// key is (k0, k1), or, when `step` (an int64 in device memory) is not
+// null, the key at that step (flash::key_at_step).  `vec` is set when
+// both pointers are aligned to four elements (16 B fp32, 8 B bf16).
+// Returns a cudaError_t (0 on success); the launch is asynchronous on
+// `stream`.
 extern "C" int fused_dropout_fwd(const void* x, void* out, long long n,
                                  int dtype, unsigned threshold, unsigned k0,
-                                 unsigned k1, float scale, int vec,
-                                 void* stream) {
+                                 unsigned k1, const void* step, float scale,
+                                 int vec, void* stream) {
   if (n <= 0 || !x || !out) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* st = static_cast<const long long*>(step);
   if (dtype == 0)
-    return launch<float>(x, out, n, threshold, k0, k1, scale, vec, s);
+    return launch<float>(x, out, n, threshold, k0, k1, st, scale, vec, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, out, n, threshold, k0, k1, scale, vec, s);
+    return launch<__nv_bfloat16>(x, out, n, threshold, k0, k1, st, scale,
+                                 vec, s);
   return cudaErrorInvalidValue;
 }
 

@@ -67,6 +67,11 @@ _DEFAULTS = {
     # take K3 (ops/attention_kernels.flash_attention_with_lse), and raise
     # under false
     "ring_flash": "auto",
+    # Executor's compiled-step cache (core/executor._ProgramCache): LRU
+    # capacity in (program, feeds, fetches) entries, each holding one
+    # captured CUDA graph per feed signature.  Eviction frees the graphs
+    # and keeps compile_count through a counter.
+    "executor_cache_capacity": 64,
 }
 
 _overrides = {}

@@ -153,6 +153,16 @@ class Predictor:
                                  fetch_list=self._fetch_names,
                                  scope=self._scope)
 
+    def _precompile(self, feed):
+        """Capture `feed`'s signature in inference mode without running a
+        batch (``Executor.precompile``; nothing on the CPU)."""
+        from .ops import registry
+
+        with registry.test_mode():
+            self._exe.precompile(self._program, feed=feed,
+                                 fetch_list=self._fetch_names,
+                                 scope=self._scope)
+
     def run(self, inputs):
         """inputs: dict name->array, or list of PaddleTensor/arrays in
         get_input_names() order.  Returns list of np arrays."""
@@ -177,10 +187,11 @@ class Predictor:
 
 class _ServingHandle:
     """The bridge `serving.ServingEngine` drives.  `compile(feeds)`
-    records the padded shape signature and returns the callable that
-    serves it (no compilation happens here yet, so the engine's
-    compile/hit counters count signatures); `call(compiled, feeds)` runs
-    one batch and returns its fetches as numpy arrays."""
+    records the padded shape signature, captures it on a CUDA place
+    (``Executor.precompile``: one CUDA graph per bucket, as the reference
+    AOT-compiles one executable per bucket) and returns the callable that
+    serves it; `call(compiled, feeds)` runs one batch and returns its
+    fetches as numpy arrays."""
 
     retry_safe = True       # no donated state: a failed call consumes nothing
     fixed_shapes = None
@@ -202,6 +213,7 @@ class _ServingHandle:
         self.signatures.append(
             tuple((n, tuple(feeds[n].shape), str(feeds[n].dtype))
                   for n in self.feed_order))
+        self._p._precompile(feeds)
         return self._p._run_feeds
 
     def example_feeds(self, batch, seq=None, axis=1):

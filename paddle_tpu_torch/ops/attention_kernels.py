@@ -33,8 +33,11 @@ Dropout on the softmax weights draws its bits from counter-based Philox
 coordinates (k, q, b·h, 0) as the counter, so the forward and both
 backward kernels — which walk different tilings — regenerate the same
 mask, and :func:`philox_keep_mask` gives the same bits in plain torch.
-The TPU drew its bits per tile from its hardware generator; those bits
-are not reproduced.
+A `seed` is an int, or a ``registry.DeviceSeed`` whose step the kernels
+read from device memory (the Executor's step word in a captured CUDA
+graph): the same key, and so the same bits, at the same step.  The TPU
+drew its bits per tile from its hardware generator; those bits are not
+reproduced.
 """
 
 import ctypes
@@ -44,7 +47,7 @@ import re
 import torch
 
 from . import cuda_build
-from .registry import keep_threshold, philox4x32, seed_key
+from .registry import keep_threshold, launch_key, philox4x32, seed_key
 
 _FWD, _BWD = "flash_attention_fwd", "flash_attention_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -190,9 +193,9 @@ def flash_attention_backward_reference(q, k, v, bias, out, lse, dout,
 _P, _I, _L, _F, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_float, ctypes.c_uint)
 # pointers, then (B, H, Tq, Tk, D, dtype), the bias strides, scale and
-# causal, then the dropout arm (on, threshold, key0, key1, 1/(1-p)), and
-# the stream
-_SHAPE = [_I] * 6 + [_L] * 4 + [_F, _I] + [_I, _U, _U, _U, _F] + [_P]
+# causal, then the dropout arm (on, threshold, key0, key1, the step
+# word's address or null, 1/(1-p)), and the stream
+_SHAPE = [_I] * 6 + [_L] * 4 + [_F, _I] + [_I, _U, _U, _U, _P, _F] + [_P]
 _SIGNATURES = {
     "flash_attention_fwd": (_FWD, [_P] * 6 + _SHAPE),
     "flash_attention_bwd_dkv": (_BWD, [_P] * 9 + _SHAPE),
@@ -302,7 +305,9 @@ def _launch(name, q, k, bias, pointers, causal, scale, dropout_p, seed):
     """Call kernel `name` with its pointers, then the shape, the bias (a
     float32 view expanded to [B,H,Tq,Tk]: stride 0 where it broadcasts,
     so a [B|1,1,1,Tk] mask is read from its own storage), the scalars,
-    the dropout arm and torch's current stream."""
+    the dropout arm (an int seed's key, or a ``registry.DeviceSeed``'s
+    base key and step word, from which the kernel takes the key at the
+    step) and torch's current stream."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if bias is None:
@@ -312,9 +317,10 @@ def _launch(name, q, k, bias, pointers, causal, scale, dropout_p, seed):
         bb = bb.reshape((1,) * (4 - bb.dim()) + tuple(bb.shape))
         bb = bb.expand(b, h, tq, tk)
         bias_ptr, strides = bb.data_ptr(), bb.stride()
-    k0, k1 = seed_key(seed)
-    drop = (1, keep_threshold(dropout_p), k0, k1,
-            1.0 / (1.0 - dropout_p)) if dropout_p else (0, 0, 0, 0, 1.0)
+    k0, k1, step = launch_key(seed, q.device)
+    drop = (1, keep_threshold(dropout_p), k0, k1, step,
+            1.0 / (1.0 - dropout_p)) if dropout_p else \
+        (0, 0, 0, 0, None, 1.0)
     fn, err_str = _kernel(name)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):

@@ -91,3 +91,27 @@ def load(name):
                 _finish(name, out, job)
             lib = _LIBS[name] = ctypes.CDLL(out)
         return lib
+
+
+# every kernel wrapper that counts its launches: (module, wrapper names)
+_COUNTED = ((".attention_kernels", ("flash_attention",
+                                    "flash_attention_bwd_dkv",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_with_lse")),
+            (".dropout_kernels", ("fused_dropout",)),
+            (".quant_kernels", ("int8_matmul", "paged_attention_quant")),
+            (".rnn_kernels", ("fused_lstm_cell", "fused_gru_output")),
+            (".sequence_kernels", ("masked_softmax",)),
+            (".paged_kernels", ("paged_attention",)),
+            ("..sparse.gather", ("gather_rows",)))
+
+
+def launch_counters():
+    """The wrappers whose ``launches`` attribute counts their kernel's
+    launches, one per launch.  A captured CUDA graph's replay runs no
+    Python, so the Executor adds each counter's delta over the captured
+    step at every replay (``core/executor.py``)."""
+    import importlib
+
+    return [getattr(importlib.import_module(mod, __package__), name)
+            for mod, names in _COUNTED for name in names]

@@ -8,7 +8,11 @@
 element i (row-major) is kept when word i % 4 of Philox4x32-10 at counter
 (i // 4, 0, 0, 0) under key ``seed_key(seed)`` is below
 ``keep_threshold(p)`` — the bits of ``registry.dropout_keep``, drawn in
-the kernel's registers; no mask tensor is written.  The product is taken
+the kernel's registers; no mask tensor is written.  A
+``registry.DeviceSeed`` hands the kernel its base key and the address of
+the step word, and the kernel takes the key at that step (the same bits
+as the int seed of that step), so a captured CUDA graph draws anew at
+every replay.  The product is taken
 in float32 with ``s`` rounded to float32 and the result rounded to the
 element type (fp32 or bf16), so the kernel equals its plain version
 :func:`fused_dropout_reference` bit for bit.  On a CUDA tensor it launches
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .registry import dropout_keep, keep_threshold, seed_key
+from .registry import dropout_keep, keep_threshold, launch_key
 
 _SOURCE = "fused_dropout"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,7 +67,7 @@ def _kernel():
         entry = lib.fused_dropout_fwd
         p, ll, i, u = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_uint)
-        entry.argtypes = [p, p, ll, i, u, u, u, ctypes.c_float, i, p]
+        entry.argtypes = [p, p, ll, i, u, u, u, p, ctypes.c_float, i, p]
         entry.restype = ctypes.c_int
         lib.fused_dropout_error_string.argtypes = [ctypes.c_int]
         lib.fused_dropout_error_string.restype = ctypes.c_char_p
@@ -92,13 +96,13 @@ def fused_dropout_fwd(x, p, seed, upscale=True):
         return out
     align = 4 * x.element_size()
     vec = int(x.data_ptr() % align == 0 and out.data_ptr() % align == 0)
-    k0, k1 = seed_key(seed)
+    k0, k1, step = launch_key(seed, x.device)
     fn, err_str = _kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), n, _DTYPE_CODES[x.dtype],
-                keep_threshold(p), k0, k1, dropout_scale(p, upscale), vec,
-                stream)
+                keep_threshold(p), k0, k1, step, dropout_scale(p, upscale),
+                vec, stream)
     if rc != 0:
         raise RuntimeError(f"fused_dropout launch failed: "
                            f"{err_str(rc).decode()}")

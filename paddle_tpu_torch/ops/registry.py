@@ -44,6 +44,7 @@ _KERNELS = {}
 _CUSTOM_GRADS = {}
 _VJPS = {}
 _NOT_DIFFERENTIABLE = set()
+_GENERATOR_OPS = set()
 
 # ---------------------------------------------------------------------------
 # bf16 mixed precision (the reference's registry.py:66-124): a cast policy
@@ -126,15 +127,21 @@ class ExecContext:
     plain Executor run: the reference's ``TRACE_CTX.mesh``, which the
     ring attention and gpipe ops read.  `amp` is the reference's
     ``TRACE_CTX.amp``: the run is a bf16 mixed-precision one, and
-    :func:`get_kernel` wraps kernels in the AMP cast policy."""
+    :func:`get_kernel` wraps kernels in the AMP cast policy.
+    `step_word`, when given, is a one-element int64 tensor on the run's
+    device that holds the step (the Executor's device step word): random
+    ops then key their draws by it (:func:`op_seed` returns a
+    :class:`DeviceSeed`), so a captured CUDA graph draws the step it
+    replays at, not the step it was captured at."""
 
     def __init__(self, device=None, generator=None, seed=0, step=0,
                  is_test=False, masks=None, reads=None, mesh=None,
-                 amp=False):
+                 amp=False, step_word=None):
         self.device = device if device is not None else torch.device("cpu")
         self.generator = generator
         self.seed = seed            # program.random_seed
         self.step = step            # executor step counter
+        self.step_word = step_word
         self.is_test = is_test
         self.masks = masks
         self.reads = reads
@@ -194,15 +201,44 @@ def output_read(slot):
     return any(n in ctx.reads for n in ctx.op.outputs.get(slot, ()))
 
 
+STEP_MULTIPLIER = 40503
+
+
+class DeviceSeed:
+    """An op seed whose step lies in device memory: the seed is
+    ``base ^ (step[0] * 40503)``, read where it is used — by a kernel
+    from the step word's address, by a plain version as tensor
+    arithmetic — and so follows the word's value at replay.  Equal
+    (and hashing equal) for one base over one step word."""
+
+    __slots__ = ("base", "step")
+
+    def __init__(self, base, step):
+        self.base = base
+        self.step = step
+
+    def __eq__(self, other):
+        return isinstance(other, DeviceSeed) and \
+            self.base == other.base and self.step is other.step
+
+    def __hash__(self):
+        return hash((self.base, id(self.step)))
+
+
 def op_seed(attrs):
     """Seed of one random op's draw: the reference's key recipe
     (``nn_ops._rng`` / ``_op_seed_scalar``) over (program seed, op seed,
-    step).  The draws differ from the JAX package's by design — torch and
-    jax generators are different streams."""
+    step), ``base ^ (step * 40503)``.  An int when the run's step is a
+    host int; a :class:`DeviceSeed` when the run has a device step word
+    (``ExecContext.step_word``), which gives the same bits.  The draws
+    differ from the JAX package's by design — torch and jax generators
+    are different streams."""
     ctx = current()
     seed = attrs.get("seed", 0) or attrs.get("op_seed", 0)
     base = (ctx.seed * 1000003 + seed * 7919 + 17) % (2**31 - 1)
-    return base ^ (ctx.step * 40503)
+    if ctx.step_word is not None:
+        return DeviceSeed(base, ctx.step_word)
+    return base ^ (ctx.step * STEP_MULTIPLIER)
 
 
 _MASK32 = 0xFFFFFFFF
@@ -248,8 +284,31 @@ def keep_threshold(p):
 
 
 def seed_key(seed):
-    """A (non-negative) op seed as a Philox key of two 32-bit words."""
+    """A (non-negative) op seed as a Philox key of two 32-bit words: two
+    ints, or for a :class:`DeviceSeed` two one-element int64 tensors on
+    the step word's device (what :func:`philox4x32` takes as a key)."""
+    if isinstance(seed, DeviceSeed):
+        seed = (seed.step.reshape(1).to(torch.int64) * STEP_MULTIPLIER) \
+            ^ seed.base
     return seed & _MASK32, (seed >> 32) & _MASK32
+
+
+def launch_key(seed, device):
+    """(key0, key1, step address) a kernel on `device` takes for `seed`:
+    the key of an int seed and a null address, or the key of a
+    :class:`DeviceSeed`'s base and its step word's address, from which the
+    kernel computes ``base ^ (step * 40503)`` itself (the word must be an
+    int64 on `device`)."""
+    if isinstance(seed, DeviceSeed):
+        w = seed.step
+        if w.device != device or w.dtype != torch.int64 or w.numel() != 1:
+            raise ValueError(f"a kernel on {device} takes a step word of "
+                             f"one int64 on that device, not {w.numel()} "
+                             f"{w.dtype} on {w.device}")
+        k0, k1 = seed_key(seed.base)
+        return k0, k1, w.data_ptr()
+    k0, k1 = seed_key(seed)
+    return k0, k1, None
 
 
 def dropout_keep(seed, shape, p, device):
@@ -277,13 +336,22 @@ def generator_for(attrs):
     return gen
 
 
-def register(op_type, not_differentiable=False):
+def register(op_type, not_differentiable=False, generator=False):
+    """Register `op_type`'s kernel.  `generator`: the kernel draws through
+    :func:`generator_for`, whose reseeding is host state a captured CUDA
+    graph cannot follow (``Executor`` interprets such programs)."""
     def deco(fn):
         _KERNELS[op_type] = fn
         if not_differentiable:
             _NOT_DIFFERENTIABLE.add(op_type)
+        if generator:
+            _GENERATOR_OPS.add(op_type)
         return fn
     return deco
+
+
+def draws_from_generator(op_type):
+    return op_type in _GENERATOR_OPS
 
 
 def register_grad(op_type):

@@ -60,19 +60,20 @@ def assign(ins, attrs):
     return as_out(first(ins, "X"))
 
 
-@register("uniform_random", not_differentiable=True)
+@register("uniform_random", not_differentiable=True, generator=True)
 def uniform_random(ins, attrs):
     lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
     return _random(attrs, lambda t, g: t.uniform_(lo, hi, generator=g))
 
 
-@register("gaussian_random", not_differentiable=True)
+@register("gaussian_random", not_differentiable=True, generator=True)
 def gaussian_random(ins, attrs):
     mean, std = attrs.get("mean", 0.0), attrs.get("std", 1.0)
     return _random(attrs, lambda t, g: t.normal_(mean, std, generator=g))
 
 
-@register("truncated_gaussian_random", not_differentiable=True)
+@register("truncated_gaussian_random", not_differentiable=True,
+          generator=True)
 def truncated_gaussian_random(ins, attrs):
     # truncated at two standard deviations, as jax.random.truncated_normal
     # (-2, 2) in the reference

@@ -73,6 +73,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    instantiation; no spills).  K8 (lstm_step: one LSTM time step, the
    product on the tensor cores, the cell and the length mask in its
    epilogue) at the seq2seq encoder's B = 16, D = 512 and at edge shapes,
+   and with the lstm op's peepholes at the machine-translation encoder's
+   B = 16, D = 32 and at D = 129 (no library call takes peepholes),
    K9 (gru_step: the GRU step after its addmm) at (16, 512) in both modes
    on the gru op's strided operands and at an edge shape, their cell
    entries (the same kernels with no product and no mask), K7
@@ -170,6 +172,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same chains against the program's own attention output (0.05,
    1e-4); int8 and float32 wire bytes, per-request walls; every pool
    audited and empty after the drain.
+22a. control flow: K1 at the beam decode's attention shapes ([32, 8, 32,
+   64], the encoder's and the decoder's full biases) against its plain
+   version; Path A, the book's machine-translation model
+   (models/machine_translation.py at its published sizes: dictionary
+   30000, word 16, hidden 32, beam 2, max length 8; batch 16 of the
+   test's synthetic data): 3 Adam steps card vs CPU from one state (K8 in
+   the encoder's dynamic_lstm twice a padded source step a step), then
+   the While decode of 16 sentences card vs CPU from the card's trained
+   state: equal ids (or a CPU tie under 1e-5 where they differ), scores
+   within 1e-4, 8 iterations with one host synchronisation a condition
+   read (torch.cuda's sync debug mode, on inside the loop), K8 once a
+   padded source step, the decode's wall and device busy; Path B, the
+   trained transformer-base NMT model beam-decoded by
+   models/decoding.beam_search over its test program (8 sentences of 32
+   tokens, beam 4, max_len 32, the position-t rows gathered on the card):
+   K1 18 times a run, one captured signature from the second step on,
+   log-probabilities at steps 1, 2 and the last within 1e-4 of the
+   largest |value| of the CPU's on the card's own prefixes, the numpy
+   bookkeeping again on the card's log-probabilities giving its ids; a
+   step's wall, generated tokens/s and a run's idle share.
 23. K3 vs plain: flash_attention_with_lse (K1 with lse forward, K2a and
    K2b with delta - dlse backward) at the ring's shard shape [B 4, H 12,
    T/p 512, D 64] float32, causal and not, a ragged shard of 500 rows
@@ -245,9 +267,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    0.05, atol 0.02) of the card's fp32 answers and of a CPU bf16
    Predictor's on the same batches; latency, requests/s and a profile of
    one batch.
+31a. compiled step: Executor.run's CUDA-graph capture of BERT-base, NMT
+   and ResNet-50 training and of serving, against the uncaptured
+   _CompiledBlock(use_graph=False), and the random kernels keyed by the
+   device step word against the host key.
 32. report: a "kernels" JSON line (K1, K2a, K2b and K10 with bf16_* keys
-   at the AMP shapes beside their fp32 main-path numbers), then the
-   result line {"ok": true, "device": {...}} last.
+   at the AMP shapes beside their fp32 main-path numbers; K1 with
+   beam_decode_* and K8 with mt_* keys for the control-flow paths), then
+   the result line {"ok": true, "device": {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
 package is not beside this script.
@@ -414,6 +441,24 @@ CTR_B, CTR_SHARDS, CTR_STEPS, CTR_PARITY_STEPS = 4096, 2, 6, 3
 NMT = dict(vocab=30000, n_layer=6, n_head=8, d_model=512, d_inner=2048)
 NMT_BUCKETS, NMT_TOKENS, NMT_BATCHES_PER_BUCKET = (16, 32, 64), 4096, 2
 NMT_PARITY = dict(NMT, vocab=1000, n_layer=2)
+# the control-flow slice.  Path A: the book's machine-translation model
+# (Fluid 1.3 tests/book/test_machine_translation.py) at its published
+# sizes, models/machine_translation.py's BOOK (dictionary 30000, word 16,
+# hidden = decoder 32, beam 2, max length 8), a batch of 16 sentences of
+# the test's synthetic data: 3 Adam steps card vs CPU (PARITY_RTOL), then
+# one While decode of 16 new sentences, card vs CPU from the card's
+# trained state; ids equal, scores within MT_SCORE_RTOL, or a differing
+# id where the CPU's K-th and (K+1)-th candidates lie within MT_TIE_GAP.
+# Path B: the NMT cell's transformer-base decoded by
+# models/decoding.beam_search over nmt_program's test program from the
+# trained state: 8 source sentences of 32 tokens, beam 4, max_len 32, the
+# prefix fed padded to 32 so every step is one feed signature; the card's
+# next-token log-probabilities at 3 steps within BEAM_ATOL of the largest
+# |value| of the CPU's on the card's own prefixes
+MT_B, MT_STEPS = 16, 3
+MT_SCORE_RTOL, MT_TIE_GAP = 1e-4, 1e-5
+BEAM_B, BEAM_K, BEAM_SRC, BEAM_LEN, BEAM_BOS, BEAM_EOS = 8, 4, 32, 32, 0, 1
+BEAM_ATOL = 1e-4
 # K10 at the dropout shapes of BERT-base training ([32, 128] x hidden and
 # x intermediate), of NMT's buckets ([4096 / T, T] x d_model or d_inner)
 # and a ragged one; the kernels line reports the NMT FFN's [128, 32, 2048]
@@ -578,8 +623,14 @@ AMP_PARITY_STEPS = 2
 AMP_SERVE_RTOL, AMP_SERVE_ATOL = 0.05, 0.02
 
 
+# the script's start (main), which each phase's heading counts from
+T_START = [None]
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    at = "" if T_START[0] is None else \
+        f" (at {time.perf_counter() - T_START[0]:.1f} s)"
+    print(f"== {name}{at}", flush=True)
 
 
 def device_phase(torch):
@@ -2033,12 +2084,15 @@ def thnn_gru_step(torch, xg, h_prev, w):
         torch.addmm(xr, h_prev, w), hg, h_prev)
 
 
-def lstm_step_bound(b, d):
-    """xg, h_prev, c_prev, W and the lengths read once, the four outputs
-    written once; the product's 2·B·D·4D flops at 3xTF32's rate (the
-    cell's 15 an element beside them)."""
-    nbytes = 4 * (4 * b * d + 2 * b * d + 4 * d * d + 4 * b * d + b)
-    return bound_row(nbytes, 2 * b * d * 4 * d + 15 * b * d, "tf32x3")
+def lstm_step_bound(b, d, peep=False):
+    """xg, h_prev, c_prev, W (and the three peephole weights) and the
+    lengths read once, the four outputs written once; the product's
+    2·B·D·4D flops at 3xTF32's rate (the cell's 15 an element beside
+    them, and the peepholes' 6)."""
+    nbytes = 4 * (4 * b * d + 2 * b * d + 4 * d * d + 4 * b * d + b
+                  + (3 * d if peep else 0))
+    return bound_row(nbytes, 2 * b * d * 4 * d + (21 if peep else 15)
+                     * b * d, "tf32x3")
 
 
 def gru_step_bound(b, d):
@@ -2129,7 +2183,8 @@ def rnn_kernel_phase(torch):
                              f"plain version on {name}: {err}")
 
     # K8's whole step: the seq2seq encoder's (B 16, D 512), B 1, D not a
-    # multiple of 4 (4-byte staging), and B * D not a multiple of 32
+    # multiple of 4 (4-byte staging), and B * D not a multiple of 32; then
+    # the machine-translation encoder's step with the lstm op's peepholes
     for name, b, d in (("seq2seq_b16_d512", 16, 512), ("b1_d512", 1, 512),
                        ("b16_d129", 16, 129), ("b3_d37", 3, 37)):
         xg, h, w, lens = step_inputs(b, d, 4)
@@ -2152,6 +2207,24 @@ def rnn_kernel_phase(torch):
                {"unfused_ms": lambda: time_ms(torch, before),
                 "host_ms": lambda: host_ms(torch, step),
                 "unfused_host_ms": lambda: host_ms(torch, before)})
+
+    for name, b, d in (("mt_b16_d32_peep", 16, 32),
+                       ("b16_d129_peep", 16, 129)):
+        xg, h, w, lens = step_inputs(b, d, 4)
+        c, peep = randn(b, d) / 2, randn(3 * d) / 4
+        err = grads_err(
+            torch, lambda *a: rk.lstm_step(*a[:4], lens, RNN_STEP, a[4]),
+            lambda *a: rk.lstm_step_reference(*a[:4], lens, RNN_STEP, a[4]),
+            (xg, h, c, w, peep), tuple(randn(b, d) for _ in range(4)))
+        step = lambda: rk.lstm_step(  # noqa: E731
+            xg, h, c, w, lens, RNN_STEP, peep)
+        # no library call takes peepholes: library_ms is null
+        report("lstm", name, err, step,
+               lambda: rk.lstm_step_reference(xg, h, c, w, lens, RNN_STEP,
+                                              peep),
+               None, lstm_step_bound(b, d, peep=True),
+               f"step B {b} D {d} with peepholes",
+               {"host_ms": lambda: host_ms(torch, step)})
 
     # K9's step after the addmm, in both modes, on the gru op's operands
     # (xg_c and W_c read in place: row strides 3D); the time step (addmm
@@ -5746,6 +5819,423 @@ def compiled_step_phase(torch, smi, fp32):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The control-flow slice: the While decode (Path A) and host beam search
+# over the captured test program (Path B)
+# ---------------------------------------------------------------------------
+
+class counted_syncs:
+    """Counts the card's host synchronisations inside the port's while
+    loops: torch.cuda's sync debug mode warns at each one it detects (a
+    prototype: PyTorch says it does not detect them all), and is on only
+    while a loop runs (the feeds' copies and the fetches lie outside);
+    `where` counts them by the Python line that waited."""
+
+    def __init__(self, torch):
+        self.torch, self.n, self.where = torch, 0, {}
+
+    def __enter__(self):
+        import warnings
+
+        from paddle_tpu_torch.core import executor as ex
+
+        self.ex, self.orig = ex, ex._run_while
+        torch = self.torch
+
+        def run_while(op, env, read):
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    self.orig(op, env, read)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            for w in seen:
+                # (not the note that the debug mode is a prototype)
+                if "called a synchronizing" in str(w.message):
+                    self.n += 1
+                    at = f"{os.path.relpath(w.filename)}:{w.lineno}"
+                    self.where[at] = self.where.get(at, 0) + 1
+
+        ex._run_while = run_while
+        return self
+
+    def __exit__(self, *a):
+        self.ex._run_while = self.orig
+
+
+class beam_trace:
+    """Records, at each beam_search op the port runs inside, the op's
+    selected ids and its candidates' scores sorted best first, as the op
+    masks them (finished beams: one frozen candidate)."""
+
+    def __init__(self, torch):
+        self.torch, self.steps = torch, []
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import registry
+
+        self.kernels, self.orig = registry._KERNELS, \
+            registry._KERNELS["beam_search"]
+        torch = self.torch
+
+        def traced(ins, attrs):
+            out = self.orig(ins, attrs)
+            k, end = int(attrs["beam_size"]), int(attrs["end_id"])
+            s = ins["scores"][0].float()
+            bk, k2 = s.shape
+            fin = (ins["pre_ids"][0].reshape(bk // k, k) == end)
+            s = s.reshape(bk // k, k, k2).clone()
+            s[fin] = -1e9
+            s[..., 0] = torch.where(fin, ins["pre_scores"][0].reshape(
+                bk // k, k).float(), s[..., 0])
+            self.steps.append((
+                out["selected_ids"][0].reshape(bk // k, k).cpu().numpy(),
+                s.reshape(bk // k, k * k2).sort(
+                    dim=1, descending=True).values.cpu().numpy()))
+            return out
+
+        self.kernels["beam_search"] = traced
+        return self
+
+    def __exit__(self, *a):
+        self.kernels["beam_search"] = self.orig
+
+
+def mt_programs(fluid):
+    """(main, startup, loss, decode, (ids, scores)) of the book's
+    machine-translation model at its published sizes, seeds SEED."""
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        loss = mt.train_net(fluid, **mt.BOOK)
+    dec = fluid.Program()
+    with fluid.program_guard(dec, fluid.Program()):
+        outs = mt.decode_net(fluid, **mt.BOOK)
+    return main, startup, loss, dec, outs
+
+
+def mt_path(torch, smi):
+    """Path A: the book's machine-translation model trained 3 steps on the
+    card against the CPU from one state (K8 in the encoder's dynamic_lstm
+    with its peepholes, twice a padded source step a training step: the
+    lstm op and its generic grad's recompute), then one While decode on
+    the card against the CPU from the card's trained state (K8 once a
+    padded source step).  Returns the K8 launches and the decode's
+    numbers."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as ex
+    from paddle_tpu_torch.core.lod import bucket_len
+    from paddle_tpu_torch.models import machine_translation as mt
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    cfg = mt.BOOK
+    main, startup, loss, dec, outs = mt_programs(fluid)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = host_state(init)
+    rng = np.random.default_rng(SEED + 20)
+    feeds = [mt.train_batch(rng, MT_B, cfg["dict_size"])
+             for _ in range(MT_STEPS)]
+    srcs = mt.train_batch(rng, MT_B, cfg["dict_size"])["src_word_id"]
+    dfeed = mt.decode_feed(srcs, cfg["beam_size"])
+    want_train = sum(2 * bucket_len(max(len(x) for x in f["src_word_id"]))
+                     for f in feeds)
+    want_dec = bucket_len(max(len(x) for x in srcs))
+
+    losses = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                          place=place, main_program=main)
+        exe = fluid.Executor(place)
+        on_card = isinstance(place, fluid.CUDAPlace)
+        rk.fused_lstm_cell.launches = 0
+        losses[on_card] = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=scope)[0]) for f in feeds]
+        if on_card:
+            train_launches = rk.fused_lstm_cell.launches
+            card_exe, card_scope = exe, scope
+    card, cpu = losses[True], losses[False]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    print(f"[{smi}] machine translation, {MT_STEPS} Adam steps: card "
+          f"{card} cpu {cpu} relative differences {rel} (bounds "
+          f"{PARITY_RTOL[1]:g} at step 1, {PARITY_RTOL[3]:g} at step 3); "
+          f"lstm_step launches "
+          f"{train_launches} (expected {want_train}: twice a padded source "
+          f"step a step)", flush=True)
+    if not np.isfinite(card + cpu).all() or rel[0] > PARITY_RTOL[1] \
+            or max(rel) > PARITY_RTOL[3]:
+        raise SystemExit(f"machine translation: the card departs from the "
+                         f"CPU: {rel}")
+    if train_launches != want_train:
+        raise SystemExit(f"machine translation training: lstm_step "
+                         f"launches {train_launches}, expected {want_train}")
+
+    # the decode, card against CPU from the card's trained state
+    trained = host_state(card_scope)
+    cpu_scope = fluid.io.state_from_numpy(
+        trained, scope=fluid.Scope(), place=fluid.CPUPlace(),
+        main_program=dec)
+    fetch = list(outs)
+
+    def decode():
+        return card_exe.run(dec, feed=dfeed, fetch_list=fetch,
+                            scope=card_scope)
+
+    decode()                            # warm: allocator, cuBLAS
+    torch.cuda.synchronize()
+    rk.fused_lstm_cell.launches = 0
+    ex.loop_counts.update(loops=0, iterations=0, condition_reads=0)
+    with counted_syncs(torch) as syncs:
+        t0 = time.perf_counter()
+        ids, scores = decode()
+        wall = (time.perf_counter() - t0) * 1e3
+    counts = dict(ex.loop_counts)
+    dec_launches = rk.fused_lstm_cell.launches
+    prof_wall, busy, _ = device_record(torch, decode)
+    cexe = fluid.Executor(fluid.CPUPlace())
+    cids, cscores = cexe.run(dec, feed=dfeed, fetch_list=fetch,
+                             scope=cpu_scope)
+    ids_equal = np.array_equal(ids, cids)
+    score_rel = float(np.max(np.abs(scores - cscores)
+                             / np.maximum(np.abs(cscores), 1e-30)))
+    print(f"[{smi}] While decode of {len(srcs)} sentences, beam "
+          f"{cfg['beam_size']}, max length {cfg['max_length']}: wall "
+          f"{wall:.6f} ms; profiled {prof_wall:.6f} ms, device busy "
+          f"{busy:.6f} ms, idle share {1.0 - busy / prof_wall:.4f}; loop "
+          f"{counts['iterations']} iterations, {counts['condition_reads']} "
+          f"condition reads, {syncs.n} host synchronisations inside the "
+          f"loop (at {syncs.where}); lstm_step launches {dec_launches} "
+          f"(expected {want_dec})")
+    print(f"[{smi}] decode card vs CPU: SentenceIds equal {ids_equal}; "
+          f"SentenceScores largest relative difference {score_rel:.3e} "
+          f"(bound {MT_SCORE_RTOL:g}); card ids of sentence 0 "
+          f"{ids[0].tolist()}", flush=True)
+    if counts["iterations"] != cfg["max_length"] or \
+            syncs.n != counts["condition_reads"]:
+        raise SystemExit(f"the While decode ran {counts} with {syncs.n} "
+                         f"synchronisations: expected {cfg['max_length']} "
+                         f"iterations and one synchronisation a "
+                         f"condition read")
+    if dec_launches != want_dec:
+        raise SystemExit(f"While decode: lstm_step launches {dec_launches}, "
+                         f"expected {want_dec}")
+    if not ids_equal:
+        with beam_trace(torch) as on_card:
+            decode()
+        with beam_trace(torch) as on_cpu:
+            cexe.run(dec, feed=dfeed, fetch_list=fetch, scope=cpu_scope)
+        k = cfg["beam_size"]
+        for t, ((ci, _), (pi, ps)) in enumerate(zip(on_card.steps,
+                                                    on_cpu.steps)):
+            bad = np.flatnonzero((ci != pi).any(axis=1))
+            if bad.size:
+                gaps = ps[bad, k - 1] - ps[bad, k]
+                print(f"  ids first differ at step {t}, sentences "
+                      f"{bad.tolist()}: the CPU's gaps between its "
+                      f"{k}-th and {k + 1}-th candidates {gaps.tolist()}")
+                if gaps.max() >= MT_TIE_GAP:
+                    raise SystemExit("While decode: the card's ids depart "
+                                     "from the CPU's where no tie explains "
+                                     "it")
+                break
+    elif score_rel > MT_SCORE_RTOL:
+        raise SystemExit(f"While decode scores depart from the CPU's: "
+                         f"{score_rel}")
+    return {"launches": train_launches + dec_launches, "wall": wall,
+            "busy": busy, "iterations": counts["iterations"],
+            "syncs": syncs.n}
+
+
+def beam_decode_path(torch, smi, trained):
+    """Path B: the trained transformer-base decoded by
+    models/decoding.beam_search over nmt_program's test program, one
+    captured graph per step after the first: K1 18 times a run (the
+    encoder's, the decoder's and the cross attention of 6 + 6 layers),
+    one signature captured, the card's log-probabilities at steps 1, 2
+    and the last against the CPU's on the card's own prefixes, and the
+    beam bookkeeping run again on the card's recorded log-probabilities
+    gives the card's ids."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import decoding
+    from paddle_tpu_torch.models.transformer import make_attn_biases
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    _, scope, infer, predict = trained
+    h, vocab, L, ts = NMT["n_head"], NMT["vocab"], BEAM_LEN, BEAM_SRC
+    # the test program, and the position-t rows of its softmax gathered
+    # on the card from a fed index: a step fetches [rows, vocab]
+    dec = infer.clone()
+    with fluid.program_guard(dec, fluid.Program()):
+        at = fluid.layers.data(name="next_rows", shape=[-1], dtype="int64",
+                               append_batch_size=False)
+        probs = fluid.layers.reshape(dec.global_block().var(predict.name),
+                                     shape=[-1, vocab])
+        nxt = fluid.layers.gather(probs, at)
+    state = {n: t for n, t in scope.vars.items()
+             if t is not None and dec.global_block().has_var(n)}
+    bscope = scope_from(fluid, state)
+    bexe = fluid.Executor(fluid.CUDAPlace(0))
+    src = np.random.RandomState(SEED + 21).randint(
+        2, vocab, (BEAM_B, ts)).astype(np.int64)
+
+    def feed_for(prefix, t):
+        n = prefix.shape[0]
+        sb, tb, cb = make_attn_biases([ts] * n, [t] * n, h, ts, L)
+        return {"src_word": np.repeat(src, n // BEAM_B, axis=0),
+                "src_pos": np.tile(np.arange(ts), (n, 1)).astype(np.int64),
+                "trg_word": np.asarray(prefix)[:, :L],
+                "trg_pos": np.tile(np.arange(L), (n, 1)).astype(np.int64),
+                "src_slf_attn_bias": sb, "trg_slf_attn_bias": tb,
+                "trg_src_attn_bias": cb,
+                "next_rows": (np.arange(n) * L + t - 1).astype(np.int64)}
+
+    record = []
+
+    def logits_fn(prefix, t):
+        t0 = time.perf_counter()
+        (p,) = bexe.run(dec, feed=feed_for(prefix, t), fetch_list=[nxt],
+                        scope=bscope)
+        out = np.log(np.maximum(p, 1e-9))
+        record.append({"prefix": np.array(prefix), "t": t, "logp": out,
+                       "start": t0, "ms": (time.perf_counter() - t0) * 1e3,
+                       "compiles": bexe.compile_count})
+        return out
+
+    ak.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    seqs, scores = decoding.beam_search(logits_fn, BEAM_B, BEAM_K, BEAM_BOS,
+                                        BEAM_EOS, L)
+    wall = time.perf_counter() - t0
+    launches = ak.flash_attention.launches
+    # a step: from one program run's start to the next one's, the host's
+    # beam bookkeeping included (the last ends with the search)
+    ends = [r["start"] for r in record[1:]] + [t0 + wall]
+    steps_ms = [(e - r["start"]) * 1e3 for r, e in zip(record, ends)]
+    runs = len(record)
+    compiles = [r["compiles"] for r in record]
+    last = record[-1]
+    prof_wall, busy, _ = device_record(torch, lambda: bexe.run(
+        dec, feed=feed_for(last["prefix"], last["t"]), fetch_list=[nxt],
+        scope=bscope))
+
+    # the beam bookkeeping again on the card's recorded log-probabilities
+    replay = iter(record)
+
+    def replayed(prefix, t):
+        r = next(replay)
+        if r["t"] != t or not np.array_equal(r["prefix"], prefix):
+            raise SystemExit("beam search replay: the prefixes differ")
+        return r["logp"]
+
+    seqs2, scores2 = decoding.beam_search(replayed, BEAM_B, BEAM_K,
+                                          BEAM_BOS, BEAM_EOS, L)
+    same = np.array_equal(seqs2, seqs) and np.array_equal(scores2, scores)
+
+    # the CPU's log-probabilities on the card's own prefixes
+    cpu_scope = fluid.io.state_from_numpy(
+        {n: t.cpu().numpy() for n, t in state.items()}, scope=fluid.Scope(),
+        place=fluid.CPUPlace(), main_program=dec)
+    cexe = fluid.Executor(fluid.CPUPlace())
+    errs = []
+    for i in sorted({0, 1, runs - 1}):
+        r = record[i]
+        (p,) = cexe.run(dec, feed=feed_for(r["prefix"], r["t"]),
+                        fetch_list=[nxt], scope=cpu_scope)
+        want = np.log(np.maximum(p, 1e-9))
+        errs.append((r["t"], float(np.abs(r["logp"] - want).max()
+                                   / np.abs(want).max())))
+    # the steady state: steps 3 on (the first two are the warm-up run and
+    # the capture)
+    step_ms = statistics.median(steps_ms[2:])
+    run_ms = statistics.median(r["ms"] for r in record[2:])
+    tokens_s = BEAM_B / step_ms * 1e3
+    print(f"[{smi}] transformer-base beam decode: {BEAM_B} sentences of "
+          f"{ts} tokens, beam {BEAM_K}, max_len {L}: {runs} steps in "
+          f"{wall * 1e3:.6f} ms (first step {steps_ms[0]:.6f}, second "
+          f"{steps_ms[1]:.6f}); steps 3-{runs}: step {step_ms:.6f} ms "
+          f"(median), of which the program's run and fetch {run_ms:.6f} ms "
+          f"and numpy's beam bookkeeping the rest; {tokens_s:.3f} generated "
+          f"tokens/s ({tokens_s * BEAM_K:.3f} beam rows/s; over the whole "
+          f"search with its warm-up and capture {BEAM_B * runs / wall:.3f});"
+          f" one run profiled {prof_wall:.6f} ms, device busy {busy:.6f} "
+          f"ms, idle share {1.0 - busy / prof_wall:.4f}; a run fetches "
+          f"{BEAM_B * BEAM_K} x {vocab} fp32 ({BEAM_B * BEAM_K * vocab * 4} "
+          f"bytes)")
+    print(f"[{smi}] flash_attention_fwd launches {launches} over {runs} runs "
+          f"(expected {3 * NMT['n_layer']} a run); compile_count after "
+          f"each step {compiles}; card vs CPU log-probabilities (step, "
+          f"largest difference over the largest |value|) {errs} (bound "
+          f"{BEAM_ATOL:g}); the bookkeeping again on the card's "
+          f"log-probabilities gives its ids and scores: {same}; best beam "
+          f"of sentence 0 {seqs[0, 0].tolist()}", flush=True)
+    if launches != 3 * NMT["n_layer"] * runs:
+        raise SystemExit(f"beam decode: flash_attention_fwd launches "
+                         f"{launches}, expected {3 * NMT['n_layer'] * runs}")
+    if compiles[0] != 0 or set(compiles[1:]) != {1}:
+        raise SystemExit(f"beam decode: captured signatures {compiles}, "
+                         f"expected one from the second step on")
+    if max(e for _, e in errs) > BEAM_ATOL or not same:
+        raise SystemExit("beam decode: the card departs from the CPU, or "
+                         "the bookkeeping does not reproduce its ids")
+    return {"launches": launches, "runs": runs, "step_ms": step_ms,
+            "run_ms": run_ms, "tokens_s": tokens_s, "busy": busy,
+            "wall": prof_wall}
+
+
+def control_flow_phase(torch, smi, trained):
+    """The control-flow slice on the card: K1 at Path B's attention shapes
+    against its plain version, then Path A (mt_path) and Path B
+    (beam_decode_path).  K8 at Path A's step shape is held against its
+    plain version in rnn_kernel_phase (mt_b16_d32_peep)."""
+    from paddle_tpu_torch.models.transformer import make_attn_biases
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    phase(f"control flow: the book's machine translation (dictionary "
+          f"30000, word 16, hidden 32, beam 2, max length 8) trained and "
+          f"decoded by While; transformer-base beam decode ({BEAM_B} x "
+          f"{BEAM_SRC} tokens, beam {BEAM_K}, max_len {BEAM_LEN})")
+    t_phase = time.perf_counter()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    n, h, d = BEAM_B * BEAM_K, NMT["n_head"], NMT["d_model"] // NMT["n_head"]
+    sb, tb, _ = make_attn_biases([BEAM_SRC] * n, [BEAM_LEN // 2] * n, h,
+                                 BEAM_SRC, BEAM_LEN)
+    rows = {}
+    for name, bias in (("beam_enc_self", sb), ("beam_dec_self", tb)):
+        q, k, v = (torch.randn(n, h, BEAM_LEN, d, generator=g,
+                               device="cuda") for _ in range(3))
+        bias = torch.from_numpy(bias).cuda()
+        scale = d ** -0.5
+        out = ak.flash_attention(q, k, v, bias=bias)
+        err = max_err(torch, out, ak.flash_attention_reference(
+            q, k, v, bias, False, scale))
+        row = {"max_abs_err": err,
+               "ms": time_ms(torch, lambda: ak.flash_attention(
+                   q, k, v, bias=bias)),
+               "plain_ms": time_ms(torch, lambda: ak.flash_attention_reference(
+                   q, k, v, bias, False, scale)),
+               "library_ms": time_ms(torch, lambda: sdpa(
+                   q, k, v, attn_mask=bias, scale=scale)),
+               **attention_bound_ms(q, k, bias, False)}
+        rows[name] = row
+        print(f"[{smi}] flash_attention_fwd {name}: q {tuple(q.shape)} full "
+              f"bias, max_abs_err {err:.3e} (atol {ATOL['float32']:g}) "
+              f"kernel {row['ms']:.6f} ms plain {row['plain_ms']:.6f} ms "
+              f"sdpa {row['library_ms']:.6f} ms bound {row['bound_ms']:.6f}"
+              f" ms ({row['bound_by']})", flush=True)
+        if not err <= ATOL["float32"]:
+            raise SystemExit(f"flash_attention_fwd disagrees with its plain "
+                             f"version on {name}: {err}")
+    a = mt_path(torch, smi)
+    b = beam_decode_path(torch, smi, trained)
+    print(f"control flow phase {time.perf_counter() - t_phase:.3f} s")
+    torch.cuda.empty_cache()
+    return {"mt": a, "beam": b, "rows": rows}
+
+
 def main():
     import torch
 
@@ -5758,7 +6248,7 @@ def main():
               "beside this script)", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    t_start = time.perf_counter()
+    t_start = T_START[0] = time.perf_counter()
     smi = device_phase(torch)
     build_phase()
     kernel_phase(torch)
@@ -5785,6 +6275,7 @@ def main():
     disagg = disagg_phase(torch, smi, trained)
     launches["paged"] = disagg["paged"]
     launches["paged_quant"] = disagg["paged_quant"]
+    control = control_flow_phase(torch, smi, trained)
     del trained
     k3_rows = k3_kernel_phase(torch)
     ring_phase(torch)
@@ -5825,6 +6316,12 @@ def main():
                                 amp["bert"]["launches"][k] * AMP_STEPS),
                     device_key_ms=compiled["key_ms"][k])
                for k in ("fwd", "dkv", "dq")]
+    # K1 on the beam decode's path (Path B) at its decoder self-attention
+    beam = control["rows"]["beam_dec_self"]
+    kernels[0].update({"beam_decode_launches": control["beam"]["launches"],
+                       **{f"beam_decode_{key}": beam[key] for key in (
+                           "ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_by", "max_abs_err")}})
     kernels.append(dict(KERNELS["quant"],
                         launches=quant["launches"]["quant"],
                         launches_per_batch=per_batch,
@@ -5835,6 +6332,13 @@ def main():
                     ("softmax", "b16_t128")):
         kernels.append(dict(KERNELS[k], launches=launches[k],
                             **rnn_rows[k][case]))
+    # K8 on the machine-translation path (Path A): its encoder's step
+    # with peepholes, launched in the training and the While decode runs
+    mt_row = rnn_rows["lstm"]["mt_b16_d32_peep"]
+    kernels[-3].update({"mt_launches": control["mt"]["launches"],
+                        **{f"mt_{key}": mt_row[key] for key in (
+                            "ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "max_abs_err")}})
     # the CTR slice's deep-table lookup on one shard
     kernels.append(dict(KERNELS["gather"], launches=launches["gather"],
                         **gather_rows["deep_n65536_d16_f32"]))
@@ -5911,6 +6415,14 @@ def main():
         print(f"[{smi}] compiled {key}: p50 {c['p50']:.6f} ms p99 "
               f"{c['p99']:.6f} ms {c['req_s']:.3f} req/s (uncaptured p50 "
               f"{c['plain_p50']:.6f} p99 {c['plain_p99']:.6f})")
+    m, bd = control["mt"], control["beam"]
+    print(f"[{smi}] control flow: machine-translation While decode wall "
+          f"{m['wall']:.6f} ms, {m['iterations']} iterations, {m['syncs']} "
+          f"host synchronisations in the loop, lstm_step launches "
+          f"{m['launches']} (3 training steps and the decode); "
+          f"transformer-base beam decode step {bd['step_ms']:.6f} ms, "
+          f"{bd['tokens_s']:.3f} generated tokens/s, flash_attention_fwd "
+          f"launches {bd['launches']} over {bd['runs']} runs")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

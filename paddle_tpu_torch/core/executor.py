@@ -30,8 +30,15 @@ recaptures).  ``compile_count`` counts captured signatures and
 ``precompile`` captures one without running a step.
 
 Control flow: a ``dynamic_rnn`` op runs its step block once per time
-step through :func:`_run_block` (``ops/rnn_ops.py``); ``while`` and
-``conditional_block`` raise until a later slice ports them.
+step through :func:`_run_block` (``ops/rnn_ops.py``).  A ``while`` op runs
+its sub-block on the host for as long as its condition holds, and a
+``conditional_block`` op runs its sub-block once if its condition holds
+(:func:`_run_while`, :func:`_run_conditional`: the reference's
+``_run_while`` and ``_run_conditional``, whose ``lax.while_loop`` and
+``lax.cond`` become a host loop and a host branch).  Reading the
+condition is the one synchronisation with the card an iteration; the
+body's ops, the tensor arrays' indices among them, stay on the device.
+:func:`capturable` refuses both ops, so such programs run op by op.
 
 Seams: ``run`` passes every program through the verifier and then,
 unless it holds host ops, the IR pass pipeline before it interprets it,
@@ -251,10 +258,12 @@ def _run_block(block, env, read):
     for op in block.ops:
         if op.type in ("feed", "fetch"):
             continue
-        if op.type in _SUB_BLOCK_OPS:
-            raise NotImplementedError(
-                f"op {op.type!r}: control-flow sub-blocks run in a later "
-                "slice of the port")
+        if op.type == "while":
+            _run_while(op, env, read)
+            continue
+        if op.type == "conditional_block":
+            _run_conditional(op, env, read)
+            continue
         try:
             for n in op.input_arg_names:
                 collect = pending.pop(n, None)
@@ -296,6 +305,82 @@ def _run_block(block, env, read):
             env.pop(n, None)
     for collect in dict.fromkeys(pending.values()):
         collect()                    # rows nobody read: land, surface errors
+
+
+# the while loops the interpreter ran in this process: loops, body
+# iterations and condition reads (each a synchronisation with the card
+# when the condition lies there); a caller sets them to 0 and reads them
+loop_counts = {"loops": 0, "iterations": 0, "condition_reads": 0}
+
+
+def _upward_reads(block, written=()):
+    """Names `block`, or a block it holds, reads before writing them or
+    finding them in `written` (what a run of the block takes from the
+    Scope)."""
+    written, out = set(written), set()
+    for op in block.ops:
+        out.update(n for n in op.input_arg_names if n not in written)
+        if _recurse_into_blocks(op):
+            for v in op.attrs.values():
+                if isinstance(v, Block):
+                    out |= _upward_reads(v, written)
+        written.update(op.output_arg_names)
+    return out
+
+
+def _carried(sub, env, read, extra=()):
+    """The names a sub-block op carries: those the sub-block reads or
+    writes that exist before the op (the reference's ``carry_names``).  A
+    name the body reads before writing it and writes too is taken from the
+    Scope first, so its new value is carried out; a name first created
+    inside the body is not, and does not leak into `env`."""
+    reads, writes = _block_io(sub)
+    for n in sorted((_upward_reads(sub) & writes) | set(extra)):
+        if n not in env:
+            env[n] = read(n)
+    return sorted(n for n in reads | writes | set(extra) if n in env)
+
+
+def _holds(cond):
+    """A condition tensor's value on the host: waits for the card when
+    the condition lies there."""
+    loop_counts["condition_reads"] += 1
+    return bool(cond.reshape(()))
+
+
+def _run_while(op, env, read):
+    """A ``while`` op (``controlflow/while_op.cc:50``): run the sub-block
+    while ``Condition`` holds, on the carried names only, then write them
+    back into `env` (the reference's ``_run_while``, with a host loop
+    where it has ``lax.while_loop``).  Each iteration runs on a fresh
+    copy of `env` updated with the carry, as the reference's body does."""
+    sub = op.attrs["sub_block"]
+    cond_name = op.inputs["Condition"][0]
+    names = _carried(sub, env, read, (cond_name,))
+    carry = {n: env[n] for n in names}
+    loop_counts["loops"] += 1
+    while _holds(carry[cond_name]):
+        local = dict(env)
+        local.update(carry)
+        _run_block(sub, local, read)
+        carry = {n: local[n] for n in names}
+        loop_counts["iterations"] += 1
+    env.update(carry)
+
+
+def _run_conditional(op, env, read):
+    """A ``conditional_block`` op: run the sub-block iff ``Cond`` holds,
+    and write back only the carried names (the reference's
+    ``_run_conditional``; a name the block writes must exist before it,
+    its old value being the false branch)."""
+    sub = op.attrs["sub_block"]
+    cond_name = op.inputs["Cond"][0]
+    names = _carried(sub, env, read)
+    cond = env[cond_name] if cond_name in env else read(cond_name)
+    if _holds(cond):
+        local = dict(env)
+        _run_block(sub, local, read)
+        env.update((n, local[n]) for n in names)
 
 
 def _absent(op, slot, name, read):
@@ -392,7 +477,9 @@ def capturable(program):
       - a host op of the sharded embedding engine (RPC on the host; the
         reference runs these on its eager path, ``_has_host_ops``),
       - ``dynamic_rnn``, ``gpipe``, ``while`` or ``conditional_block`` (a
-        Python loop over steps or sub-blocks),
+        Python loop over steps or sub-blocks; a ``while`` loop also reads
+        its condition from the card every iteration, so its trip count
+        is not known when a graph would be captured),
       - drawn through a reseeded torch generator
         (``registry.generator_for``: its seed is host state), or
       - sparse (``is_sparse``: merging a SelectedRows grad reads its rows
@@ -593,27 +680,9 @@ class _CompiledBlock:
 
         # dataflow analysis: which names must come from the Scope (read
         # before written), and which persistables the block writes
-        written = set(self.feed_names)
-        state_in, seen_in = [], set()
-
-        def scan_block(blk, written):
-            for op in blk.ops:
-                for n in op.input_arg_names:
-                    if n not in written and n not in seen_in:
-                        seen_in.add(n)
-                        state_in.append(n)
-                if _recurse_into_blocks(op):
-                    for v in op.attrs.values():
-                        if isinstance(v, Block):
-                            scan_block(v, set(written))
-                written.update(op.output_arg_names)
-
-        scan_block(block, written)
-        written.update(_block_io(block)[1])
-        for n in self.fetch_names:
-            if n not in written and n not in seen_in:
-                seen_in.add(n)
-                state_in.append(n)
+        state_in = _upward_reads(block, self.feed_names)
+        written = set(self.feed_names) | _block_io(block)[1]
+        state_in.update(n for n in self.fetch_names if n not in written)
         self.state_in = sorted(state_in)
         self.state_out = sorted(
             n for n in written

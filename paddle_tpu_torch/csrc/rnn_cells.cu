@@ -12,6 +12,11 @@
 //       gates [B, 4D] = xg + h_prev @ W     (gc | gi | gf | go)
 //       i, f, o = sigmoid(gi, gf, go)
 //       c = f * c_prev + i * tanh(gc)          h = o * tanh(c)
+//       with peepholes (the `lstm` op's default, use_peepholes): gi +=
+//       c_prev * w_ic, gf += c_prev * w_fc before their sigmoids and go +=
+//       c * w_oc before its own, the three weights [3, D] being the tail
+//       of the op's Bias (rnn_ops.py:63-93's composed cell; the TPU
+//       kernel leaves peepholes to that composed cell)
 //       valid = step < lens[b]: carries valid ? (h, c) : (h_prev, c_prev),
 //       emits valid ? (h, c) : 0
 //
@@ -271,6 +276,7 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ h_prev, long long ld_h,
                      const float* __restrict__ c_prev, long long ld_c,
                      const float* __restrict__ W, long long ld_w,
+                     const float* __restrict__ peep,
                      const int* __restrict__ lens, int step,
                      float* __restrict__ h_out, float* __restrict__ c_out,
                      float* __restrict__ h_emit, float* __restrict__ c_emit,
@@ -293,10 +299,16 @@ __global__ void __launch_bounds__(kThreads)
         gate[q] = __fadd_rn(gate[q], partial_sum<NCOL>(smem, r, q * U + u));
     }
     const float cp = __ldg(c_prev + row * ld_c + unit);
+    if (peep) {
+      gate[1] = __fadd_rn(gate[1], __fmul_rn(cp, __ldg(peep + unit)));
+      gate[2] = __fadd_rn(gate[2], __fmul_rn(cp, __ldg(peep + D + unit)));
+    }
     const float ig = sigmoid_rn(gate[1]);
     const float fg = sigmoid_rn(gate[2]);
-    const float og = sigmoid_rn(gate[3]);
     const float c = __fadd_rn(__fmul_rn(fg, cp), __fmul_rn(ig, tanhf(gate[0])));
+    if (peep)
+      gate[3] = __fadd_rn(gate[3], __fmul_rn(c, __ldg(peep + 2 * D + unit)));
+    const float og = sigmoid_rn(gate[3]);
     const float h = __fmul_rn(og, tanhf(c));
     const bool valid = lens == nullptr || step < __ldg(lens + row);
     const long long o = (long long)row * D + unit;
@@ -365,15 +377,17 @@ int grid_for(int B, int D, int units, dim3* grid) {
 
 // One LSTM time step.  xg fp32 [B, 4D] (row stride ld_x, unit stride along
 // the row), h_prev and c_prev fp32 [B, D] (row strides ld_h, ld_c), W fp32
-// [D, 4D] (row stride ld_w), lens int32 [B]; h, c (the carries) and h_emit,
-// c_emit fp32 [B, D] dense.  W null: no product (xg holds the gates);
+// [D, 4D] (row stride ld_w), peep fp32 [3, D] dense (w_ic | w_fc | w_oc),
+// lens int32 [B]; h, c (the carries) and h_emit, c_emit fp32 [B, D] dense.
+// peep null: no peepholes.  W null: no product (xg holds the gates);
 // lens null: no mask, and h_prev may be null when W is too; h_emit null:
 // the emitted pair is not written.  Returns a cudaError_t (0 on success);
 // the launch is asynchronous on `stream`.
 extern "C" int lstm_step_fwd(const void* xg, long long ld_x,
                              const void* h_prev, long long ld_h,
                              const void* c_prev, long long ld_c,
-                             const void* W, long long ld_w, const void* lens,
+                             const void* W, long long ld_w,
+                             const void* peep, const void* lens,
                              int step, void* h, void* c, void* h_emit,
                              void* c_emit, int B, int D, void* stream) {
   dim3 grid;
@@ -388,8 +402,9 @@ extern "C" int lstm_step_fwd(const void* xg, long long ld_x,
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xg), ld_x, static_cast<const float*>(h_prev),
       ld_h, static_cast<const float*>(c_prev), ld_c,
-      static_cast<const float*>(W), ld_w, static_cast<const int*>(lens),
-      step, static_cast<float*>(h), static_cast<float*>(c),
+      static_cast<const float*>(W), ld_w, static_cast<const float*>(peep),
+      static_cast<const int*>(lens), step, static_cast<float*>(h),
+      static_cast<float*>(c),
       static_cast<float*>(h_emit), static_cast<float*>(c_emit), B, D);
   return cudaGetLastError();
 }

@@ -1,11 +1,19 @@
-"""Control flow layers: ``DynamicRNN``, ``PipelineStack`` and the
-``BlockGuard`` they record their sub-blocks with (a copy of part of
-``paddle_tpu/layers/control_flow.py``;
-``While``, ``cond_block``, the tensor arrays and the rank-table layers wait
-for a later slice of the port).
+"""Control flow layers: ``While``, ``increment`` and the comparison and
+logical layers, ``DynamicRNN``, ``PipelineStack``, ``cond_block``,
+``Switch``, the tensor arrays, ``IfElse`` and the rank-table family, with
+the ``BlockGuard`` they record their sub-blocks with (a copy of
+``paddle_tpu/layers/control_flow.py``).
 
-Reference: ``python/paddle/fluid/layers/control_flow.py`` — ``DynamicRNN``
-at :1394.  The step block becomes ONE ``dynamic_rnn`` op
+Reference: ``python/paddle/fluid/layers/control_flow.py`` — ``While``:504
+builds a while op holding a sub-block (run by a nested Executor,
+``controlflow/while_op.cc:50``); ``Switch``:1138; ``IfElse``:1264;
+``DynamicRNN``:1394.
+
+Lowering, as in the JAX package: the Executor runs a ``while`` op's
+sub-block on the host while its condition holds (``core/executor.py``),
+the tensor arrays are dense preallocated buffers (``ops/array_ops.py``),
+``Switch`` and ``IfElse`` are ``where`` selects over the full batch, and
+a DynamicRNN's step block becomes ONE ``dynamic_rnn`` op
 (``ops/rnn_ops.py``) run over the padded time dim.
 """
 
@@ -14,6 +22,7 @@ import contextlib
 from ..core import unique_name
 from ..core.lod import seq_len_name
 from ..layer_helper import LayerHelper
+from . import tensor as tensor_layers
 
 
 class BlockGuard:
@@ -27,6 +36,66 @@ class BlockGuard:
     def __exit__(self, *a):
         self.program.rollback()
         return False
+
+
+class While:
+    """with While(cond).block(): ... — cond must be updated in the block."""
+
+    def __init__(self, cond, is_test=False, name=None):
+        self.helper = LayerHelper("while", name=name)
+        self.cond_var = cond
+        if cond.dtype != "bool":
+            raise TypeError("While condition must be a bool Variable")
+
+    @contextlib.contextmanager
+    def block(self):
+        program = self.helper.main_program
+        parent_block = program.current_block()
+        guard = BlockGuard(program)
+        sub_block = guard.__enter__()
+        try:
+            yield
+        finally:
+            guard.__exit__()
+        parent_block.append_op(
+            type="while",
+            inputs={"Condition": [self.cond_var]},
+            outputs={},
+            attrs={"sub_block": sub_block, "is_test": False})
+
+
+def increment(x, value=1.0, in_place=True):
+    helper = LayerHelper("increment")
+    if in_place:
+        out = x
+    else:
+        out = helper.create_variable_for_type_inference(x.dtype)
+        out.shape = x.shape
+    helper.append_op(type="increment", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"step": float(value)})
+    return out
+
+
+def _cmp_layer(op_type):
+    def layer(x, y, cond=None):
+        helper = LayerHelper(op_type)
+        if cond is None:
+            cond = helper.create_variable_for_type_inference(
+                "bool", stop_gradient=True)
+            cond.shape = x.shape
+        helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [cond]})
+        return cond
+    layer.__name__ = op_type
+    return layer
+
+
+less_than = _cmp_layer("less_than")
+less_equal = _cmp_layer("less_equal")
+greater_than = _cmp_layer("greater_than")
+greater_equal = _cmp_layer("greater_equal")
+equal = _cmp_layer("equal")
+not_equal = _cmp_layer("not_equal")
 
 
 class DynamicRNN:
@@ -353,3 +422,285 @@ class PipelineStack:
                    "num_stages": s,
                    "num_microbatches": self.num_microbatches})
         self._result = out
+
+
+def cond_block(pred, true_fn_outputs=None):
+    raise NotImplementedError(
+        "Use layers.Switch or ifelse-style select; a conditional_block op "
+        "built into a program runs on the Executor")
+
+
+class Switch:
+    """Piecewise select, used by lr schedules (control_flow.py:1138).
+
+    Lowering: each case writes to output vars via ``where`` ops chained
+    over the cases, with no branch on the host.
+    """
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("switch", name=name)
+        self.cases = []          # [(cond_var or None, [assign ops builder])]
+        self.inside = False
+        self._pending_assigns = []
+
+    @contextlib.contextmanager
+    def case(self, condition):
+        self._pending_assigns = []
+        self._recording = condition
+        yield
+        self.cases.append((condition, list(self._pending_assigns)))
+
+    @contextlib.contextmanager
+    def default(self):
+        self._pending_assigns = []
+        yield
+        self.cases.append((None, list(self._pending_assigns)))
+
+    def record_assign(self, target, value):
+        self._pending_assigns.append((target, value))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        # materialize: out = where(cond1, v1, where(cond2, v2, ... default))
+        targets = {}
+        for cond, assigns in self.cases:
+            for tgt, val in assigns:
+                targets.setdefault(tgt.name, (tgt, []))[1].append((cond, val))
+        for _, (tgt, branches) in targets.items():
+            default_val = None
+            cond_vals = []
+            for cond, val in branches:
+                if cond is None:
+                    default_val = val
+                else:
+                    cond_vals.append((cond, val))
+            if default_val is None:
+                default_val = cond_vals[-1][1]
+            result = default_val
+            for cond, val in reversed(cond_vals):
+                h = LayerHelper("select")
+                out = h.create_variable_for_type_inference(tgt.dtype)
+                out.shape = tgt.shape
+                h.append_op(type="where",
+                            inputs={"Condition": [cond], "X": [val],
+                                    "Y": [result]},
+                            outputs={"Out": [out]})
+                result = out
+            tensor_layers.assign(result, tgt)
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Tensor arrays (reference write_to_array/read_from_array/lod_array_length
+# over a host std::vector<LoDTensor>): a dense preallocated (buffer, count)
+# pair indexed on the device (ops/array_ops.py).
+# ---------------------------------------------------------------------------
+
+def create_array(dtype, capacity=64):
+    """LOD_TENSOR_ARRAY var (control_flow.py:1042).  `capacity` bounds the
+    dense buffer — the static analogue of the reference's growable vector
+    (the While loop bound in every decode use is static anyway)."""
+    helper = LayerHelper("create_array")
+    out = helper.main_program.current_block().create_var(
+        name=unique_name.generate("tensor_array"), dtype=dtype,
+        stop_gradient=True)
+    out._ta_capacity = int(capacity)
+    helper.append_op(type="tensor_array_create", inputs={},
+                     outputs={"Out": [out]}, attrs={"dtype": dtype})
+    return out
+
+
+def array_write(x, i, array=None):
+    helper = LayerHelper("array_write")
+    if array is None:
+        array = create_array(x.dtype)
+    if getattr(array, "_ta_elem_shape", None) is None:
+        array._ta_elem_shape = x.shape      # IR-level element shape
+    helper.append_op(
+        type="write_to_array",
+        inputs={"X": [x], "I": [i], "Array": [array]},
+        outputs={"Out": [array]},
+        attrs={"capacity": getattr(array, "_ta_capacity", 64)})
+    return array
+
+
+def array_read(array, i):
+    helper = LayerHelper("array_read")
+    out = helper.create_variable_for_type_inference(array.dtype)
+    out.shape = getattr(array, "_ta_elem_shape", None)
+    helper.append_op(type="read_from_array",
+                     inputs={"X": [array], "I": [i]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def array_length(array):
+    helper = LayerHelper("array_length")
+    out = helper.create_variable_for_type_inference("int32",
+                                                    stop_gradient=True)
+    out.shape = (1,)
+    helper.append_op(type="lod_array_length", inputs={"X": [array]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def _logical_layer(op_type, binary=True):
+    def layer(x, y=None, out=None, name=None):
+        helper = LayerHelper(op_type, name=name)
+        if out is None:
+            out = helper.create_variable_for_type_inference(
+                "bool", stop_gradient=True)
+            out.shape = x.shape
+        ins = {"X": [x]}
+        if binary:
+            ins["Y"] = [y]
+        helper.append_op(type=op_type, inputs=ins, outputs={"Out": [out]})
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+logical_and = _logical_layer("logical_and")
+logical_or = _logical_layer("logical_or")
+logical_xor = _logical_layer("logical_xor")
+logical_not = _logical_layer("logical_not", binary=False)
+
+
+class IfElse:
+    """Row-wise conditional (reference control_flow.py:1264): partitions the
+    batch by a bool mask, runs each branch on its rows, merges.
+
+    Lowering, as in the JAX package: both branches run on the FULL batch
+    (no split_lod_tensor / gather of the true rows) and ``ie()`` merges the
+    i-th outputs of each branch with a ``where`` select on the mask;
+    backward is the select's vector-Jacobian product, so a differentiable
+    conditional needs no special casing.
+    """
+
+    OUT_IF_ELSE_BLOCKS, IN_IF_ELSE_TRUE_BLOCKS, IN_IF_ELSE_FALSE_BLOCKS = \
+        range(3)
+
+    def __init__(self, cond, name=None):
+        self.helper = LayerHelper("ifelse", name=name)
+        self.cond = cond
+        self.status = IfElse.OUT_IF_ELSE_BLOCKS
+        self.outputs = {True: [], False: []}
+
+    @contextlib.contextmanager
+    def true_block(self):
+        self.status = IfElse.IN_IF_ELSE_TRUE_BLOCKS
+        yield
+        self.status = IfElse.OUT_IF_ELSE_BLOCKS
+
+    @contextlib.contextmanager
+    def false_block(self):
+        self.status = IfElse.IN_IF_ELSE_FALSE_BLOCKS
+        yield
+        self.status = IfElse.OUT_IF_ELSE_BLOCKS
+
+    def input(self, x):
+        """The reference gathers the branch's rows; with the full-batch
+        select lowering the branch simply reads x."""
+        if self.status == IfElse.OUT_IF_ELSE_BLOCKS:
+            raise ValueError("ie.input() outside a branch block")
+        return x
+
+    def output(self, *outs):
+        if self.status == IfElse.OUT_IF_ELSE_BLOCKS:
+            raise ValueError("ie.output() outside a branch block")
+        branch = self.status == IfElse.IN_IF_ELSE_TRUE_BLOCKS
+        self.outputs[branch].extend(outs)
+
+    def __call__(self):
+        t_outs, f_outs = self.outputs[True], self.outputs[False]
+        if len(t_outs) != len(f_outs):
+            raise ValueError(
+                f"IfElse branches returned {len(t_outs)} vs {len(f_outs)} "
+                "outputs; they must pair up")
+        merged = []
+        for tv, fv in zip(t_outs, f_outs):
+            h = LayerHelper("ifelse_merge")
+            out = h.create_variable_for_type_inference(tv.dtype)
+            out.shape = tv.shape
+            h.append_op(type="where",
+                        inputs={"Condition": [self.cond], "X": [tv],
+                                "Y": [fv]},
+                        outputs={"Out": [out]})
+            merged.append(out)
+        return merged
+
+
+def lod_rank_table(x, level=0):
+    """[index, length] table sorted by length desc
+    (control_flow.py:1042)."""
+    from .sequence import _len_var
+
+    helper = LayerHelper("lod_rank_table")
+    out = helper.create_variable_for_type_inference(
+        "int32", stop_gradient=True)
+    if x.shape:
+        out.shape = (x.shape[0], 2)
+    helper.append_op(type="lod_rank_table",
+                     inputs={"X": [x], "SeqLen": [_len_var(x)]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def max_sequence_len(rank_table):
+    helper = LayerHelper("max_sequence_len")
+    out = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    out.shape = (1,)
+    helper.append_op(type="max_sequence_len",
+                     inputs={"RankTable": [rank_table]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def lod_tensor_to_array(x, table=None):
+    helper = LayerHelper("lod_tensor_to_array")
+    arr = helper.main_program.current_block().create_var(
+        name=unique_name.generate("lod_tensor_array"), dtype=x.dtype,
+        stop_gradient=True)
+    if x.shape and len(x.shape) >= 2:
+        arr._ta_elem_shape = (x.shape[0],) + tuple(x.shape[2:])
+        arr._ta_capacity = x.shape[1] if x.shape[1] not in (None, -1) \
+            else 64
+    helper.append_op(type="lod_tensor_to_array", inputs={"X": [x]},
+                     outputs={"Out": [arr]})
+    return arr
+
+
+def array_to_lod_tensor(x, table=None, seq_lens=None):
+    from .sequence import _make_lod_out
+
+    helper = LayerHelper("array_to_lod_tensor")
+    out, out_len = _make_lod_out(helper, x, dtype=x.dtype)
+    ins = {"X": [x]}
+    if seq_lens is not None:
+        ins["SeqLen"] = [seq_lens]
+    elif table is not None:
+        # the canonical fluid call form: lengths come from the rank table
+        ins["RankTable"] = [table]
+    helper.append_op(type="array_to_lod_tensor", inputs=ins,
+                     outputs={"Out": [out], "OutLen": [out_len]})
+    return out
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    from .sequence import _make_lod_out
+
+    helper = LayerHelper("reorder_lod_tensor_by_rank")
+    if getattr(x, "lod_level", 0) > 0:
+        out, out_len = _make_lod_out(helper, x, dtype=x.dtype)
+        outs = {"Out": [out], "OutLen": [out_len]}
+    else:
+        out = helper.create_variable_for_type_inference(x.dtype)
+        outs = {"Out": [out]}
+    out.shape = x.shape
+    helper.append_op(type="reorder_lod_tensor_by_rank",
+                     inputs={"X": [x], "RankTable": [rank_table]},
+                     outputs=outs)
+    return out

@@ -1,9 +1,11 @@
-"""Recurrent layer builders: dynamic_lstm/lstmp/gru, gru_unit, lstm_unit
-(a copy of ``paddle_tpu/layers/rnn.py``; ``StaticRNN`` waits for a later
-slice of the port).
+"""Recurrent layer builders: dynamic_lstm/lstmp/gru, gru_unit, lstm_unit,
+StaticRNN (a copy of ``paddle_tpu/layers/rnn.py``).
 
 Reference: ``python/paddle/fluid/layers/nn.py`` dynamic_lstm/dynamic_gru
-builders.  The ops run in ``ops/rnn_ops.py``.
+builders and ``layers/control_flow.py:278`` StaticRNN.  The ops run in
+``ops/rnn_ops.py``.  StaticRNN unrolls its step block T times directly
+into the main block, as the JAX package does; the reference runs a
+sub-block executor per step, and unrolling gives the same dataflow.
 """
 
 from ..layer_helper import LayerHelper
@@ -165,3 +167,166 @@ def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
                      outputs={"C": [c], "H": [h]},
                      attrs={"forget_bias": forget_bias})
     return h, c
+
+
+class StaticRNN:
+    """Unrolled RNN builder (control_flow.py:278 API).
+
+    Ops appended inside ``with rnn.step()`` are recorded as the step
+    template and replayed T-1 more times with per-step var renaming, in
+    place of the reference's per-step sub-block executor.  T comes from
+    the static time dim of the first step_input.
+    """
+
+    BEFORE, IN, AFTER = 0, 1, 2
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("static_rnn", name=name)
+        self.status = StaticRNN.BEFORE
+        self.seq_len = None           # static T
+        self.inputs = []              # (step_var, source_var)
+        self.memories = {}            # step_var name -> (mem_var, init, next)
+        self.outputs = []             # (step out var, stacked out var)
+        self._block = None
+        self._op_start = None
+
+    class _StepGuard:
+        def __init__(self, rnn):
+            self.rnn = rnn
+
+        def __enter__(self):
+            rnn = self.rnn
+            rnn.status = StaticRNN.IN
+            rnn._block = rnn.helper.main_program.current_block()
+            rnn._op_start = len(rnn._block.ops)
+            return rnn
+
+        def __exit__(self, exc_type, *a):
+            if exc_type is None:
+                self.rnn._complete()
+            self.rnn.status = StaticRNN.AFTER
+
+    def step(self):
+        return StaticRNN._StepGuard(self)
+
+    def _assert_in_block(self):
+        if self.status != StaticRNN.IN:
+            raise ValueError("StaticRNN method used outside rnn.step()")
+
+    def step_input(self, x):
+        """x: [B, T, D] lod/padded; returns the per-step [B, D] slice var."""
+        self._assert_in_block()
+        if self.seq_len is None:
+            self.seq_len = x.shape[1]
+            if self.seq_len in (None, -1):
+                raise ValueError("StaticRNN needs a static time dim")
+        block = self.helper.main_program.current_block()
+        step_var = self.helper.create_variable_for_type_inference(x.dtype)
+        step_var.shape = (x.shape[0],) + tuple(x.shape[2:])
+        block.append_op(
+            type="slice", inputs={"Input": [x]},
+            outputs={"Out": [step_var]},
+            attrs={"axes": [1], "starts": [0], "ends": [1],
+                   "decrease_axis": [1]})
+        self.inputs.append((step_var, x))
+        return step_var
+
+    def memory(self, init=None, shape=None, batch_ref=None, init_value=0.0,
+               dtype="float32"):
+        self._assert_in_block()
+        block = self.helper.main_program.current_block()
+        if init is None:
+            if shape is None or batch_ref is None:
+                raise ValueError("memory needs init or (shape, batch_ref)")
+            init = self.helper.create_variable_for_type_inference(dtype)
+            init.shape = tuple(batch_ref.shape[:1]) + tuple(shape[1:])
+            block.append_op(
+                type="fill_constant_batch_size_like",
+                inputs={"Input": [batch_ref]},
+                outputs={"Out": [init]},
+                attrs={"shape": [-1] + list(shape[1:]), "value": init_value,
+                       "dtype": dtype, "input_dim_idx": 0,
+                       "output_dim_idx": 0})
+        mem = self.helper.create_variable_for_type_inference(init.dtype)
+        mem.shape = init.shape
+        block.append_op(type="assign", inputs={"X": [init]},
+                        outputs={"Out": [mem]})
+        self.memories[mem.name] = {"mem": mem, "init": init, "next": None}
+        return mem
+
+    def update_memory(self, mem, var):
+        self._assert_in_block()
+        self.memories[mem.name]["next"] = var
+
+    def output(self, *outputs):
+        self._assert_in_block()
+        for o in outputs:
+            stacked = self.helper.create_variable_for_type_inference(o.dtype)
+            self.outputs.append((o, stacked))
+
+    def __call__(self):
+        outs = [s for _, s in self.outputs]
+        return outs[0] if len(outs) == 1 else outs
+
+    # -- unrolling ---------------------------------------------------------
+    def _complete(self):
+        from ..core import unique_name
+
+        block = self._block
+        template = block.ops[self._op_start:]
+        t_total = self.seq_len
+
+        step_outs = {name: [info["next"].name if info["next"] else name]
+                     for name, info in self.memories.items()}
+        per_step_outputs = {o.name: [o.name] for o, _ in self.outputs}
+
+        for t in range(1, t_total):
+            rename = {}
+            # memories read the previous step's updated value
+            for name, info in self.memories.items():
+                rename[name] = step_outs[name][-1]
+            for op in template:
+                if op.type == "assign" and any(
+                        o in self.memories for o in op.output_arg_names):
+                    continue  # boundary init assign runs only at t=0
+                new_outputs = {}
+                for slot, names in op.outputs.items():
+                    new_names = []
+                    for n in names:
+                        nn_ = unique_name.generate(n + f"@t{t}")
+                        v = block.vars[n]
+                        block.create_var(name=nn_, shape=v.shape,
+                                         dtype=v.dtype,
+                                         stop_gradient=v.stop_gradient)
+                        rename[n] = nn_
+                        new_names.append(nn_)
+                    new_outputs[slot] = new_names
+                new_inputs = {slot: [rename.get(n, n) for n in names]
+                              for slot, names in op.inputs.items()}
+                attrs = dict(op.attrs)
+                if op.type == "slice" and attrs.get("axes") == [1]:
+                    # step_input slice advances along time
+                    is_step_slice = any(
+                        src.name in op.input_arg_names
+                        for _, src in self.inputs)
+                    if is_step_slice:
+                        attrs["starts"] = [t]
+                        attrs["ends"] = [t + 1]
+                        new_inputs = {slot: list(names)
+                                      for slot, names in op.inputs.items()}
+                no = block.append_op(type=op.type, inputs=new_inputs,
+                                     outputs=new_outputs, attrs=attrs)
+                del no  # appended in place
+            for name, info in self.memories.items():
+                if info["next"] is not None:
+                    step_outs[name].append(rename.get(info["next"].name,
+                                                      info["next"].name))
+            for o, _ in self.outputs:
+                per_step_outputs[o.name].append(rename.get(o.name, o.name))
+
+        # stack per-step outputs into [B, T, D]
+        for o, stacked in self.outputs:
+            names = per_step_outputs[o.name]
+            stacked.shape = (o.shape[0], t_total) + tuple(o.shape[1:])
+            block.append_op(type="stack", inputs={"X": names},
+                            outputs={"Y": [stacked]}, attrs={"axis": 1})

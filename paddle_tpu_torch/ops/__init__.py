@@ -11,3 +11,5 @@ from . import sequence_ops  # noqa: F401
 from . import rnn_ops       # noqa: F401
 from . import sampling_kernels  # noqa: F401
 from . import pipeline_ops  # noqa: F401
+from . import array_ops     # noqa: F401
+from . import misc_ops      # noqa: F401

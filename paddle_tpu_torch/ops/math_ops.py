@@ -2,11 +2,13 @@
 elementwise ops with fluid's ``axis`` broadcast and the custom
 ``elementwise_add`` grad, mul/matmul, sum, the activations and reductions
 on the BERT serving and training paths and the RNN slice (``sigmoid``,
-the length-masked ``mean`` of a lod input).
+the length-masked ``mean`` of a lod input), ``log``, and the
+comparison and logical ops of the control-flow slice (bool outputs).
 
 Reference op semantics: ``paddle/fluid/operators/elementwise/``,
 ``mul_op.cc``, ``matmul_op.cc``, ``activation_op.cc``, ``scale_op.cc``,
-``mean_op.cc``, ``reduce_ops/``, ``sum_op.cc``.  The matrix products go
+``mean_op.cc``, ``reduce_ops/``, ``sum_op.cc``,
+``controlflow/compare_op.cc``, ``controlflow/logical_op.cc``.  The matrix products go
 to torch.matmul (cuBLAS on the card), as the JAX package left them to
 XLA.
 """
@@ -146,6 +148,7 @@ register("relu")(_unary(torch.relu))
 register("sigmoid")(_unary(torch.sigmoid))
 register("tanh")(_unary(torch.tanh))
 register("square")(_unary(torch.square))
+register("log")(_unary(torch.log))
 # exact erf form, as jax.nn.gelu(approximate=False) in the reference
 register("gelu")(_unary(
     lambda x: torch.nn.functional.gelu(x, approximate="none")))
@@ -180,3 +183,28 @@ def _reduce(fn):
 
 register("reduce_sum")(_reduce(torch.sum))
 register("reduce_mean")(_reduce(torch.mean))
+
+
+# -- comparison / logical (controlflow/compare_op.cc) -----------------------
+
+def _cmp(fn):
+    def kernel(ins, attrs):
+        x, y = first(ins, "X"), first(ins, "Y")
+        return as_out(fn(x, _bcast_y(x, y, attrs.get("axis", -1))))
+    return kernel
+
+
+register("equal", not_differentiable=True)(_cmp(torch.eq))
+register("not_equal", not_differentiable=True)(_cmp(torch.ne))
+register("less_than", not_differentiable=True)(_cmp(torch.lt))
+register("less_equal", not_differentiable=True)(_cmp(torch.le))
+register("greater_than", not_differentiable=True)(_cmp(torch.gt))
+register("greater_equal", not_differentiable=True)(_cmp(torch.ge))
+register("logical_and", not_differentiable=True)(_cmp(torch.logical_and))
+register("logical_or", not_differentiable=True)(_cmp(torch.logical_or))
+register("logical_xor", not_differentiable=True)(_cmp(torch.logical_xor))
+
+
+@register("logical_not", not_differentiable=True)
+def logical_not(ins, attrs):
+    return as_out(torch.logical_not(first(ins, "X")))

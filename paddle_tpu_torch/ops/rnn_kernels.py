@@ -23,7 +23,9 @@ launches or raises.  All are differentiable through a
 vector-Jacobian product, recomputed from the saved inputs, as the
 reference's ``custom_vjp`` (:1253-1264, :1317-1332) has no backward
 kernel.  Every B and D runs: the TPU arm's D % 128 fallback (:1229,
-:1293) is not ported, by design.
+:1293) is not ported, by design.  K8's step also takes the ``lstm`` op's
+peepholes (``peep``, the [3, D] tail of its Bias), which the reference
+leaves to its composed cell (``rnn_ops._pallas_cell_ok``).
 """
 
 import ctypes
@@ -36,14 +38,23 @@ _SOURCE = "rnn_cells"
 _libs = {}
 
 
-def lstm_cell_reference(gates, c_prev):
+def lstm_cell_reference(gates, c_prev, peep=None):
     """Plain version of K8's cell (``_lstm_cell_composed``, :1208): gates
-    [B, 4D] in (c, i, f, o) order, c_prev [B, D] -> (h, c)."""
+    [B, 4D] in (c, i, f, o) order, c_prev [B, D] -> (h, c).  With `peep`
+    [3D] (w_ic | w_fc | w_oc), the peepholes of the ``lstm`` op's composed
+    cell (``rnn_ops.py``): gi + c_prev * w_ic, gf + c_prev * w_fc, and
+    go + c * w_oc."""
     gc, gi, gf, go = torch.chunk(gates, 4, dim=-1)
+    if peep is not None:
+        w_ic, w_fc, w_oc = peep.reshape(3, -1)
+        gi = gi + c_prev * w_ic
+        gf = gf + c_prev * w_fc
     i = torch.sigmoid(gi)
     f = torch.sigmoid(gf)
-    o = torch.sigmoid(go)
     c = f * c_prev + i * torch.tanh(gc)
+    if peep is not None:
+        go = go + c * w_oc
+    o = torch.sigmoid(go)
     return o * torch.tanh(c), c
 
 
@@ -61,13 +72,13 @@ def valid_mask(lens, step, dtype):
     return (step < lens).to(dtype)[:, None]
 
 
-def lstm_step_reference(xg, h_prev, c_prev, w, lens, step):
+def lstm_step_reference(xg, h_prev, c_prev, w, lens, step, peep=None):
     """Plain version of one LSTM time step (the reference's scan body,
     rnn_ops.py:63-93): the product, the cell, the mask.  xg [B, 4D],
-    h_prev, c_prev [B, D], w [D, 4D], lens [B] -> the carries (h, c) and
-    the emitted (h, c), zero past each row's length."""
+    h_prev, c_prev [B, D], w [D, 4D], lens [B], peep [3D] or None -> the
+    carries (h, c) and the emitted (h, c), zero past each row's length."""
     gates = xg + h_prev @ w
-    h, c = lstm_cell_reference(gates, c_prev)
+    h, c = lstm_cell_reference(gates, c_prev, peep)
     valid = valid_mask(lens, step, xg.dtype)
     h = h * valid + h_prev * (1 - valid)
     c = c * valid + c_prev * (1 - valid)
@@ -109,8 +120,8 @@ def _kernel(name):
         entry = getattr(lib, name)
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         entry.argtypes = {
-            "lstm_step_fwd": [p, ll, p, ll, p, ll, p, ll, p, i, p, p, p, p,
-                              i, i, p],
+            "lstm_step_fwd": [p, ll, p, ll, p, ll, p, ll, p, p, i, p, p, p,
+                              p, i, i, p],
             "gru_step_fwd": [p, ll, p, ll, p, ll, p, ll, p, i, p, p, i, i,
                              i, p],
         }[name]
@@ -176,7 +187,7 @@ def _check(name, **shapes):
                                  for a, (x, _) in shapes.items()))
 
 
-def _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit):
+def _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit, peep=None):
     b, d = c_prev.shape
     outs = [torch.empty((b, d), dtype=torch.float32, device=c_prev.device)
             for _ in range(4 if emit else 2)]
@@ -185,7 +196,8 @@ def _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit):
         _launch("lstm_step_fwd", c_prev.device, xg.data_ptr(), _ld(xg),
                 _ptr(h_prev), 0 if h_prev is None else _ld(h_prev),
                 c_prev.data_ptr(), _ld(c_prev), _ptr(w),
-                0 if w is None else _ld(w), _ptr(lens), step, *ptrs, b, d)
+                0 if w is None else _ld(w), _ptr(peep), _ptr(lens), step,
+                *ptrs, b, d)
         fused_lstm_cell.launches += 1
     return tuple(outs)
 
@@ -204,17 +216,27 @@ def _gru_launch(ur, xc, h_prev, w_c, lens, step, origin_mode, emit):
     return tuple(outs)
 
 
-def lstm_step_fwd(xg, h_prev, c_prev, w, lens, step):
+def lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep=None):
     """K8 on CUDA tensors, its plain version on CPU tensors; not
     differentiable.  xg fp32 [B, 4D] (any row stride: x[:, step] of the
     [B, T, 4D] input), h_prev, c_prev fp32 [B, D], w fp32 [D, 4D], lens
-    int32 [B] -> (h, c, h_emit, c_emit)."""
+    int32 [B], peep fp32 [3D] contiguous or None -> (h, c, h_emit,
+    c_emit)."""
     b, d = c_prev.shape
     _check("lstm_step", xg=(xg, (b, 4 * d)), h_prev=(h_prev, (b, d)),
            c_prev=(c_prev, (b, d)), w=(w, (d, 4 * d)), lens=(lens, (b,)))
+    if peep is not None:
+        _check("lstm_step", peep=(peep, (3 * d,)))
     if not _on_cuda("lstm_step", xg, h_prev, c_prev, w, lens=lens):
-        return lstm_step_reference(xg, h_prev, c_prev, w, lens, step)
-    return _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit=True)
+        return lstm_step_reference(xg, h_prev, c_prev, w, lens, step, peep)
+    if peep is not None and (peep.device != xg.device
+                             or peep.dtype != torch.float32
+                             or not peep.is_contiguous()):
+        raise ValueError(f"lstm_step kernel takes contiguous float32 "
+                         f"peepholes on {xg.device}, not {peep.dtype} on "
+                         f"{peep.device} stride {peep.stride()}")
+    return _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit=True,
+                        peep=peep)
 
 
 def gru_step_fwd(ur_pre, xg_c, h_prev, w_c, lens, step, origin_mode=False):
@@ -278,19 +300,21 @@ class _LstmStep(torch.autograd.Function):
     """K8 forward; the plain step's vjp backward."""
 
     @staticmethod
-    def forward(ctx, xg, h_prev, c_prev, w, lens, step):
-        ctx.save_for_backward(xg, h_prev, c_prev, w, lens)
+    def forward(ctx, xg, h_prev, c_prev, w, lens, step, peep):
+        ctx.save_for_backward(xg, h_prev, c_prev, w, lens, peep)
         ctx.step = step
-        return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step)
+        return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep)
 
     @staticmethod
     def backward(ctx, *cots):
-        xg, h_prev, c_prev, w, lens = ctx.saved_tensors
+        xg, h_prev, c_prev, w, lens, peep = ctx.saved_tensors
         step = ctx.step
+        extra = () if peep is None else (peep,)
         grads = _plain_vjp(
-            lambda a, b, c, d: lstm_step_reference(a, b, c, d, lens, step),
-            (xg, h_prev, c_prev, w), cots, ctx.needs_input_grad[:4])
-        return (*grads, None, None)
+            lambda *a: lstm_step_reference(*a[:4], lens, step, *a[4:]),
+            (xg, h_prev, c_prev, w) + extra, cots,
+            ctx.needs_input_grad[:4] + ctx.needs_input_grad[6:][:len(extra)])
+        return (*grads[:4], None, None, *(grads[4:] or (None,)))
 
 
 class _GruStep(torch.autograd.Function):
@@ -352,15 +376,17 @@ def _needs_grad(*ts):
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def lstm_step(xg, h_prev, c_prev, w, lens, step):
+def lstm_step(xg, h_prev, c_prev, w, lens, step, peep=None):
     """One LSTM time step: gates = xg + h_prev @ w in (c, i, f, o) order,
-    the cell, then the mask step < lens.  xg fp32 [B, 4D], h_prev, c_prev
+    the cell (with the peepholes `peep` [3D], w_ic | w_fc | w_oc, where
+    given), then the mask step < lens.  xg fp32 [B, 4D], h_prev, c_prev
     [B, D], w [D, 4D], lens int32 [B] -> (h, c, h_emit, c_emit): the
     carries (h_prev, c_prev past a row's length) and the emitted pair
-    (zero there); differentiable in xg, h_prev, c_prev and w."""
-    if _needs_grad(xg, h_prev, c_prev, w):
-        return _LstmStep.apply(xg, h_prev, c_prev, w, lens, step)
-    return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step)
+    (zero there); differentiable in xg, h_prev, c_prev, w and peep."""
+    grads = (xg, h_prev, c_prev, w) + (() if peep is None else (peep,))
+    if _needs_grad(*grads):
+        return _LstmStep.apply(xg, h_prev, c_prev, w, lens, step, peep)
+    return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep)
 
 
 def gru_step(ur_pre, xg_c, h_prev, w_c, lens, step, origin_mode=False):

@@ -15,9 +15,10 @@ Python loop over T with the same per-step validity mask: past a row's
 length its memories freeze and its outputs are 0; ``is_reverse`` walks T
 backwards, so a short row's reverse scan holds h0 and c0 over its pad
 positions until its real last token.  Under the default activations
-without peepholes or projection, each LSTM time step is one call of
-``rnn_kernels.lstm_step`` (K8: the step's product, cell and mask in one
-launch on a CUDA tensor), and under the default activations each GRU time
+without a projection, each LSTM time step is one call of
+``rnn_kernels.lstm_step`` (K8: the step's product, cell, peepholes and
+mask in one launch on a CUDA tensor; the reference composes the cell
+when it has peepholes), and under the default activations each GRU time
 step is ``rnn_kernels.gru_gate_pre`` (one ``torch.addmm``) and
 ``rnn_kernels.gru_step`` (K9: the candidate's product, the output gate and
 the mask); on CPU tensors these run their plain versions, the reference's
@@ -40,12 +41,13 @@ _ACT = {
 }
 
 
-def _fused_cell_ok(gate_act, cell_act, cand_act, use_peepholes, proj):
-    """K8 computes the default activation set only; anything else (or
-    peepholes/projection inside the cell) takes the composed cell
-    (the reference's ``_pallas_cell_ok``, :33)."""
-    return not use_peepholes and proj is None and \
-        gate_act == "sigmoid" and cell_act == "tanh" and cand_act == "tanh"
+def _fused_cell_ok(gate_act, cell_act, cand_act, proj):
+    """K8 computes the default activation set only, with or without
+    peepholes; anything else (or a projection) takes the composed cell.
+    The reference's ``_pallas_cell_ok`` (:33) also sends peepholes to the
+    composed cell: K8's step takes them in its epilogue."""
+    return proj is None and gate_act == "sigmoid" and \
+        cell_act == "tanh" and cand_act == "tanh"
 
 
 def _steps(t, is_reverse):
@@ -68,14 +70,17 @@ def _lstm_scan(x, lens, w, bias, h0, c0, gate_act, cell_act, cand_act,
         if h0 is None else h0
     c_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device) \
         if c0 is None else c0
-    fused = _fused_cell_ok(gate_act, cell_act, cand_act, use_peepholes, proj)
+    fused = _fused_cell_ok(gate_act, cell_act, cand_act, proj) and \
+        (bias is not None or not use_peepholes)
 
     hs, cs = [None] * t, [None] * t
     if fused:
         x = x.contiguous()
+        peep = bias.reshape(-1)[4 * d:7 * d].contiguous() \
+            if use_peepholes else None
         for step in _steps(t, is_reverse):
             h_prev, c_prev, hs[step], cs[step] = rnn_kernels.lstm_step(
-                x[:, step], h_prev, c_prev, w, lens, step)
+                x[:, step], h_prev, c_prev, w, lens, step, peep)
         return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
     for step in _steps(t, is_reverse):
         gates = x[:, step] + h_prev @ w                 # [B, 4D]

@@ -1,14 +1,16 @@
 """Tensor manipulation + initialization kernels (port of
 ``paddle_tpu/ops/tensor_ops.py``): the ops the BERT inference and
-training programs and their startup programs emit, and the RNN slice's
-``concat`` and ``fill_constant_batch_size_like``.
+training programs and their startup programs emit, the RNN slice's
+``concat`` and ``fill_constant_batch_size_like``, and the control-flow
+slice's ``expand``, ``where``, ``increment`` and ``stack``.
 
 Reference: ``fill_constant_op.cc``, ``fill_any_like_op.cc``,
 ``fill_constant_batch_size_like_op.cc``, ``assign_op.cc``,
 ``uniform_random_op.cc``, ``gaussian_random_op.cc``,
 ``truncated_gaussian_random_op.cc``, ``assign_value_op.cc``,
 ``reshape_op.cc``, ``transpose_op.cc``, ``cast_op.cc``, ``concat_op.cc``,
-``gather_op.cc``, ``slice_op.cc``.
+``gather_op.cc``, ``slice_op.cc``, ``expand_op.cc``, ``where_op.cc``,
+``increment_op.cc``, ``stack_op.cc``.
 """
 
 import numpy as np
@@ -185,3 +187,35 @@ def slice_op(ins, attrs):
     for a in sorted(attrs.get("decrease_axis", []), reverse=True):
         out = out.squeeze(a)
     return as_out(out)
+
+
+@register("stack")
+def stack(ins, attrs):
+    return {"Y": [torch.stack(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register("expand")
+def expand(ins, attrs):
+    """Tile X by ``expand_times`` (``jnp.tile``: fewer factors than dims
+    leave the leading dims as they are)."""
+    x = first(ins, "X")
+    times = [int(t) for t in attrs["expand_times"]]
+    times = [1] * (x.dim() - len(times)) + times
+    return as_out(x.repeat(*times))
+
+
+@register("where")
+def where(ins, attrs):
+    return as_out(torch.where(first(ins, "Condition"), first(ins, "X"),
+                              first(ins, "Y")))
+
+
+@register("increment")
+def increment(ins, attrs):
+    """X + step in X's dtype: a loop counter stays an integer.  A new
+    tensor every time, even under ``in_place`` (Out named as X): the
+    tensor bound to X may be shared with another name or held by an
+    array."""
+    x = first(ins, "X")
+    step = attrs.get("step", 1.0)
+    return as_out(x + (step if x.is_floating_point() else int(step)))

@@ -37,8 +37,10 @@ def test_import_leaves_jax_and_paddle_tpu_out():
 # tier (K4, K5, fault plans, the fleet router, kv_stream) and the
 # sequence-parallel slice (the mesh, ring attention with K3, gpipe,
 # CompiledProgram) and the dense image slice (conv ops, nets, ResNet, VGG,
-# the zoo, DataFeeder, dataio, PyReader), imported with jax and paddle_tpu
-# made unimportable (a None entry in sys.modules)
+# the zoo, DataFeeder, dataio, PyReader) and the control-flow slice (the
+# tensor-array and IfElse ops, contrib.decoder, host decoding, the book's
+# machine-translation model), imported with jax and paddle_tpu made
+# unimportable (a None entry in sys.modules)
 NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.contrib",
                "paddle_tpu_torch.contrib.mixed_precision",
@@ -95,7 +97,12 @@ NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.models.zoo",
                "paddle_tpu_torch.data_feeder",
                "paddle_tpu_torch.dataio",
-               "paddle_tpu_torch.pyreader")
+               "paddle_tpu_torch.pyreader",
+               "paddle_tpu_torch.ops.array_ops",
+               "paddle_tpu_torch.ops.misc_ops",
+               "paddle_tpu_torch.contrib.decoder",
+               "paddle_tpu_torch.models.decoding",
+               "paddle_tpu_torch.models.machine_translation")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

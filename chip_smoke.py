@@ -271,10 +271,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and ResNet-50 training and of serving, against the uncaptured
    _CompiledBlock(use_graph=False), and the random kernels keyed by the
    device step word against the host key.
+31b. sequence labelling: K8's activation arms (the semantic-role
+   labeller's sigmoid gates, sigmoid cell and relu candidate, and an
+   identity arm) at B 10, D 128 with peepholes against the plain step
+   (outputs and grads, atol 1e-5), timed beside the launch floor, and the
+   lstm op over a T 64 scan in that arm, forward and reverse, against the
+   plain steps; the book's semantic-role labeller at its published sizes
+   (models/label_semantic_roles.py: conll05's dictionaries, hidden 512,
+   depth 8, batch 10, lengths 5-60, the frozen pretrained emb made from
+   the seed): 3 Adam steps card vs CPU from one state (PARITY_RTOL), K8
+   launched twice a padded step a layer, emb unchanged; crf_decoding on
+   one emission tensor on the card and the CPU (equal paths) and the
+   decode program card vs CPU; captured against uncaptured steps bit for
+   bit, compile_count, a step's wall, busy and idle share; the book's
+   recommender at its published sizes (models/recommender_system.py,
+   batch 256): 3 SGD steps card vs CPU and a step's numbers; warpctc at
+   B 32, T 64, C 96 (the loss and the Logits' grad within 1e-5 of the
+   CPU's) and ctc_greedy_decoder (equal ids); top_k over [32, 30000]
+   tie-heavy rows, card and CPU indices equal; the phase's seconds and
+   peak memory.
 32. report: a "kernels" JSON line (K1, K2a, K2b and K10 with bf16_* keys
    at the AMP shapes beside their fp32 main-path numbers; K1 with
-   beam_decode_* and K8 with mt_* keys for the control-flow paths), then
-   the result line {"ok": true, "device": {...}} last.
+   beam_decode_* and K8 with mt_* keys for the control-flow paths; K8
+   with srl_* keys for the semantic-role labeller and the slice's CTC
+   loss as ctc_* keys), then the result line {"ok": true, "device":
+   {...}} last.
 
 Exits non-zero when no CUDA device is visible, and when the port's
 package is not beside this script.
@@ -621,6 +642,29 @@ AMP_PARITY_STEPS = 2
 # the JAX package's bar for a bf16 Predictor against fp32
 # (tests/test_predictor.py::test_predictor_bf16_config)
 AMP_SERVE_RTOL, AMP_SERVE_ATOL = 0.05, 0.02
+# the sequence-labelling slice.  The book's semantic-role labeller at its
+# published sizes (models/label_semantic_roles.py BOOK: conll05's
+# dictionaries, word_dim 32, hidden 512 so LSTM cells of 128, depth 8,
+# batch 10; Adam under exponential_decay) on SEED's synthetic batches,
+# lengths in [5, 60] padded to the batch's bucket; K8 at its step shape
+# (B 10, D 128, peepholes) in the SRL's arm (sigmoid gates, sigmoid cell,
+# relu candidate) and an identity arm against the plain step; decode
+# paths card vs CPU equal, or the CPU's scores of the two paths within
+# SRL_TIE_GAP (relative) of each other.  The recommender at its published
+# sizes (models/recommender_system.py BOOK), batch 256, SGD 0.2.  warpctc
+# and ctc_greedy_decoder at an OCR-like shape: 32 lines of 64 frames over
+# 96 classes, labels of up to 16 (CTC_RTOL: the loss relative, the
+# Logits' grad |k - p| <= CTC_RTOL * (1 + |p|)).  top_k over [32, 30000]
+# rows of four values each
+SRL_B, SRL_LENS, SRL_STEPS, SRL_D = 10, (5, 61), 3, 128
+SRL_ARMS = (("srl_b10_d128_peep", ("sigmoid", "sigmoid", "relu")),
+            ("identity_b10_d128_peep", ("sigmoid", "identity", "identity")))
+SRL_TIE_GAP = 1e-4
+SRL_TIMED_STEPS = 3
+REC_B, REC_STEPS = 256, 3
+CTC_B, CTC_T, CTC_C, CTC_L = 32, 64, 96, 16
+CTC_RTOL = 1e-5
+TIES_SHAPE, TIES_K = (32, 30000), 50
 
 
 # the script's start (main), which each phase's heading counts from
@@ -6236,6 +6280,460 @@ def control_flow_phase(torch, smi, trained):
     return {"mt": a, "beam": b, "rows": rows}
 
 
+def k8_arm_checks(torch, smi):
+    """K8's activation arms at the SRL's step shape (B 10, D 128, the lstm
+    op's peepholes) against the plain step, outputs and grads within
+    RNN_ATOL, timed beside the plain step and the launch floor (no library
+    call takes peepholes or a relu candidate: library_ms is null); then
+    the lstm op over a whole scan at that width (T 64, lengths in SRL_LENS)
+    in the SRL's arm, forward and reverse, against the same op on the
+    plain steps: |kernel - plain| <= RNN_ATOL * (1 + |plain|) over the
+    outputs and the grads of the input, weight, bias and initial state."""
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    b, d = SRL_B, SRL_D
+    floor = launch_floor_ms(torch)
+    rows = {}
+    for name, acts in SRL_ARMS:
+        xg = randn(b, RNN_STEP_T, 4 * d, scale=0.5)[:, RNN_STEP]
+        h, c = torch.tanh(randn(b, d)), randn(b, d, scale=0.5)
+        w, peep = randn(d, 4 * d, scale=0.5 / d ** 0.5), randn(3 * d) / 4
+        lens = torch.randint(0, RNN_STEP_T + 1, (b,), generator=g,
+                             device="cuda", dtype=torch.int32)
+        lens[0], lens[-1] = 0, RNN_STEP_T
+        err = grads_err(
+            torch, lambda *a: rk.lstm_step(*a[:4], lens, RNN_STEP, a[4],
+                                           acts),
+            lambda *a: rk.lstm_step_reference(*a[:4], lens, RNN_STEP, a[4],
+                                              acts),
+            (xg, h, c, w, peep), tuple(randn(b, d) for _ in range(4)))
+        step = lambda: rk.lstm_step(  # noqa: E731
+            xg, h, c, w, lens, RNN_STEP, peep, acts)
+        row = {"max_abs_err": err, "ms": time_ms(torch, step),
+               "plain_ms": time_ms(torch, lambda: rk.lstm_step_reference(
+                   xg, h, c, w, lens, RNN_STEP, peep, acts)),
+               "library_ms": None, "launch_floor_ms": floor,
+               "host_ms": host_ms(torch, step),
+               **lstm_step_bound(b, d, peep=True)}
+        rows[name] = row
+        print(f"[{smi}] lstm_step {name}: acts (gate, cell, candidate) "
+              f"{acts}, "
+              f"step B {b} D {d} with peepholes: max_abs_err {err:.3e} "
+              f"(outputs and grads, atol {RNN_ATOL:g}) kernel "
+              f"{row['ms']:.6f} ms plain {row['plain_ms']:.6f} ms library "
+              f"– (none takes peepholes or these activations) bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}) launch floor "
+              f"{floor:.6f} ms host {row['host_ms']:.6f} ms", flush=True)
+        if not err <= RNN_ATOL:
+            raise SystemExit(f"lstm_step disagrees with its plain version "
+                             f"in the {acts} arm: {err}")
+
+    t = RNN_SCAN_T
+    lens = torch.randint(SRL_LENS[0], SRL_LENS[1], (b,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    acts = SRL_ARMS[0][1]
+    names = ["Input", "Weight", "Bias", "H0", "C0"]
+    tensors = [randn(b, t, 4 * d, scale=0.5), randn(d, 4 * d,
+                                                    scale=d ** -0.5),
+               randn(1, 7 * d, scale=0.1), torch.tanh(randn(b, d)),
+               randn(b, d, scale=0.5)]
+    cots = [randn(b, t, d) for _ in range(2)]
+    for reverse in (False, True):
+        attrs = {"is_reverse": reverse, "use_peepholes": True,
+                 "gate_activation": acts[0], "cell_activation": acts[1],
+                 "candidate_activation": acts[2]}
+
+        def run(plain):
+            leaves = [x.detach().requires_grad_() for x in tensors]
+            ins = dict({n: [x] for n, x in zip(names, leaves)},
+                       SeqLen=[lens])
+            if plain:
+                with plain_rnn_steps(rk):
+                    out = registry.run_op("lstm", ins, dict(attrs))
+            else:
+                out = registry.run_op("lstm", ins, dict(attrs))
+            outs = [out["Hidden"][0], out["Cell"][0]]
+            return outs + list(torch.autograd.grad(outs, leaves, cots))
+
+        got, plain = run(False), run(True)
+        err = max(((a - p).abs() / (1 + p.abs())).max().item()
+                  for a, p in zip(got, plain))
+        print(f"  lstm scan B {b} T {t} D {d} in the SRL's arm, peepholes, "
+              f"reverse {reverse}: max |kernel - plain| / (1 + |plain|) "
+              f"{err:.3e} (outputs and grads, bar {RNN_ATOL:g})",
+              flush=True)
+        if not err <= RNN_ATOL:
+            raise SystemExit(f"the SRL's lstm scan (reverse {reverse}) "
+                             f"departs from the plain scan: {err}")
+    return rows
+
+
+def srl_programs(fluid):
+    """(main, startup, loss, decode, path) of the book's semantic-role
+    labeller at its published sizes, seeds SEED."""
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        loss, _ = srl.train_net(fluid, **srl.BOOK)
+    dec = fluid.Program()
+    with fluid.program_guard(dec, fluid.Program()):
+        path = srl.decode_net(fluid, **srl.BOOK)
+    return main, startup, loss, dec, path
+
+
+def step_numbers(torch, exe, main, loss, feed, scope, warm=2,
+                 timed=SRL_TIMED_STEPS):
+    """A training step's wall (median of `timed` steps, each ended by the
+    fetch's copy to the host, after `warm` warm-up runs, so a capturable
+    program replays its graph), one more step's device busy
+    (device_record), and the idle share of the step wall beside that
+    busy and of the profiled wall (the profiler's own host cost
+    included)."""
+    def run():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    for _ in range(warm):
+        run()
+    walls = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall, busy, _ = device_record(torch, run)
+    step = statistics.median(walls)
+    return {"step_ms": step, "profiled_ms": wall, "busy": busy,
+            "idle": max(0.0, 1.0 - busy / step),
+            "profiled_idle": 1.0 - busy / wall}
+
+
+def path_score(em, trans, path, n):
+    """The CRF score of tag path `path` over the first n steps of the
+    emission em [T, K] under the transition [K + 2, K] (float64)."""
+    em, trans = em.astype(np.float64), trans.astype(np.float64)
+    p = path[:n]
+    return (trans[0, p[0]] + em[np.arange(n), p].sum()
+            + trans[2:][p[:-1], p[1:]].sum() + trans[1, p[-1]])
+
+
+def srl_path(torch, smi):
+    """The book's semantic-role labeller at its published sizes: 3 Adam
+    steps on the card against the CPU from one state (K8 launched twice a
+    padded step a layer: the lstm op and its generic grad's recompute),
+    the frozen emb unchanged; crf_decoding fed the card's emission on the
+    card and on the CPU (equal paths), and the decode program card vs CPU
+    from the card's trained state; captured against uncaptured steps bit
+    for bit, and the step's wall, busy and idle share."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as ex
+    from paddle_tpu_torch.core.lod import bucket_len
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+    from paddle_tpu_torch.ops import registry
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    cfg = srl.BOOK
+    main, startup, loss, dec, path = srl_programs(fluid)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=init)
+    state = host_state(init)
+    emb = srl.pretrained_embedding(SEED, **cfg)
+    state[srl.EMBEDDING_NAME] = emb
+    rng = np.random.default_rng(SEED + 33)
+    feeds = [srl.train_batch(rng, SRL_B, lens=SRL_LENS, **cfg)
+             for _ in range(SRL_STEPS)]
+    dbatch = srl.train_batch(rng, SRL_B, lens=SRL_LENS, **cfg)
+    dfeed = srl.decode_feed(dbatch)
+    pads = [bucket_len(max(len(w) for w in f["word_data"])) for f in feeds]
+    want = sum(2 * cfg["depth"] * t for t in pads)
+
+    losses = {}
+    for place in (fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                          place=place, main_program=main)
+        exe = fluid.Executor(place)
+        on_card = isinstance(place, fluid.CUDAPlace)
+        rk.fused_lstm_cell.launches = 0
+        losses[on_card] = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=scope)[0]) for f in feeds]
+        if on_card:
+            launches = rk.fused_lstm_cell.launches
+            card_exe, card_scope = exe, scope
+    card, cpu = losses[True], losses[False]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    frozen = np.array_equal(card_scope.find_var(
+        srl.EMBEDDING_NAME).cpu().numpy(), emb)
+    print(f"[{smi}] semantic-role labeller (dictionaries "
+          f"{cfg['word_dict_len']}/{cfg['pred_dict_len']}/"
+          f"{cfg['label_dict_len']}, hidden {cfg['hidden_dim']}, depth "
+          f"{cfg['depth']}, batch {SRL_B}, padded T {pads}), {SRL_STEPS} "
+          f"Adam steps: card {card} cpu {cpu} relative differences {rel} "
+          f"(bounds {PARITY_RTOL[1]:g} at step 1, {PARITY_RTOL[3]:g} at "
+          f"step 3); lstm_step launches {launches} (expected {want}: twice "
+          f"a padded step a layer); frozen emb unchanged on the card: "
+          f"{frozen}", flush=True)
+    if not np.isfinite(card + cpu).all() or rel[0] > PARITY_RTOL[1] \
+            or max(rel) > PARITY_RTOL[3]:
+        raise SystemExit(f"semantic-role labeller: the card departs from "
+                         f"the CPU: {rel}")
+    if launches != want or not frozen:
+        raise SystemExit(f"semantic-role labeller: lstm_step launches "
+                         f"{launches} (expected {want}), emb unchanged "
+                         f"{frozen}")
+
+    # crf_decoding on one emission tensor, card and CPU; then the decode
+    # program on each from the card's trained state
+    em_name = next(op.inputs["Emission"][0]
+                   for op in dec.global_block().ops
+                   if op.type == "crf_decoding")
+    card_path, card_em = card_exe.run(dec, feed=dfeed,
+                                      fetch_list=[path, em_name],
+                                      scope=card_scope)
+    trans = card_scope.find_var("crfw")
+    lens = torch.tensor([len(w) for w in dfeed["word_data"]],
+                        dtype=torch.int32)
+    em = torch.from_numpy(np.ascontiguousarray(card_em))
+    on_card = registry.run_op("crf_decoding", {
+        "Emission": [em.cuda()], "Transition": [trans],
+        "SeqLen": [lens.cuda()]}, {})["ViterbiPath"][0].cpu()
+    on_cpu = registry.run_op("crf_decoding", {
+        "Emission": [em], "Transition": [trans.cpu()], "SeqLen": [lens]},
+        {})["ViterbiPath"][0]
+    same_op = torch.equal(on_card, on_cpu)
+    cpu_scope = fluid.io.state_from_numpy(
+        host_state(card_scope), scope=fluid.Scope(), place=fluid.CPUPlace(),
+        main_program=dec)
+    cpu_path, cpu_em = fluid.Executor(fluid.CPUPlace()).run(
+        dec, feed=dfeed, fetch_list=[path, em_name], scope=cpu_scope)
+    trans_np = trans.cpu().numpy()
+    differ, ties = [], []
+    for i, n in enumerate(lens.tolist()):
+        a, b = card_path[i, :n, 0], cpu_path[i, :n, 0]
+        if np.array_equal(a, b):
+            continue
+        differ.append(i)
+        sa = path_score(cpu_em[i], trans_np, a, n)
+        sb = path_score(cpu_em[i], trans_np, b, n)
+        if abs(sa - sb) <= SRL_TIE_GAP * max(1.0, abs(sb)):
+            ties.append(i)
+    pads_zero = all(not card_path[i, n:].any()
+                    for i, n in enumerate(lens.tolist()))
+    print(f"[{smi}] crf_decoding on the card's emission {tuple(em.shape)}: "
+          f"card and CPU paths equal {same_op}; decode program card vs CPU: "
+          f"{len(differ)} of {len(lens)} paths differ, {len(ties)} of them "
+          f"where the CPU's scores of the two paths lie within "
+          f"{SRL_TIE_GAP:g} (relative); zero past every length {pads_zero};"
+          f" card path of sentence 0 {card_path[0, :lens[0], 0].tolist()}",
+          flush=True)
+    if not same_op or len(ties) != len(differ) or not pads_zero:
+        raise SystemExit("crf_decoding: the card departs from the CPU")
+
+    # captured against uncaptured from one state, then the step's numbers
+    cap = ex.capturable(main)
+    print(f"core/executor.capturable admits the training program: {cap}"
+          + ("" if cap else f" (refused by {ex.capture_refusals(main)})"))
+    start = host_state(card_scope)
+    arms = {}
+    for captured in (True, False):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        if not captured:
+            exe._captured = lambda program: False
+        scope = fluid.io.state_from_numpy(start, scope=fluid.Scope(),
+                                          place=fluid.CUDAPlace(0),
+                                          main_program=main)
+        arms[captured] = ([float(exe.run(main, feed=feeds[0],
+                                          fetch_list=[loss],
+                                          scope=scope)[0])
+                           for _ in range(SRL_STEPS)], exe, scope)
+    same = arms[True][0] == arms[False][0]
+    compiles = arms[True][1].compile_count
+    print(f"  {SRL_STEPS} steps of one batch from one state: captured "
+          f"{arms[True][0]} uncaptured {arms[False][0]}, bit for bit "
+          f"{same}; compile_count {compiles}", flush=True)
+    if cap and (not same or compiles != 1):
+        raise SystemExit(f"semantic-role labeller: captured steps depart "
+                         f"from uncaptured ones ({same}) or captured "
+                         f"{compiles} signatures, not 1")
+    _, exe, scope = arms[True]
+    rk.fused_lstm_cell.launches = 0
+    numbers = step_numbers(torch, exe, main, loss, feeds[0], scope)
+    # step_numbers runs the step SRL_TIMED_STEPS + 3 times
+    per_step = rk.fused_lstm_cell.launches // (SRL_TIMED_STEPS + 3)
+    # the uncaptured arm is warm already and host-bound (~2 s a step)
+    _, exe, scope = arms[False]
+    plain = step_numbers(torch, exe, main, loss, feeds[0], scope, warm=0,
+                         timed=1)
+    print(f"[{smi}] semantic-role labeller step (batch {SRL_B}, padded T "
+          f"{pads[0]}): {numbers['step_ms']:.6f} ms "
+          f"({'captured' if cap else 'op by op'}), device busy "
+          f"{numbers['busy']:.6f} ms, idle share {numbers['idle']:.4f} "
+          f"(of a profiled step's {numbers['profiled_ms']:.6f} ms "
+          f"{numbers['profiled_idle']:.4f}); op by op "
+          f"{plain['step_ms']:.6f} ms, busy {plain['busy']:.6f} ms, idle "
+          f"share {plain['idle']:.4f}; lstm_step launches a step "
+          f"{per_step} (expected {2 * cfg['depth'] * pads[0]})",
+          flush=True)
+    if per_step != 2 * cfg["depth"] * pads[0]:
+        raise SystemExit(f"semantic-role labeller: {per_step} lstm_step "
+                         f"launches a timed step")
+    return {"launches": launches, "captured": cap, "compiles": compiles,
+            "decode_differ": len(differ), "decode_ties": len(ties),
+            "plain": plain, **numbers}
+
+
+def recommender_path(torch, smi):
+    """The book's recommender at its published sizes, batch 256: 3 SGD
+    steps on the card against the CPU from one state; its step's wall,
+    busy and idle share."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import recommender_system as rec
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup):
+        loss, _ = rec.train_net(fluid, rec.BOOK_LR, **rec.BOOK)
+    rng = np.random.default_rng(SEED + 34)
+    feeds = [rec.train_batch(rng, REC_B, **rec.BOOK)
+             for _ in range(REC_STEPS)]
+    card_vs_cpu(fluid, main, startup, loss, feeds,
+                f"[{smi}] recommender (users {rec.BOOK['users']}, movies "
+                f"{rec.BOOK['movies']}, towers {rec.BOOK['tower']}), batch "
+                f"{REC_B}, {REC_STEPS} SGD steps")
+    init = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=init)
+    numbers = step_numbers(torch, exe, main, loss, feeds[0], init)
+    print(f"[{smi}] recommender step (batch {REC_B}): "
+          f"{numbers['step_ms']:.6f} ms, device busy "
+          f"{numbers['busy']:.6f} ms, idle share {numbers['idle']:.4f} "
+          f"(of a profiled step's {numbers['profiled_ms']:.6f} ms "
+          f"{numbers['profiled_idle']:.4f}); captured {exe.compile_count} "
+          f"signature(s)", flush=True)
+    return numbers
+
+
+def ctc_path(torch, smi):
+    """warpctc at an OCR-like shape on the card against the CPU on the
+    same logits (the loss and the Logits' grad); the wall of a forward and
+    backward (wall_ms: its ~7,000 small launches outrun the launch queue,
+    so CUDA events would time the host's pace too) and its device busy;
+    the ctc_greedy_decoder program card vs CPU (equal ids)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(SEED + 35)
+    logits = (rng.standard_normal((CTC_B, CTC_T, CTC_C)) * 2
+              ).astype(np.float32)
+    logit_lens = rng.randint(CTC_T // 2, CTC_T + 1, CTC_B).astype(np.int32)
+    label_lens = rng.randint(1, CTC_L + 1, CTC_B).astype(np.int32)
+    labels = rng.randint(1, CTC_C, (CTC_B, CTC_L, 1)).astype(np.int64)
+    cot = rng.standard_normal((CTC_B, 1)).astype(np.float32)
+
+    def run(dev):
+        x = torch.from_numpy(logits).to(dev).requires_grad_()
+        ins = {"Logits": [x], "Label": [torch.from_numpy(labels).to(dev)],
+               "LogitsLen": [torch.from_numpy(logit_lens).to(dev)],
+               "LabelLen": [torch.from_numpy(label_lens).to(dev)]}
+        c = torch.from_numpy(cot).to(dev)
+
+        def fwd_bwd():
+            with torch.enable_grad():
+                loss = registry.run_op("warpctc", ins, {"blank": 0})[
+                    "Loss"][0]
+                return loss, torch.autograd.grad(loss, x, c)[0]
+        return fwd_bwd
+
+    card_fn, cpu_fn = run("cuda"), run("cpu")
+    (lk, gk), (lp, gp) = card_fn(), cpu_fn()
+    lk, gk = lk.detach().cpu(), gk.cpu()
+    loss_rel = ((lk - lp).abs() / lp.abs()).max().item()
+    grad_err = ((gk - gp).abs() / (1 + gp.abs())).max().item()
+    ms = wall_ms(torch, card_fn, reps=3)
+    _, busy, _ = device_record(torch, card_fn)
+    t0 = time.perf_counter()
+    cpu_fn()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.layers.data(name="x", shape=[CTC_C], dtype="float32",
+                              lod_level=1)
+        out = fluid.layers.ctc_greedy_decoder(input=x, blank=0)
+    feed = {"x": [logits[i, :n] for i, n in enumerate(logit_lens)]}
+    card_ids, cpu_ids = (fluid.Executor(place).run(
+        main, feed=feed, fetch_list=[out], scope=fluid.Scope())[0]
+        for place in (fluid.CUDAPlace(0), fluid.CPUPlace()))
+    equal = np.array_equal(card_ids, cpu_ids)
+    print(f"[{smi}] warpctc B {CTC_B} T {CTC_T} C {CTC_C} labels up to "
+          f"{CTC_L}: loss card vs CPU largest relative difference "
+          f"{loss_rel:.3e}, Logits grad max |card - cpu| / (1 + |cpu|) "
+          f"{grad_err:.3e} (bar {CTC_RTOL:g}); forward + backward on the "
+          f"card: wall {ms:.6f} ms, device busy {busy:.6f} ms (the CPU's "
+          f"wall {cpu_ms:.3f} ms); ctc_greedy_decoder ids equal {equal}",
+          flush=True)
+    if not (loss_rel <= CTC_RTOL and grad_err <= CTC_RTOL and equal):
+        raise SystemExit("warpctc or ctc_greedy_decoder: the card departs "
+                         "from the CPU")
+    return {"ms": ms, "busy": busy, "loss_rel": loss_rel,
+            "grad_err": grad_err}
+
+
+def top_k_ties(torch, smi):
+    """top_k on tie-heavy rows on the card and the CPU: the lower index
+    first among equal values on both (the repaired op), where torch.topk
+    promises no order."""
+    from paddle_tpu_torch.ops import registry
+
+    x = torch.from_numpy(np.random.RandomState(SEED + 36).randint(
+        0, 4, TIES_SHAPE).astype(np.float32))
+    card = registry.run_op("top_k", {"X": [x.cuda()]}, {"k": TIES_K})
+    cpu = registry.run_op("top_k", {"X": [x]}, {"k": TIES_K})
+    idx_equal = torch.equal(card["Indices"][0].cpu(), cpu["Indices"][0])
+    val_equal = torch.equal(card["Out"][0].cpu(), cpu["Out"][0])
+    raw = torch.topk(x.cuda(), TIES_K, dim=-1)[1].cpu()
+    ascending = bool((cpu["Indices"][0].diff(dim=-1) > 0).all())
+    print(f"[{smi}] top_k {TIES_SHAPE} k {TIES_K} (four values a row): "
+          f"card and CPU indices equal {idx_equal}, values equal "
+          f"{val_equal}, indices ascending among the ties {ascending}; "
+          f"rows where torch.topk on the card orders them otherwise: "
+          f"{int((raw != cpu['Indices'][0]).any(dim=-1).sum())}",
+          flush=True)
+    if not (idx_equal and val_equal and ascending):
+        raise SystemExit("top_k: the card's tie order departs from the "
+                         "CPU's")
+
+
+def sequence_labelling_phase(torch, smi):
+    """The sequence-labelling slice on the card: K8's activation arms
+    (k8_arm_checks), the semantic-role labeller (srl_path), the
+    recommender (recommender_path), CTC (ctc_path) and top_k's tie order
+    (top_k_ties), with the phase's seconds and peak memory."""
+    phase("sequence labelling: K8's activation arms, the book's "
+          "semantic-role labeller and recommender at their published "
+          "sizes, warpctc and ctc_greedy_decoder, top_k's tie order")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    arms = k8_arm_checks(torch, smi)
+    srl = srl_path(torch, smi)
+    rec = recommender_path(torch, smi)
+    ctc = ctc_path(torch, smi)
+    top_k_ties(torch, smi)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{smi}] sequence labelling phase "
+          f"{time.perf_counter() - t_phase:.3f} s, peak memory "
+          f"{peak / 2**20:.3f} MiB", flush=True)
+    torch.cuda.empty_cache()
+    return {"arms": arms, "srl": srl, "rec": rec, "ctc": ctc, "peak": peak}
+
+
 def main():
     import torch
 
@@ -6288,6 +6786,7 @@ def main():
     amp = amp_training_phase(torch, smi)
     amp_serve = amp_serving_phase(torch, smi, fp32)
     compiled = compiled_step_phase(torch, smi, fp32)
+    seq = sequence_labelling_phase(torch, smi)
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -6339,6 +6838,19 @@ def main():
                         **{f"mt_{key}": mt_row[key] for key in (
                             "ms", "plain_ms", "library_ms", "bound_ms",
                             "bound_by", "max_abs_err")}})
+    # K8 on the semantic-role labeller's path: its step in the SRL's arm
+    # (sigmoid gates, sigmoid cell, relu candidate, peepholes), launched in
+    # the 3 training steps; the slice's CTC loss (no hand kernel: the
+    # warpctc op's torch ops) beside
+    srl_row = seq["arms"][SRL_ARMS[0][0]]
+    kernels[-3].update({"srl_launches": seq["srl"]["launches"],
+                        **{f"srl_{key}": srl_row[key] for key in (
+                            "ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "max_abs_err")},
+                        "ctc_wall_ms": seq["ctc"]["ms"],
+                        "ctc_busy_ms": seq["ctc"]["busy"],
+                        "ctc_loss_rel": seq["ctc"]["loss_rel"],
+                        "ctc_grad_err": seq["ctc"]["grad_err"]})
     # the CTR slice's deep-table lookup on one shard
     kernels.append(dict(KERNELS["gather"], launches=launches["gather"],
                         **gather_rows["deep_n65536_d16_f32"]))
@@ -6423,6 +6935,15 @@ def main():
           f"transformer-base beam decode step {bd['step_ms']:.6f} ms, "
           f"{bd['tokens_s']:.3f} generated tokens/s, flash_attention_fwd "
           f"launches {bd['launches']} over {bd['runs']} runs")
+    sr, rc = seq["srl"], seq["rec"]
+    print(f"[{smi}] sequence labelling: semantic-role labeller step "
+          f"{sr['step_ms']:.6f} ms (idle share {sr['idle']:.4f}, captured "
+          f"{sr['captured']}), lstm_step launches {sr['launches']} over "
+          f"{SRL_STEPS} steps; recommender step {rc['step_ms']:.6f} ms "
+          f"(idle share {rc['idle']:.4f}); warpctc forward + backward "
+          f"wall {seq['ctc']['ms']:.6f} ms (busy {seq['ctc']['busy']:.6f}); "
+          f"phase peak "
+          f"{seq['peak'] / 2**20:.3f} MiB")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -485,8 +485,15 @@ def capturable(program):
       - sparse (``is_sparse``: merging a SelectedRows grad reads its rows
         on the host).
     Those programs run op by op, as every program does on the CPU."""
+    return not capture_refusals(program)
+
+
+def capture_refusals(program):
+    """The types of the ops of `program` for which :func:`capturable`
+    refuses it, sorted (empty: it is captured)."""
     from ..distributed.host_ops import is_host_op
 
+    refused = set()
     for blk in program.blocks:
         for op in blk.ops:
             kinds = [op.type]
@@ -496,13 +503,12 @@ def capturable(program):
                 kinds.append(op.attrs.get("fw_type"))
             elif op.type.endswith("_grad"):
                 kinds.append(op.type[:-5])
-            for t in kinds:
-                if t in _SUB_BLOCK_OPS or t in SELF_CONTAINED_BLOCK_OPS \
-                        or is_host_op(t) or registry.draws_from_generator(t):
-                    return False
-            if op.attrs.get("is_sparse") or fw_attrs.get("is_sparse"):
-                return False
-    return True
+            if any(t in _SUB_BLOCK_OPS or t in SELF_CONTAINED_BLOCK_OPS
+                   or is_host_op(t) or registry.draws_from_generator(t)
+                   for t in kinds) or op.attrs.get("is_sparse") \
+                    or fw_attrs.get("is_sparse"):
+                refused.add(op.type)
+    return sorted(refused)
 
 
 @contextlib.contextmanager

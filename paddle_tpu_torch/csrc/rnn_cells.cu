@@ -17,6 +17,13 @@
 //       c * w_oc before its own, the three weights [3, D] being the tail
 //       of the op's Bias (rnn_ops.py:63-93's composed cell; the TPU
 //       kernel leaves peepholes to that composed cell)
+//       under the `lstm` op's other activations (gate_activation,
+//       cell_activation, candidate_activation, each one of sigmoid,
+//       tanh, relu, identity: rnn_ops.py:25-30's _ACT), the gates take
+//       the gate activation, tanh(gc) the candidate's and tanh(c) the
+//       cell's (the book's semantic-role labeller runs sigmoid gates, a
+//       relu candidate and a sigmoid cell; the TPU kernel leaves every
+//       set but the default to the composed cell)
 //       valid = step < lens[b]: carries valid ? (h, c) : (h_prev, c_prev),
 //       emits valid ? (h, c) : 0
 //
@@ -86,7 +93,11 @@
 // not by bytes.  What the design buys is on the host: one call a time
 // step where the scan made a dozen (0.06 against 0.19-0.29 ms of host
 // time a step).  A persistent kernel over the whole scan would remove
-// the per-step launch too.
+// the per-step launch too.  The semantic-role labeller's step (B 10,
+// D 128, peepholes, relu candidate, sigmoid cell) takes 0.0074 ms, the
+// launch floor's 0.0051 and a chunk's round trip; the activation switch
+// left the default step's time within 1% and its outputs bit for bit
+// (k8_compare.py, same card).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,6 +130,29 @@ __host__ __device__ constexpr int product_floats() {
 
 __device__ __forceinline__ float sigmoid_rn(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+// The lstm op's activations, by the code the C entry takes (2 bits each of
+// its `acts`: gate | cell << 2 | candidate << 4), each as PyTorch computes
+// it: sigmoid as torch.sigmoid, tanhf, relu as torch.relu (NaN passes),
+// identity.  The codes are kernel arguments, the same in every thread, so
+// each switch is a uniform branch: one code path a launch, read where the
+// epilogue needs it.  Templates over the 64 sets would multiply the
+// instantiations (and the SASS to check) for an epilogue of a few dozen
+// instructions beside the product's latency.
+enum Act { kSigmoid = 0, kTanh = 1, kRelu = 2, kIdentity = 3 };
+
+__device__ __forceinline__ float activation(int code, float x) {
+  switch (code) {
+    case kSigmoid:
+      return sigmoid_rn(x);
+    case kTanh:
+      return tanhf(x);
+    case kRelu:
+      return x < 0.0f ? 0.0f : x;
+    default:
+      return x;
+  }
 }
 
 // Rows [m0, m0 + kRows) and columns [k0, k0 + kChunk) of a row-major
@@ -280,8 +314,10 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ lens, int step,
                      float* __restrict__ h_out, float* __restrict__ c_out,
                      float* __restrict__ h_emit, float* __restrict__ c_emit,
-                     int B, int D) {
+                     int B, int D, int acts) {
   constexpr int U = kLstmUnits, NCOL = 4 * U;
+  const int act_gate = acts & 3, act_cell = (acts >> 2) & 3,
+            act_cand = (acts >> 4) & 3;
   __shared__ __align__(16) float smem[product_floats<NCOL, false>()];
   const int n0 = blockIdx.x * U, m0 = blockIdx.y * kRows;
   if (W)
@@ -303,13 +339,14 @@ __global__ void __launch_bounds__(kThreads)
       gate[1] = __fadd_rn(gate[1], __fmul_rn(cp, __ldg(peep + unit)));
       gate[2] = __fadd_rn(gate[2], __fmul_rn(cp, __ldg(peep + D + unit)));
     }
-    const float ig = sigmoid_rn(gate[1]);
-    const float fg = sigmoid_rn(gate[2]);
-    const float c = __fadd_rn(__fmul_rn(fg, cp), __fmul_rn(ig, tanhf(gate[0])));
+    const float ig = activation(act_gate, gate[1]);
+    const float fg = activation(act_gate, gate[2]);
+    const float c = __fadd_rn(__fmul_rn(fg, cp),
+                              __fmul_rn(ig, activation(act_cand, gate[0])));
     if (peep)
       gate[3] = __fadd_rn(gate[3], __fmul_rn(c, __ldg(peep + 2 * D + unit)));
-    const float og = sigmoid_rn(gate[3]);
-    const float h = __fmul_rn(og, tanhf(c));
+    const float og = activation(act_gate, gate[3]);
+    const float h = __fmul_rn(og, activation(act_cell, c));
     const bool valid = lens == nullptr || step < __ldg(lens + row);
     const long long o = (long long)row * D + unit;
     float hc = h, cc = c;
@@ -381,20 +418,23 @@ int grid_for(int B, int D, int units, dim3* grid) {
 // lens int32 [B]; h, c (the carries) and h_emit, c_emit fp32 [B, D] dense.
 // peep null: no peepholes.  W null: no product (xg holds the gates);
 // lens null: no mask, and h_prev may be null when W is too; h_emit null:
-// the emitted pair is not written.  Returns a cudaError_t (0 on success);
-// the launch is asynchronous on `stream`.
+// the emitted pair is not written.  acts: the activations' codes (Act),
+// gate | cell << 2 | candidate << 4; the default set is 0 | 1 << 2 |
+// 1 << 4.  Returns a cudaError_t (0 on success); the launch is
+// asynchronous on `stream`.
 extern "C" int lstm_step_fwd(const void* xg, long long ld_x,
                              const void* h_prev, long long ld_h,
                              const void* c_prev, long long ld_c,
                              const void* W, long long ld_w,
                              const void* peep, const void* lens,
                              int step, void* h, void* c, void* h_emit,
-                             void* c_emit, int B, int D, void* stream) {
+                             void* c_emit, int B, int D, int acts,
+                             void* stream) {
   dim3 grid;
   const int err = grid_for(B, D, kLstmUnits, &grid);
   if (err != cudaSuccess) return err;
   if (!xg || !c_prev || !h || !c || (!h_prev && (W || lens)) ||
-      (!h_emit != !c_emit))
+      (!h_emit != !c_emit) || (acts & ~63))
     return cudaErrorInvalidValue;
   const bool v16 = W && D % 4 == 0 && ld_h % 4 == 0 && ld_w % 4 == 0 &&
                    aligned16(h_prev) && aligned16(W);
@@ -405,7 +445,7 @@ extern "C" int lstm_step_fwd(const void* xg, long long ld_x,
       static_cast<const float*>(W), ld_w, static_cast<const float*>(peep),
       static_cast<const int*>(lens), step, static_cast<float*>(h),
       static_cast<float*>(c),
-      static_cast<float*>(h_emit), static_cast<float*>(c_emit), B, D);
+      static_cast<float*>(h_emit), static_cast<float*>(c_emit), B, D, acts);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """fluid.layers parity namespace (the layers the port has copied)."""
 
-from . import (control_flow, io, nn, nn_extra, ops, rnn,  # noqa: F401
-               sequence, tensor)
+from . import (control_flow, io, learning_rate_scheduler,  # noqa: F401
+               nn, nn_extra, ops, rnn, sequence, tensor)
 from .io import data, py_reader, read_file             # noqa: F401
 from .nn import *          # noqa: F401,F403
 from .nn_extra import *    # noqa: F401,F403
@@ -23,3 +23,7 @@ from .control_flow import (While, Switch, DynamicRNN,  # noqa: F401
                            max_sequence_len, lod_tensor_to_array,
                            array_to_lod_tensor,
                            reorder_lod_tensor_by_rank)
+from .learning_rate_scheduler import (  # noqa: F401
+    exponential_decay, natural_exp_decay, inverse_time_decay,
+    polynomial_decay, piecewise_decay, noam_decay, cosine_decay,
+    linear_lr_warmup)

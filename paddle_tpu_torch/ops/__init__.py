@@ -13,3 +13,6 @@ from . import sampling_kernels  # noqa: F401
 from . import pipeline_ops  # noqa: F401
 from . import array_ops     # noqa: F401
 from . import misc_ops      # noqa: F401
+from . import crf_ops       # noqa: F401
+from . import ctc_ops       # noqa: F401
+from . import loss_ops      # noqa: F401

@@ -280,11 +280,18 @@ def batch_norm_vjp(ins, attrs):
 @register("top_k", not_differentiable=True)
 def top_k(ins, attrs):
     """The k largest along the last axis, in descending order, and their
-    indices (the IR's int64; the JAX package returns int32)."""
-    vals, idx = torch.topk(first(ins, "X"), attrs.get("k", 1), dim=-1)
-    return {"Out": [vals], "Indices": [idx]}
+    indices (the IR's int64; the JAX package returns int32).  Among equal
+    values the lower index comes first, as ``lax.top_k`` orders them:
+    a stable descending sort cut to k, on every device (``torch.topk``
+    promises no order among ties, and its CPU and CUDA orders differ)."""
+    k = attrs.get("k", 1)
+    vals, idx = torch.sort(first(ins, "X"), dim=-1, descending=True,
+                           stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
 
 
+# torch.argmax and torch.argmin return the first extreme along the axis on
+# the CPU and on CUDA, as jnp.argmax and jnp.argmin do
 @register("arg_max", not_differentiable=True)
 def arg_max(ins, attrs):
     return as_out(torch.argmax(first(ins, "X"), dim=attrs.get("axis", -1)))

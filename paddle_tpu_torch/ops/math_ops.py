@@ -2,8 +2,10 @@
 elementwise ops with fluid's ``axis`` broadcast and the custom
 ``elementwise_add`` grad, mul/matmul, sum, the activations and reductions
 on the BERT serving and training paths and the RNN slice (``sigmoid``,
-the length-masked ``mean`` of a lod input), ``log``, and the
-comparison and logical ops of the control-flow slice (bool outputs).
+the length-masked ``mean`` of a lod input), ``log``, the comparison
+and logical ops of the control-flow slice (bool outputs), and ``exp``,
+``floor``, ``ceil``, ``cos`` and ``pow``, the learning-rate schedules'
+chain.
 
 Reference op semantics: ``paddle/fluid/operators/elementwise/``,
 ``mul_op.cc``, ``matmul_op.cc``, ``activation_op.cc``, ``scale_op.cc``,
@@ -149,6 +151,17 @@ register("sigmoid")(_unary(torch.sigmoid))
 register("tanh")(_unary(torch.tanh))
 register("square")(_unary(torch.square))
 register("log")(_unary(torch.log))
+# the learning-rate schedules' ops (layers/learning_rate_scheduler.py)
+register("exp")(_unary(torch.exp))
+register("floor")(_unary(torch.floor))
+register("ceil")(_unary(torch.ceil))
+register("cos")(_unary(torch.cos))
+
+
+@register("pow")
+def pow_op(ins, attrs):
+    return as_out(torch.pow(first(ins, "X"), attrs.get("factor", 1.0)))
+
 # exact erf form, as jax.nn.gelu(approximate=False) in the reference
 register("gelu")(_unary(
     lambda x: torch.nn.functional.gelu(x, approximate="none")))

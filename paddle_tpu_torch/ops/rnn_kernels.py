@@ -24,8 +24,10 @@ vector-Jacobian product, recomputed from the saved inputs, as the
 reference's ``custom_vjp`` (:1253-1264, :1317-1332) has no backward
 kernel.  Every B and D runs: the TPU arm's D % 128 fallback (:1229,
 :1293) is not ported, by design.  K8's step also takes the ``lstm`` op's
-peepholes (``peep``, the [3, D] tail of its Bias), which the reference
-leaves to its composed cell (``rnn_ops._pallas_cell_ok``).
+peepholes (``peep``, the [3, D] tail of its Bias) and every activation
+set of the op (``acts``: gate, cell and candidate activations, each one of
+:data:`ACTIVATIONS`), which the reference leaves to its composed cell
+(``rnn_ops._pallas_cell_ok``).
 """
 
 import ctypes
@@ -37,25 +39,51 @@ from . import cuda_build
 _SOURCE = "rnn_cells"
 _libs = {}
 
+# the ``lstm`` op's activations (the reference's rnn_ops.py:25-30 _ACT), in
+# the order of the kernel's codes (csrc/rnn_cells.cu, Act)
+ACTIVATIONS = {
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "identity": lambda x: x,
+}
+# (gate, cell, candidate) activations: the op's defaults
+DEFAULT_ACTS = ("sigmoid", "tanh", "tanh")
 
-def lstm_cell_reference(gates, c_prev, peep=None):
+
+def act_code(acts):
+    """The kernel's code of an activation set (gate, cell, candidate):
+    2 bits each, gate | cell << 2 | candidate << 4.  Raises KeyError for
+    a name outside :data:`ACTIVATIONS`, as the composed cell does."""
+    names = list(ACTIVATIONS)
+    code = 0
+    for shift, name in zip((0, 2, 4), acts):
+        if name not in ACTIVATIONS:
+            raise KeyError(f"LSTM activation {name!r} is not one of "
+                           f"{names}")
+        code |= names.index(name) << shift
+    return code
+
+
+def lstm_cell_reference(gates, c_prev, peep=None, acts=DEFAULT_ACTS):
     """Plain version of K8's cell (``_lstm_cell_composed``, :1208): gates
     [B, 4D] in (c, i, f, o) order, c_prev [B, D] -> (h, c).  With `peep`
     [3D] (w_ic | w_fc | w_oc), the peepholes of the ``lstm`` op's composed
     cell (``rnn_ops.py``): gi + c_prev * w_ic, gf + c_prev * w_fc, and
-    go + c * w_oc."""
+    go + c * w_oc.  `acts`: the (gate, cell, candidate) activations."""
+    gate_act, cell_act, cand_act = (ACTIVATIONS[a] for a in acts)
     gc, gi, gf, go = torch.chunk(gates, 4, dim=-1)
     if peep is not None:
         w_ic, w_fc, w_oc = peep.reshape(3, -1)
         gi = gi + c_prev * w_ic
         gf = gf + c_prev * w_fc
-    i = torch.sigmoid(gi)
-    f = torch.sigmoid(gf)
-    c = f * c_prev + i * torch.tanh(gc)
+    i = gate_act(gi)
+    f = gate_act(gf)
+    c = f * c_prev + i * cand_act(gc)
     if peep is not None:
         go = go + c * w_oc
-    o = torch.sigmoid(go)
-    return o * torch.tanh(c), c
+    o = gate_act(go)
+    return o * cell_act(c), c
 
 
 def gru_output_reference(gu, gc, h_prev, origin_mode=False):
@@ -72,13 +100,15 @@ def valid_mask(lens, step, dtype):
     return (step < lens).to(dtype)[:, None]
 
 
-def lstm_step_reference(xg, h_prev, c_prev, w, lens, step, peep=None):
+def lstm_step_reference(xg, h_prev, c_prev, w, lens, step, peep=None,
+                        acts=DEFAULT_ACTS):
     """Plain version of one LSTM time step (the reference's scan body,
     rnn_ops.py:63-93): the product, the cell, the mask.  xg [B, 4D],
-    h_prev, c_prev [B, D], w [D, 4D], lens [B], peep [3D] or None -> the
-    carries (h, c) and the emitted (h, c), zero past each row's length."""
+    h_prev, c_prev [B, D], w [D, 4D], lens [B], peep [3D] or None, acts
+    the (gate, cell, candidate) activations -> the carries (h, c) and the
+    emitted (h, c), zero past each row's length."""
     gates = xg + h_prev @ w
-    h, c = lstm_cell_reference(gates, c_prev, peep)
+    h, c = lstm_cell_reference(gates, c_prev, peep, acts)
     valid = valid_mask(lens, step, xg.dtype)
     h = h * valid + h_prev * (1 - valid)
     c = c * valid + c_prev * (1 - valid)
@@ -121,7 +151,7 @@ def _kernel(name):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         entry.argtypes = {
             "lstm_step_fwd": [p, ll, p, ll, p, ll, p, ll, p, p, i, p, p, p,
-                              p, i, i, p],
+                              p, i, i, i, p],
             "gru_step_fwd": [p, ll, p, ll, p, ll, p, ll, p, i, p, p, i, i,
                              i, p],
         }[name]
@@ -187,7 +217,8 @@ def _check(name, **shapes):
                                  for a, (x, _) in shapes.items()))
 
 
-def _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit, peep=None):
+def _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit, peep=None,
+                 acts=DEFAULT_ACTS):
     b, d = c_prev.shape
     outs = [torch.empty((b, d), dtype=torch.float32, device=c_prev.device)
             for _ in range(4 if emit else 2)]
@@ -197,7 +228,7 @@ def _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit, peep=None):
                 _ptr(h_prev), 0 if h_prev is None else _ld(h_prev),
                 c_prev.data_ptr(), _ld(c_prev), _ptr(w),
                 0 if w is None else _ld(w), _ptr(peep), _ptr(lens), step,
-                *ptrs, b, d)
+                *ptrs, b, d, act_code(acts))
         fused_lstm_cell.launches += 1
     return tuple(outs)
 
@@ -216,19 +247,21 @@ def _gru_launch(ur, xc, h_prev, w_c, lens, step, origin_mode, emit):
     return tuple(outs)
 
 
-def lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep=None):
+def lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep=None,
+                  acts=DEFAULT_ACTS):
     """K8 on CUDA tensors, its plain version on CPU tensors; not
     differentiable.  xg fp32 [B, 4D] (any row stride: x[:, step] of the
     [B, T, 4D] input), h_prev, c_prev fp32 [B, D], w fp32 [D, 4D], lens
-    int32 [B], peep fp32 [3D] contiguous or None -> (h, c, h_emit,
-    c_emit)."""
+    int32 [B], peep fp32 [3D] contiguous or None, acts the (gate, cell,
+    candidate) activations -> (h, c, h_emit, c_emit)."""
     b, d = c_prev.shape
     _check("lstm_step", xg=(xg, (b, 4 * d)), h_prev=(h_prev, (b, d)),
            c_prev=(c_prev, (b, d)), w=(w, (d, 4 * d)), lens=(lens, (b,)))
     if peep is not None:
         _check("lstm_step", peep=(peep, (3 * d,)))
     if not _on_cuda("lstm_step", xg, h_prev, c_prev, w, lens=lens):
-        return lstm_step_reference(xg, h_prev, c_prev, w, lens, step, peep)
+        return lstm_step_reference(xg, h_prev, c_prev, w, lens, step, peep,
+                                   acts)
     if peep is not None and (peep.device != xg.device
                              or peep.dtype != torch.float32
                              or not peep.is_contiguous()):
@@ -236,7 +269,7 @@ def lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep=None):
                          f"peepholes on {xg.device}, not {peep.dtype} on "
                          f"{peep.device} stride {peep.stride()}")
     return _lstm_launch(xg, h_prev, c_prev, w, lens, step, emit=True,
-                        peep=peep)
+                        peep=peep, acts=acts)
 
 
 def gru_step_fwd(ur_pre, xg_c, h_prev, w_c, lens, step, origin_mode=False):
@@ -300,21 +333,22 @@ class _LstmStep(torch.autograd.Function):
     """K8 forward; the plain step's vjp backward."""
 
     @staticmethod
-    def forward(ctx, xg, h_prev, c_prev, w, lens, step, peep):
+    def forward(ctx, xg, h_prev, c_prev, w, lens, step, peep, acts):
         ctx.save_for_backward(xg, h_prev, c_prev, w, lens, peep)
-        ctx.step = step
-        return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep)
+        ctx.step, ctx.acts = step, acts
+        return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep, acts)
 
     @staticmethod
     def backward(ctx, *cots):
         xg, h_prev, c_prev, w, lens, peep = ctx.saved_tensors
-        step = ctx.step
+        step, acts = ctx.step, ctx.acts
         extra = () if peep is None else (peep,)
         grads = _plain_vjp(
-            lambda *a: lstm_step_reference(*a[:4], lens, step, *a[4:]),
+            lambda *a: lstm_step_reference(*a[:4], lens, step,
+                                           *(a[4:] or (None,)), acts),
             (xg, h_prev, c_prev, w) + extra, cots,
-            ctx.needs_input_grad[:4] + ctx.needs_input_grad[6:][:len(extra)])
-        return (*grads[:4], None, None, *(grads[4:] or (None,)))
+            ctx.needs_input_grad[:4] + ctx.needs_input_grad[6:7][:len(extra)])
+        return (*grads[:4], None, None, *(grads[4:] or (None,)), None)
 
 
 class _GruStep(torch.autograd.Function):
@@ -376,17 +410,20 @@ def _needs_grad(*ts):
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def lstm_step(xg, h_prev, c_prev, w, lens, step, peep=None):
+def lstm_step(xg, h_prev, c_prev, w, lens, step, peep=None,
+              acts=DEFAULT_ACTS):
     """One LSTM time step: gates = xg + h_prev @ w in (c, i, f, o) order,
     the cell (with the peepholes `peep` [3D], w_ic | w_fc | w_oc, where
-    given), then the mask step < lens.  xg fp32 [B, 4D], h_prev, c_prev
-    [B, D], w [D, 4D], lens int32 [B] -> (h, c, h_emit, c_emit): the
-    carries (h_prev, c_prev past a row's length) and the emitted pair
-    (zero there); differentiable in xg, h_prev, c_prev, w and peep."""
+    given, and the (gate, cell, candidate) activations `acts`), then the
+    mask step < lens.  xg fp32 [B, 4D], h_prev, c_prev [B, D], w [D, 4D],
+    lens int32 [B] -> (h, c, h_emit, c_emit): the carries (h_prev, c_prev
+    past a row's length) and the emitted pair (zero there);
+    differentiable in xg, h_prev, c_prev, w and peep."""
     grads = (xg, h_prev, c_prev, w) + (() if peep is None else (peep,))
     if _needs_grad(*grads):
-        return _LstmStep.apply(xg, h_prev, c_prev, w, lens, step, peep)
-    return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep)
+        return _LstmStep.apply(xg, h_prev, c_prev, w, lens, step, peep,
+                               acts)
+    return lstm_step_fwd(xg, h_prev, c_prev, w, lens, step, peep, acts)
 
 
 def gru_step(ur_pre, xg_c, h_prev, w_c, lens, step, origin_mode=False):

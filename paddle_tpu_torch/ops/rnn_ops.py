@@ -14,11 +14,12 @@ Where the reference scans with ``lax.scan``, the recurrence here is a
 Python loop over T with the same per-step validity mask: past a row's
 length its memories freeze and its outputs are 0; ``is_reverse`` walks T
 backwards, so a short row's reverse scan holds h0 and c0 over its pad
-positions until its real last token.  Under the default activations
-without a projection, each LSTM time step is one call of
-``rnn_kernels.lstm_step`` (K8: the step's product, cell, peepholes and
-mask in one launch on a CUDA tensor; the reference composes the cell
-when it has peepholes), and under the default activations each GRU time
+positions until its real last token.  Without a projection, each LSTM
+time step is one call of ``rnn_kernels.lstm_step`` (K8: the step's
+product, cell, peepholes and mask in one launch on a CUDA tensor, under
+any of the op's activation sets; the reference composes the cell when it
+has peepholes or other activations), and under the default activations
+each GRU time
 step is ``rnn_kernels.gru_gate_pre`` (one ``torch.addmm``) and
 ``rnn_kernels.gru_step`` (K9: the candidate's product, the output gate and
 the mask); on CPU tensors these run their plain versions, the reference's
@@ -33,21 +34,7 @@ import torch
 from . import rnn_kernels
 from .registry import register, first
 
-_ACT = {
-    "sigmoid": torch.sigmoid,
-    "tanh": torch.tanh,
-    "relu": torch.relu,
-    "identity": lambda x: x,
-}
-
-
-def _fused_cell_ok(gate_act, cell_act, cand_act, proj):
-    """K8 computes the default activation set only, with or without
-    peepholes; anything else (or a projection) takes the composed cell.
-    The reference's ``_pallas_cell_ok`` (:33) also sends peepholes to the
-    composed cell: K8's step takes them in its epilogue."""
-    return proj is None and gate_act == "sigmoid" and \
-        cell_act == "tanh" and cand_act == "tanh"
+_ACT = rnn_kernels.ACTIVATIONS
 
 
 def _steps(t, is_reverse):
@@ -70,17 +57,21 @@ def _lstm_scan(x, lens, w, bias, h0, c0, gate_act, cell_act, cand_act,
         if h0 is None else h0
     c_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device) \
         if c0 is None else c0
-    fused = _fused_cell_ok(gate_act, cell_act, cand_act, proj) and \
-        (bias is not None or not use_peepholes)
+    # K8 takes every activation set of the op, with or without peepholes;
+    # only a projection (lstmp) takes the composed cell.  The reference's
+    # _pallas_cell_ok (:33) also sends peepholes and every set but the
+    # default to the composed cell
+    fused = proj is None and (bias is not None or not use_peepholes)
 
     hs, cs = [None] * t, [None] * t
     if fused:
         x = x.contiguous()
         peep = bias.reshape(-1)[4 * d:7 * d].contiguous() \
             if use_peepholes else None
+        acts = (gate_act, cell_act, cand_act)
         for step in _steps(t, is_reverse):
             h_prev, c_prev, hs[step], cs[step] = rnn_kernels.lstm_step(
-                x[:, step], h_prev, c_prev, w, lens, step, peep)
+                x[:, step], h_prev, c_prev, w, lens, step, peep, acts)
         return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
     for step in _steps(t, is_reverse):
         gates = x[:, step] + h_prev @ w                 # [B, 4D]

@@ -39,8 +39,10 @@ def test_import_leaves_jax_and_paddle_tpu_out():
 # CompiledProgram) and the dense image slice (conv ops, nets, ResNet, VGG,
 # the zoo, DataFeeder, dataio, PyReader) and the control-flow slice (the
 # tensor-array and IfElse ops, contrib.decoder, host decoding, the book's
-# machine-translation model), imported with jax and paddle_tpu made
-# unimportable (a None entry in sys.modules)
+# machine-translation model) and the sequence-labelling slice (the CRF,
+# CTC and cos_sim ops, the learning-rate schedules, the book's
+# semantic-role labeller and recommender), imported with jax and
+# paddle_tpu made unimportable (a None entry in sys.modules)
 NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.contrib",
                "paddle_tpu_torch.contrib.mixed_precision",
@@ -102,7 +104,13 @@ NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.ops.misc_ops",
                "paddle_tpu_torch.contrib.decoder",
                "paddle_tpu_torch.models.decoding",
-               "paddle_tpu_torch.models.machine_translation")
+               "paddle_tpu_torch.models.machine_translation",
+               "paddle_tpu_torch.ops.crf_ops",
+               "paddle_tpu_torch.ops.ctc_ops",
+               "paddle_tpu_torch.ops.loss_ops",
+               "paddle_tpu_torch.layers.learning_rate_scheduler",
+               "paddle_tpu_torch.models.label_semantic_roles",
+               "paddle_tpu_torch.models.recommender_system")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -290,8 +290,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    CPU's) and ctc_greedy_decoder (equal ids); top_k over [32, 30000]
    tie-heavy rows, card and CPU indices equal; the phase's seconds and
    peak memory.
+31c. front end: BERT-base pretraining (12 layers, batch 32, seq 128,
+   dropout 0.1 through K10, Adam 1e-4) under LARK/BERT's
+   GradientClipByGlobalNorm(1.0): one op-by-op step fetching the global
+   norm and every grad before and after the clip (the norm within 1e-5
+   of torch.linalg.vector_norm over the grads, each clipped grad within
+   1e-6 of grad / max(norm, 1)), then captured against the uncaptured
+   block from one state (losses bit for bit, K1/K2a/K2b/K10 launched 24,
+   12, 12, 74 a step); ResNet-50 fp32 at batch 128 under
+   LarsMomentum(0.1, 0.9) captured against uncaptured; the step ms, idle
+   share and peak of each beside the unclipped BERT-base and Momentum
+   ResNet-50 of 31a; then the op sweep: each of the 85 op types this
+   slice ported (the 77 the front end emitted without a kernel, the 8
+   optimizer ops) on the card and the CPU from the same seeded inputs at
+   a model's shape, its outputs and generic grad within its bar.
 32. report: a "kernels" JSON line (K1, K2a, K2b and K10 with bf16_* keys
-   at the AMP shapes beside their fp32 main-path numbers; K1 with
+   at the AMP shapes beside their fp32 main-path numbers, and the
+   clipped BERT-base step's launches as clip_bert_launches; K1 with
    beam_decode_* and K8 with mt_* keys for the control-flow paths; K8
    with srl_* keys for the semantic-role labeller and the slice's CTC
    loss as ctc_* keys), then the result line {"ok": true, "device":
@@ -1845,9 +1860,10 @@ def profile_run(torch, run, label, smi):
     return {"wall": prof_wall, "busy": busy, "rows": rows, "calls": calls}
 
 
-def pretrain_program(fluid, num_layers, dropout):
+def pretrain_program(fluid, num_layers, dropout, clip=None):
     """BERT-base-width pretraining (MLM + NSP heads) with Adam(1e-4):
-    (main, startup, loss), random seeds fixed to SEED."""
+    (main, startup, loss), random seeds fixed to SEED; with `clip`, the
+    gradient clip set (fluid.clip.set_gradient_clip) for its minimize."""
     from paddle_tpu_torch.models.bert import BertConfig, bert_pretrain
 
     cfg = BertConfig(num_layers=num_layers, dropout=dropout, **BERT_BASE)
@@ -1855,7 +1871,11 @@ def pretrain_program(fluid, num_layers, dropout):
     main.random_seed = startup.random_seed = SEED
     with fluid.program_guard(main, startup):
         loss, _ = bert_pretrain(cfg, TRAIN_T)
-        fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+        fluid.clip.set_gradient_clip(clip)
+        try:
+            fluid.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+        finally:
+            fluid.clip.set_gradient_clip(None)
     return main, startup, loss
 
 
@@ -4578,11 +4598,12 @@ def lenet_phase(torch, smi):
             "busy": prof["busy"], "wall": prof["wall"]}
 
 
-def resnet50_program(fluid, is_test=False):
+def resnet50_program(fluid, is_test=False, optimizer=None):
     """bench.py::bench_resnet50's program at amp=False (its reader and
-    read_file, resnet_imagenet depth 50, Momentum 0.001/0.9), seeds fixed
-    to SEED; with `is_test`, __graft_entry__.entry's forward.  Names are
-    fresh, so the two programs' parameters share theirs."""
+    read_file, resnet_imagenet depth 50, Momentum 0.001/0.9, or
+    `optimizer`(fluid) where given), seeds fixed to SEED; with `is_test`,
+    __graft_entry__.entry's forward.  Names are fresh, so the two
+    programs' parameters share theirs."""
     from paddle_tpu_torch.models import resnet
 
     main, startup = fluid.Program(), fluid.Program()
@@ -4601,8 +4622,9 @@ def resnet50_program(fluid, is_test=False):
         pred = resnet.resnet_imagenet(img, class_dim=1000, depth=50)
         loss = fluid.layers.mean(
             fluid.layers.cross_entropy(input=pred, label=label))
-        fluid.optimizer.Momentum(learning_rate=0.001, momentum=0.9) \
-            .minimize(loss)
+        opt = fluid.optimizer.Momentum(learning_rate=0.001, momentum=0.9) \
+            if optimizer is None else optimizer(fluid)
+        opt.minimize(loss)
     return main, startup, loss, reader
 
 
@@ -6734,6 +6756,534 @@ def sequence_labelling_phase(torch, smi):
     return {"arms": arms, "srl": srl, "rec": rec, "ctc": ctc, "peak": peak}
 
 
+# ---------------------------------------------------------------------------
+# The front end's ops: BERT-base under global-norm clipping, ResNet-50
+# under LARS, and every op the front end builds, card against CPU
+# ---------------------------------------------------------------------------
+
+# the clipped BERT-base step: the program's global norm against
+# torch.linalg.vector_norm over its unclipped grads, and each clipped
+# grad against the unclipped one times 1 / max(norm, 1), both relative
+CLIP_NORM_RTOL = 1e-5
+CLIP_GRAD_RTOL = 1e-6
+# steps of each captured path: one op by op, one captured, two replays
+FRONT_END_STEPS = 4
+# the op sweep's bars: the worst |card − CPU| of a floating output or
+# generic grad over the CPU's largest magnitude, "ew" for elementwise
+# and gather ops, "red" where a reduction, a convolution or a contraction
+# sums in another order on each device; integer, bool and index outputs,
+# and a random op's draws, equal
+SWEEP_TOL = {"ew": 1e-6, "red": 1e-4}
+# the sweep's op types: the 77 the front end emitted without a kernel
+# before this slice, and the 8 optimizer ops
+SWEEP_OPS = 85
+
+
+def _sweep_f32(rng, *shape, scale=1.0, shift=0.0):
+    """A float32 normal draw of `shape` from a torch generator seeded by
+    `rng` (numpy's normal draws run at a tenth of torch's)."""
+    import torch
+
+    g = torch.Generator().manual_seed(int(rng.randint(2**31)))
+    return (torch.randn(shape, generator=g) * scale + shift).numpy()
+
+
+def _random_tree_edges(rng, b, n):
+    """[b, n - 1, 2] 1-based edges of a random tree over n nodes a row
+    (each node's parent drawn among the nodes before it)."""
+    edges = np.zeros((b, n - 1, 2), np.int32)
+    for i in range(b):
+        for v in range(2, n + 1):
+            edges[i, v - 2] = (rng.randint(1, v), v)
+    return edges
+
+
+def sweep_cases():
+    """The op sweep: (op type, inputs maker(rng), attrs, tolerance) of
+    every op type this slice ported, at a shape a model gives it: the
+    elementwise ops at 2^20 elements, the losses at a batch's rows, the
+    vision ops at ResNet-50's and C3D's planes, hsigmoid over 10^4
+    classes at D 512."""
+    f, M = _sweep_f32, (1024, 1024)
+
+    def pos(r, *s):
+        return np.abs(f(r, *s)) + 0.1
+
+    def labels01(r, n):
+        return r.randint(0, 2, (n, 1)).astype(np.float32)
+
+    def unary(op, scale=1.0, attrs=None, maker=None, tol="ew"):
+        return (op, lambda r: {"X": [maker(r) if maker else
+                                     f(r, *M, scale=scale)]},
+                attrs or {}, tol)
+
+    def tags(r):
+        return r.randint(0, 19, (64, 128)).astype(np.int64)
+
+    b4 = 4096
+    return [
+        # math_ops (24)
+        unary("sqrt", maker=lambda r: pos(r, *M)),
+        unary("rsqrt", maker=lambda r: pos(r, *M)),
+        unary("abs"), unary("round", 3.0),
+        unary("reciprocal", maker=lambda r: pos(r, *M)),
+        unary("softsign"), unary("softplus", 5.0), unary("sin", 3.0),
+        unary("erf"), unary("logsigmoid", 4.0),
+        unary("leaky_relu", attrs={"alpha": 0.1}),
+        unary("elu", 2.0, {"alpha": 1.0}),
+        unary("relu6", 4.0, {"threshold": 6.0}),
+        unary("hard_sigmoid", 3.0), unary("swish", 3.0, {"beta": 1.0}),
+        unary("clip", attrs={"min": -0.5, "max": 0.5}),
+        unary("clip_by_norm", attrs={"max_norm": 1.0}, tol="red"),
+        unary("reduce_max", attrs={"dim": [1]}),
+        unary("reduce_min", attrs={"dim": [0], "keep_dim": True}),
+        unary("reduce_prod", attrs={"dim": [1]}, tol="red",
+              maker=lambda r: f(r, *M, scale=0.01, shift=1.0)),
+        unary("squared_l2_norm", tol="red"),
+        unary("isfinite"),
+        ("elementwise_mod", lambda r: {"X": [f(r, *M, scale=8.0)],
+                                       "Y": [pos(r, *M) * 2.0]}, {}, "ew"),
+        ("elementwise_floordiv", lambda r: {"X": [f(r, *M, scale=8.0)],
+                                            "Y": [pos(r, *M) * 2.0]},
+         {}, "ew"),
+        # tensor_ops (14)
+        unary("fill_zeros_like"),
+        ("squeeze", lambda r: {"X": [f(r, 1024, 1, 1024)]},
+         {"axes": [1]}, "ew"),
+        ("unsqueeze", lambda r: {"X": [f(r, *M)]}, {"axes": [0, 2]}, "ew"),
+        ("flatten", lambda r: {"X": [f(r, 32, 128, 768)]}, {"axis": 2},
+         "ew"),
+        ("scatter", lambda r: {"X": [f(r, 8192, 768)],
+                               "Ids": [r.permutation(8192)[:4096]
+                                       .astype(np.int64)],
+                               "Updates": [f(r, 4096, 768)]},
+         {"overwrite": True}, "ew"),
+        ("range", lambda r: {"Start": [np.array([0.0], np.float32)],
+                             "End": [np.array([2.0**20], np.float32)],
+                             "Step": [np.array([1.0], np.float32)]},
+         {}, "ew"),
+        ("shape", lambda r: {"Input": [f(r, 32, 128, 768)]}, {}, "ew"),
+        ("reverse", lambda r: {"X": [f(r, 32, 128, 768)]}, {"axis": [1]},
+         "ew"),
+        ("argsort", lambda r: {"X": [f(r, b4, 1000)]}, {"axis": -1}, "ew"),
+        ("sampling_id", lambda r: {"X": [pos(r, b4, 1000)]}, {"seed": 7},
+         "ew"),
+        ("multiplex", lambda r: {"X": [f(r, b4, 768) for _ in range(4)],
+                                 "Ids": [r.randint(0, 4, (b4, 1))
+                                         .astype(np.int32)]}, {}, "ew"),
+        unary("selu", 2.0), unary("is_empty"),
+        ("row_conv", lambda r: {"X": [f(r, 32, 128, 768)],
+                                "Filter": [f(r, 3, 768)]}, {}, "ew"),
+        # nn_ops (3)
+        ("l2_normalize", lambda r: {"X": [f(r, b4, 768)]}, {"axis": 1},
+         "red"),
+        ("smooth_l1_loss", lambda r: {"X": [f(r, b4, 1024)],
+                                      "Y": [f(r, b4, 1024)]},
+         {"sigma": 3.0}, "red"),
+        ("hierarchical_sigmoid", lambda r: {
+            "X": [f(r, 256, 512)], "W": [f(r, 9999, 512, scale=0.05)],
+            "Label": [r.randint(0, 10000, (256, 1)).astype(np.int64)],
+            "Bias": [f(r, 9999)]}, {"num_classes": 10000}, "red"),
+        # loss_ops (13)
+        unary("sign"),
+        ("log_loss", lambda r: {"Predicted": [(r.rand(65536, 1) * 0.98
+                                               + 0.01).astype(np.float32)],
+                                "Labels": [labels01(r, 65536)]},
+         {"epsilon": 1e-4}, "ew"),
+        ("hinge_loss", lambda r: {"Logits": [f(r, 65536, 1)],
+                                  "Labels": [labels01(r, 65536)]}, {}, "ew"),
+        ("rank_loss", lambda r: {"Label": [labels01(r, 65536)],
+                                 "Left": [f(r, 65536, 1)],
+                                 "Right": [f(r, 65536, 1)]}, {}, "ew"),
+        ("margin_rank_loss", lambda r: {
+            "Label": [labels01(r, 65536) * 2 - 1], "X1": [f(r, 65536, 1)],
+            "X2": [f(r, 65536, 1)]}, {"margin": 0.1}, "ew"),
+        ("modified_huber_loss", lambda r: {"X": [f(r, 65536, 1, scale=2.0)],
+                                           "Y": [labels01(r, 65536)]},
+         {}, "ew"),
+        ("huber_loss", lambda r: {"X": [f(r, 65536, 1, scale=2.0)],
+                                  "Y": [f(r, 65536, 1)]}, {"delta": 1.0},
+         "ew"),
+        ("kldiv_loss", lambda r: {"X": [np.log(pos(r, b4, 1000))],
+                                  "Target": [pos(r, b4, 1000)]},
+         {"reduction": "mean"}, "red"),
+        ("squared_l2_distance", lambda r: {"X": [f(r, b4, 768)],
+                                           "Y": [f(r, b4, 768)]}, {}, "red"),
+        ("bpr_loss", lambda r: {"X": [f(r, b4, 1000)],
+                                "Label": [r.randint(0, 1000, (b4, 1))
+                                          .astype(np.int64)]}, {}, "red"),
+        ("bilinear_tensor_product", lambda r: {
+            "X": [f(r, b4, 256)], "Y": [f(r, b4, 256)],
+            "Weight": [f(r, 64, 256, 256, scale=0.05)],
+            "Bias": [f(r, 1, 64)]}, {}, "red"),
+        ("teacher_student_sigmoid_loss", lambda r: {
+            "X": [f(r, 65536, 1, scale=8.0)],
+            "Label": [(r.rand(65536, 1)).astype(np.float32)]}, {}, "ew"),
+        ("nce", lambda r: {"Input": [f(r, 1024, 256)],
+                           "Label": [r.randint(0, 100000, (1024, 1))
+                                     .astype(np.int64)],
+                           "Weight": [f(r, 100000, 256, scale=0.05)],
+                           "Bias": [f(r, 100000)]},
+         {"num_neg_samples": 64, "num_total_classes": 100000, "seed": 3},
+         "red"),
+        # vision_ops (15)
+        ("affine_channel", lambda r: {"X": [f(r, 16, 256, 56, 56)],
+                                      "Scale": [f(r, 256)],
+                                      "Bias": [f(r, 256)]}, {}, "ew"),
+        ("group_norm", lambda r: {"X": [f(r, 32, 256, 56, 56)],
+                                  "Scale": [f(r, 256)], "Bias": [f(r, 256)]},
+         {"groups": 32, "epsilon": 1e-5}, "red"),
+        ("lrn", lambda r: {"X": [f(r, 32, 96, 55, 55)]},
+         {"n": 5, "k": 2.0, "alpha": 1e-4, "beta": 0.75}, "red"),
+        ("maxout", lambda r: {"X": [f(r, 32, 256, 28, 28)]}, {"groups": 2},
+         "ew"),
+        ("bilinear_interp", lambda r: {"X": [f(r, 4, 256, 64, 64)]},
+         {"out_h": 128, "out_w": 128, "align_corners": False}, "ew"),
+        ("nearest_interp", lambda r: {"X": [f(r, 4, 256, 64, 64)]},
+         {"out_h": 128, "out_w": 128, "align_corners": True}, "ew"),
+        ("crop", lambda r: {"X": [f(r, 16, 256, 56, 56)]},
+         {"offsets": [0, 0, 4, 4], "shape": [16, 256, 48, 48]}, "ew"),
+        ("pad_constant_like", lambda r: {"X": [f(r, 16, 256, 56, 56)],
+                                         "Y": [f(r, 16, 256, 52, 52)]},
+         {"pad_value": 0.0}, "ew"),
+        ("space_to_depth", lambda r: {"X": [f(r, 16, 64, 112, 112)]},
+         {"blocksize": 2}, "ew"),
+        ("shuffle_channel", lambda r: {"X": [f(r, 32, 232, 28, 28)]},
+         {"group": 2}, "ew"),
+        ("conv3d", lambda r: {"Input": [f(r, 8, 64, 16, 56, 56)],
+                              "Filter": [f(r, 16, 64, 3, 3, 3,
+                                           scale=0.05)]},
+         {"strides": [1, 1, 1], "paddings": [1, 1, 1]}, "red"),
+        ("pool3d", lambda r: {"X": [f(r, 8, 64, 16, 56, 56)]},
+         {"pooling_type": "max", "ksize": [2, 2, 2],
+          "strides": [2, 2, 2]}, "ew"),
+        ("affine_grid", lambda r: {"Theta": [f(r, 32, 2, 3, scale=0.5)]},
+         {"output_shape": [32, 3, 224, 224]}, "red"),
+        ("grid_sampler", lambda r: {"X": [f(r, 32, 3, 224, 224)],
+                                    "Grid": [np.clip(f(r, 32, 224, 224, 2,
+                                                       scale=0.6),
+                                                     -1.0, 1.0)]},
+         {}, "red"),
+        ("random_crop", lambda r: {"X": [f(r, 32, 3, 256, 256)]},
+         {"shape": [224, 224], "seed": 5}, "ew"),
+        # tail_ops (7) and metric_ops (1)
+        ("im2sequence", lambda r: {"X": [f(r, 32, 128, 8, 100)]},
+         {"kernels": [8, 1], "strides": [1, 1]}, "ew"),
+        ("tensor_array_to_tensor", lambda r: {
+            "X": [(f(r, 64, 32, 512), np.array(48, np.int64))]},
+         {"axis": 1, "use_stack": False}, "ew"),
+        ("sample_logits", lambda r: {
+            "Logits": [f(r, 128, 100000)],
+            "Labels": [r.randint(0, 100000, (128, 1)).astype(np.int64)]},
+         {"num_samples": 64, "seed": 9}, "ew"),
+        ("chunk_eval", lambda r: {"Inference": [tags(r)],
+                                  "Label": [tags(r)],
+                                  "SeqLen": [r.randint(1, 129, 64)
+                                             .astype(np.int32)]},
+         {"chunk_scheme": "IOB", "num_chunk_types": 9}, "ew"),
+        ("tree_conv", lambda r: {"NodesVector": [f(r, 32, 64, 128)],
+                                 "EdgeSet": [_random_tree_edges(r, 32, 64)],
+                                 "Filter": [f(r, 128, 3, 64, 4,
+                                              scale=0.05)]},
+         {"max_depth": 3}, "red"),
+        ("hash", lambda r: {"X": [r.randint(0, 10**9, (65536, 2))
+                                  .astype(np.int64)]},
+         {"mod_by": 10**6, "num_hash": 4}, "ew"),
+        ("similarity_focus", lambda r: {"X": [f(r, 16, 4, 48, 48)]},
+         {"axis": 1, "indexes": [0, 2]}, "ew"),
+        ("edit_distance", lambda r: {
+            "Hyps": [r.randint(0, 30, (256, 48)).astype(np.int64)],
+            "Refs": [r.randint(0, 30, (256, 48)).astype(np.int64)],
+            "HypsLen": [r.randint(0, 49, 256).astype(np.int32)],
+            "RefsLen": [r.randint(0, 49, 256).astype(np.int32)]},
+         {"normalized": True}, "ew"),
+        # optimizer_ops (8), a 1024 x 1024 parameter
+        ("lars_momentum", lambda r: {"Param": [f(r, *M)], "Grad": [f(r, *M)],
+                                     "Velocity": [f(r, *M)],
+                                     "LearningRate": [np.array(
+                                         [0.1], np.float32)]},
+         {"mu": 0.9, "lars_coeff": 0.001, "lars_weight_decay": 0.0005},
+         "red"),
+        ("decayed_adagrad", lambda r: {"Param": [f(r, *M)],
+                                       "Grad": [f(r, *M)],
+                                       "Moment": [pos(r, *M)],
+                                       "LearningRate": [np.array(
+                                           [0.01], np.float32)]},
+         {}, "ew"),
+        ("adamax", lambda r: {"Param": [f(r, *M)], "Grad": [f(r, *M)],
+                              "Moment": [f(r, *M)], "InfNorm": [pos(r, *M)],
+                              "Beta1Pow": [np.array([0.9], np.float32)],
+                              "LearningRate": [np.array([0.01],
+                                                        np.float32)]},
+         {}, "ew"),
+        ("adadelta", lambda r: {"Param": [f(r, *M)], "Grad": [f(r, *M)],
+                                "AvgSquaredGrad": [pos(r, *M)],
+                                "AvgSquaredUpdate": [pos(r, *M)]},
+         {}, "ew"),
+        ("rmsprop", lambda r: {"Param": [f(r, *M)], "Grad": [f(r, *M)],
+                               "MeanSquare": [pos(r, *M) + 1.0],
+                               "Moment": [f(r, *M)],
+                               "MeanGrad": [f(r, *M, scale=0.3)],
+                               "LearningRate": [np.array([0.01],
+                                                         np.float32)]},
+         {"momentum": 0.9, "centered": True, "epsilon": 1e-6}, "ew"),
+        ("ftrl", lambda r: {"Param": [f(r, *M)], "Grad": [f(r, *M)],
+                            "SquaredAccumulator": [pos(r, *M)],
+                            "LinearAccumulator": [f(r, *M)],
+                            "LearningRate": [np.array([0.05], np.float32)]},
+         {"l1": 0.01, "l2": 0.01}, "ew"),
+        ("proximal_gd", lambda r: {"Param": [f(r, *M)], "Grad": [f(r, *M)],
+                                   "LearningRate": [np.array(
+                                       [0.1], np.float32)]},
+         {"l1": 0.05, "l2": 0.01}, "ew"),
+        ("proximal_adagrad", lambda r: {"Param": [f(r, *M)],
+                                        "Grad": [f(r, *M)],
+                                        "Moment": [pos(r, *M)],
+                                        "LearningRate": [np.array(
+                                            [0.1], np.float32)]},
+         {"l1": 0.05, "l2": 0.01}, "ew"),
+    ]
+
+
+def _on(torch, v, dev):
+    if isinstance(v, tuple):
+        return tuple(torch.from_numpy(a).to(dev) for a in v)
+    return torch.from_numpy(v).to(dev)
+
+
+def _sweep_run(torch, registry, dev, op, ins, attrs):
+    """One op run of the sweep on `dev`, in a run context of that device
+    (a random op's seed is the same on both: program seed 0, step 0)."""
+    with registry.exec_context(registry.ExecContext(device=dev)):
+        return registry.run_op(op, {s: [_on(torch, v, dev) for v in vs]
+                                    for s, vs in ins.items()}, dict(attrs))
+
+
+def _sweep_grad(op, ins, attrs, outs, rng):
+    """The generic grad op's ins (numpy) and attrs for `op` over `ins`:
+    every float32 input differentiated, every floating output given a
+    cotangent from `rng`."""
+    needs = [(s, i) for s, vs in ins.items() for i, v in enumerate(vs)
+             if isinstance(v, np.ndarray) and v.dtype == np.float32]
+    cots = {s: [_sweep_f32(rng, *v.shape) for v in vs]
+            for s, vs in outs.items() if vs[0].is_floating_point()}
+    gattrs = {"fw_type": op, "fw_attrs": dict(attrs),
+              "fw_in_slots": [(s, len(v)) for s, v in ins.items()],
+              "fw_out_slots": [(s, len(v)) for s, v in outs.items()],
+              "needs_input_grad": needs,
+              "has_out_grad": [(s, i) for s, cs in cots.items()
+                               for i in range(len(cs))]}
+    gins = dict(ins)
+    gins.update({f"{s}@GRAD_OUT": cs for s, cs in cots.items()})
+    return gins, gattrs, bool(needs and cots)
+
+
+def _sweep_gap(torch, got, want, exact):
+    """(worst |got − want| over max |want| of the floating tensors, every
+    other tensor (and, with `exact`, every tensor) equal), computed on
+    the card's device."""
+    worst, equal = 0.0, True
+    for slot, ws in want.items():
+        for w, g in zip(ws, got[slot]):
+            w = w.to(g.device)
+            if g.shape != w.shape:
+                return float("inf"), False
+            if w.is_floating_point() and not exact:
+                scale = float(w.abs().max()) if w.numel() else 0.0
+                err = float((g.double() - w.double()).abs().max()) \
+                    if w.numel() else 0.0
+                worst = max(worst, err / scale if scale else err)
+            elif not torch.equal(g, w):
+                equal = False
+    return worst, equal
+
+
+# random ops whose every output must match bit for bit (a copy of X at
+# the drawn offsets); the others' draws are their integer outputs
+SWEEP_EXACT = {"random_crop"}
+
+
+def op_sweep(torch, smi):
+    """Every op type this slice ported, on the card and on the CPU from
+    the same seeded inputs at a model's shape (sweep_cases): outputs and,
+    for a differentiable op, its generic grad under the same cotangents.
+    Returns {op: (forward gap, grad gap or None)}; fails on any miss."""
+    from paddle_tpu_torch.ops import registry
+
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    cases = sweep_cases()
+    if len({c[0] for c in cases}) != SWEEP_OPS:
+        raise SystemExit(f"op sweep: {len({c[0] for c in cases})} op "
+                         f"types, expected {SWEEP_OPS}")
+    t0 = time.perf_counter()
+    rows, misses = {}, []
+    for k, (op, make, attrs, tol) in enumerate(cases):
+        rng = np.random.RandomState(SEED + 900 + k)
+        ins = make(rng)
+        want = _sweep_run(torch, registry, cpu, op, ins, attrs)
+        got = _sweep_run(torch, registry, card, op, ins, attrs)
+        fwd, equal = _sweep_gap(torch, got, want, op in SWEEP_EXACT)
+        grad, gequal = None, True
+        if registry.is_differentiable(op):
+            gins, gattrs, has = _sweep_grad(op, ins, attrs, want, rng)
+            if has:
+                gw = _sweep_run(torch, registry, cpu, "generic_grad", gins,
+                                gattrs)
+                gg = _sweep_run(torch, registry, card, "generic_grad",
+                                gins, gattrs)
+                grad, gequal = _sweep_gap(torch, gg, gw, False)
+        bar = SWEEP_TOL[tol]
+        held = equal and gequal and fwd <= bar and (grad is None or
+                                                    grad <= bar)
+        rows[op] = (fwd, grad)
+        shapes = {s: [tuple(v.shape) if hasattr(v, "shape") else
+                      tuple(v[0].shape) for v in vs] for s, vs in ins.items()}
+        print(f"  {op} {shapes}: out {fwd:.3e}"
+              + ("" if grad is None else f", grad {grad:.3e}")
+              + f" (bar {bar:g}), ints/bools equal {equal and gequal}"
+              + ("" if held else "  MISS"), flush=True)
+        if not held:
+            misses.append(op)
+        del ins, want, got
+    torch.cuda.empty_cache()
+    worst = max(rows, key=lambda o: max(rows[o][0], rows[o][1] or 0.0))
+    grads = sum(g is not None for _, g in rows.values())
+    print(f"[{smi}] op sweep: {len(rows) - len(misses)} of {len(rows)} op "
+          f"types held card vs CPU, {grads} generic grads; worst {worst} "
+          f"{rows[worst]}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if misses:
+        raise SystemExit(f"op sweep: the card departs from the CPU at "
+                         f"{misses}")
+    return rows
+
+
+def clip_program_vars(main):
+    """(global norm var, [(grad, clipped grad)]) of a program minimized
+    under GradientClipByGlobalNorm: the `sqrt` over the `sum` of the
+    grads' `squared_l2_norm`, and each `elementwise_mul` by the scale
+    (clip.append_gradient_clip_ops' chain)."""
+    ops = main.global_block().ops
+    sq_out = {op.output("Out")[0]: op.input("X")[0] for op in ops
+              if op.type == "squared_l2_norm"}
+    total = next(op.output("Out")[0] for op in ops if op.type == "sum"
+                 and op.input("X") and all(n in sq_out
+                                           for n in op.input("X")))
+    norm = next(op.output("Out")[0] for op in ops if op.type == "sqrt"
+                and op.input("X") == [total])
+    mx = next(op.output("Out")[0] for op in ops
+              if op.type == "elementwise_max" and op.input("X") == [norm])
+    scale = next(op.output("Out")[0] for op in ops
+                 if op.type == "elementwise_div" and op.input("Y") == [mx])
+    pairs = [(op.input("X")[0], op.output("Out")[0]) for op in ops
+             if op.type == "elementwise_mul" and op.input("Y") == [scale]]
+    if sorted(g for g, _ in pairs) != sorted(sq_out.values()):
+        raise SystemExit("the clipped program scales other grads than it "
+                         "measures")
+    return norm, pairs
+
+
+def global_norm_check(torch, fluid, main, startup, loss, feed):
+    """One op-by-op step of the clipped program from its startup state,
+    fetching the loss, the program's global norm and every grad before
+    and after the clip: the norm against torch.linalg.vector_norm over
+    the unclipped grads (float64, CLIP_NORM_RTOL) and each clipped grad
+    against the unclipped one times 1 / max(norm, 1) (CLIP_GRAD_RTOL,
+    relative to each grad's largest magnitude)."""
+    norm_name, pairs = clip_program_vars(main)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe._captured = lambda program: False
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = [norm_name] + [g for g, _ in pairs] + [c for _, c in pairs]
+    out = exe.run(main, feed=feed, fetch_list=[loss.name] + names,
+                  scope=scope, return_numpy=False)
+    norm = float(torch.as_tensor(out[1]).reshape(()))
+    n = len(pairs)
+    grads = [torch.as_tensor(t).double() for t in out[2:2 + n]]
+    clipped = [torch.as_tensor(t).double() for t in out[2 + n:]]
+    ref = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads])))
+    norm_rel = abs(norm - ref) / ref
+    factor = 1.0 / max(norm, 1.0)
+    grad_rel = max(float((c - g * factor).abs().max())
+                   / max(float((g * factor).abs().max()), 1e-30)
+                   for g, c in zip(grads, clipped))
+    print(f"global-norm clip (1.0) over {n} grads: the program's norm "
+          f"{norm:.6f}, torch.linalg.vector_norm {ref:.6f}, relative "
+          f"{norm_rel:.3e} (bar {CLIP_NORM_RTOL:g}); clipped = grad / "
+          f"max(norm, 1) within {grad_rel:.3e} (bar {CLIP_GRAD_RTOL:g}); "
+          f"the clip {'scales' if norm > 1.0 else 'leaves'} the grads",
+          flush=True)
+    exe.close()
+    if not (norm_rel <= CLIP_NORM_RTOL and grad_rel <= CLIP_GRAD_RTOL):
+        raise SystemExit(f"global-norm clip: norm {norm} vs {ref}, "
+                         f"clipped grads off by {grad_rel}")
+    return {"norm": norm, "norm_rel": norm_rel, "grad_rel": grad_rel,
+            "grads": n}
+
+
+def front_end_phase(torch, smi, compiled):
+    """The slice's paths on the card: BERT-base pretraining under
+    LARK/BERT's global-norm clip (1.0) captured against uncaptured from
+    one state (compiled_path, the K1/K2a/K2b/K10 launches of
+    training_phase) with its norm checked (global_norm_check); ResNet-50
+    fp32 at batch 128 under LarsMomentum(0.1, 0.9) captured against
+    uncaptured; then the op sweep.  Each step's numbers print beside
+    compiled_step_phase's unclipped BERT-base and Momentum ResNet-50
+    (`compiled`, its result; None prints them alone)."""
+    import paddle_tpu_torch as fluid
+
+    phase("front end: BERT-base under global-norm clipping, ResNet-50 "
+          "under LARS, every op the front end builds card vs CPU")
+    t0 = time.perf_counter()
+    fluid.set_flags({"use_fused_dropout": True})
+    clip = fluid.clip.GradientClipByGlobalNorm(clip_norm=1.0)
+    bert = pretrain_program(fluid, 12, 0.1, clip=clip)
+    feeds = [pretrain_feed(TRAIN_B, TRAIN_T, TRAIN_M, SEED + 41 + i % 2)
+             for i in range(FRONT_END_STEPS)]
+    norm = global_norm_check(torch, fluid, *bert, feeds[0])
+    out = {"norm": norm}
+    out["bert"] = compiled_path(torch, smi, fluid,
+                                "BERT-base fp32, global-norm clip",
+                                lambda: bert, feeds, 1, "bert")
+    fluid.set_flags({"use_fused_dropout": False})
+    del bert
+
+    def resnet():
+        main, startup, loss, _ = resnet50_program(
+            fluid, optimizer=lambda f: f.optimizer.LarsMomentum(
+                learning_rate=0.1, momentum=0.9))
+        return main, startup, loss
+
+    def images(main):
+        slots = [v.name for v in main._py_readers[0].feed_vars]
+        img_rng = np.random.RandomState(0)
+        return [dict(zip(slots, image_batch(img_rng, R50_B)))
+                for _ in range(FRONT_END_STEPS)]
+
+    out["resnet50"] = compiled_path(torch, smi, fluid, "ResNet-50 fp32 LARS",
+                                    resnet, images, 1)
+    for key, label, base in (("bert", "BERT-base fp32 global-norm clip",
+                              "unclipped"),
+                             ("resnet50", "ResNet-50 fp32 LARS", "Momentum")):
+        c = out[key]
+        line = (f"[{smi}] {label}: step {c['step_ms']:.6f} ms, idle share "
+                f"{1.0 - c['busy'] / c['wall']:.4f}, peak "
+                f"{c['peak'] / 2**30:.3f} GiB")
+        if compiled is not None:
+            b = compiled[key]
+            line += (f"; {base} (compiled step phase): step "
+                     f"{b['step_ms']:.6f} ms, idle share "
+                     f"{1.0 - b['busy'] / b['wall']:.4f}, peak "
+                     f"{b['peak'] / 2**30:.3f} GiB")
+        print(line, flush=True)
+    out["sweep"] = op_sweep(torch, smi)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[{smi}] front end phase {out['seconds']:.3f} s", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -6787,6 +7337,7 @@ def main():
     amp_serve = amp_serving_phase(torch, smi, fp32)
     compiled = compiled_step_phase(torch, smi, fp32)
     seq = sequence_labelling_phase(torch, smi)
+    front = front_end_phase(torch, smi, compiled)
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -6813,7 +7364,8 @@ def main():
                     **train_rows[k]["bert_row_f32_drop"],
                     **bf16_keys(amp_attn_rows[k][amp_bert],
                                 amp["bert"]["launches"][k] * AMP_STEPS),
-                    device_key_ms=compiled["key_ms"][k])
+                    device_key_ms=compiled["key_ms"][k],
+                    clip_bert_launches=front["bert"]["launches"][k])
                for k in ("fwd", "dkv", "dq")]
     # K1 on the beam decode's path (Path B) at its decoder self-attention
     beam = control["rows"]["beam_dec_self"]
@@ -6861,7 +7413,9 @@ def main():
                         **bf16_keys(amp_drop_rows["amp_nmt_b128_t32_d2048"],
                                     amp["nmt"]["launches"]["dropout"]
                                     * nmt_steps_amp),
-                        device_key_ms=compiled["key_ms"]["dropout"]))
+                        device_key_ms=compiled["key_ms"]["dropout"],
+                        clip_bert_launches=front["bert"]["launches"][
+                            "dropout"]))
     # the decode shape of bench_kernels.py: K4 with float32 arenas (the
     # disaggregated path's float32 pool; its bf16 arm beside it), K5 int8
     bf16 = paged_rows[f"{PAGED_BENCH[0]}_bfloat16"]
@@ -6944,6 +7498,14 @@ def main():
           f"wall {seq['ctc']['ms']:.6f} ms (busy {seq['ctc']['busy']:.6f}); "
           f"phase peak "
           f"{seq['peak'] / 2**20:.3f} MiB")
+    fb, fr, fn = front["bert"], front["resnet50"], front["norm"]
+    print(f"[{smi}] front end: BERT-base under global-norm clip step "
+          f"{fb['step_ms']:.6f} ms (unclipped "
+          f"{compiled['bert']['step_ms']:.6f}), launches a step {fb['launches']}, global norm {fn['norm']:.6f}"
+          f" (relative to vector_norm {fn['norm_rel']:.3e}); ResNet-50 "
+          f"LARS step {fr['step_ms']:.6f} ms (Momentum "
+          f"{compiled['resnet50']['step_ms']:.6f}); {len(front['sweep'])} "
+          f"op types held card vs CPU; phase {front['seconds']:.3f} s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

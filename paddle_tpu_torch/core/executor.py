@@ -481,7 +481,11 @@ def capturable(program):
         its condition from the card every iteration, so its trip count
         is not known when a graph would be captured),
       - drawn through a reseeded torch generator
-        (``registry.generator_for``: its seed is host state), or
+        (``registry.generator_for``: its seed is host state),
+      - one that reads its inputs' values on the host
+        (``registry.reads_on_host``: ``chunk_eval``, ``tree_conv``,
+        ``hash``, ``similarity_focus``, ``range``), whose results a
+        replay would not recompute, or
       - sparse (``is_sparse``: merging a SelectedRows grad reads its rows
         on the host).
     Those programs run op by op, as every program does on the CPU."""
@@ -505,6 +509,7 @@ def capture_refusals(program):
                 kinds.append(op.type[:-5])
             if any(t in _SUB_BLOCK_OPS or t in SELF_CONTAINED_BLOCK_OPS
                    or is_host_op(t) or registry.draws_from_generator(t)
+                   or registry.reads_on_host(t)
                    for t in kinds) or op.attrs.get("is_sparse") \
                     or fw_attrs.get("is_sparse"):
                 refused.add(op.type)

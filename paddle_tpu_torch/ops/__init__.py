@@ -16,3 +16,6 @@ from . import misc_ops      # noqa: F401
 from . import crf_ops       # noqa: F401
 from . import ctc_ops       # noqa: F401
 from . import loss_ops      # noqa: F401
+from . import vision_ops    # noqa: F401
+from . import tail_ops      # noqa: F401
+from . import metric_ops    # noqa: F401

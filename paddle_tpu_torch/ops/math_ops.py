@@ -3,9 +3,22 @@ elementwise ops with fluid's ``axis`` broadcast and the custom
 ``elementwise_add`` grad, mul/matmul, sum, the activations and reductions
 on the BERT serving and training paths and the RNN slice (``sigmoid``,
 the length-masked ``mean`` of a lod input), ``log``, the comparison
-and logical ops of the control-flow slice (bool outputs), and ``exp``,
+and logical ops of the control-flow slice (bool outputs), ``exp``,
 ``floor``, ``ceil``, ``cos`` and ``pow``, the learning-rate schedules'
-chain.
+chain, and the rest of the reference's unary, clip, reduction and
+elementwise ops (``sqrt`` ... ``isfinite``), which the front end's layers,
+gradient clipping and ``L1Decay`` emit.
+
+Gradients at ties follow the JAX package, not torch's defaults: the
+reference's ``jnp.clip`` is a ``lax.max`` then a ``lax.min``, whose
+derivatives split a tie in half, so ``clip``, ``relu6`` and
+``hard_sigmoid`` here are ``torch.maximum`` then ``torch.minimum``
+against tensor bounds (which split ties the same way), never
+``torch.clamp`` (whose derivative is 1 at a bound); and ``reduce_max`` /
+``reduce_min`` use ``torch.amax`` / ``torch.amin``, which share the
+gradient evenly among equal extrema as ``jnp.max`` does.
+``elementwise_mod`` takes the divisor's sign (``torch.remainder``, as
+``jnp.mod``), and ``elementwise_floordiv`` floors.
 
 Reference op semantics: ``paddle/fluid/operators/elementwise/``,
 ``mul_op.cc``, ``matmul_op.cc``, ``activation_op.cc``, ``scale_op.cc``,
@@ -74,6 +87,11 @@ register("elementwise_div")(_ew(torch.div))
 register("elementwise_max")(_ew(torch.maximum))
 register("elementwise_min")(_ew(torch.minimum))
 register("elementwise_pow")(_ew(torch.pow))
+register("elementwise_mod")(_ew(torch.remainder))
+# a floor has no derivative: the quotient is made outside autograd, as
+# the JAX package's is zero through its round
+register("elementwise_floordiv")(_ew(
+    lambda x, y: torch.floor_divide(x.detach(), y.detach())))
 
 
 @register("scale")
@@ -146,6 +164,26 @@ def _unary(fn):
     return kernel
 
 
+def tie_max(x, c):
+    """``jnp.maximum(x, c)`` for a number `c`: against a tensor, so a tie
+    splits its gradient in half (made by a fill on the device: a copy
+    from the host could not be captured)."""
+    return torch.maximum(x, torch.full((), c, dtype=x.dtype,
+                                       device=x.device))
+
+
+def tie_abs(x):
+    """``jnp.abs``, whose derivative at 0 is 1 (torch's is 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def tie_clip(x, lo, hi):
+    """``jnp.clip``: :func:`tie_max` against `lo`, then the min against
+    `hi` the same way."""
+    return torch.minimum(tie_max(x, lo), torch.full(
+        (), hi, dtype=x.dtype, device=x.device))
+
+
 register("relu")(_unary(torch.relu))
 register("sigmoid")(_unary(torch.sigmoid))
 register("tanh")(_unary(torch.tanh))
@@ -158,9 +196,85 @@ register("ceil")(_unary(torch.ceil))
 register("cos")(_unary(torch.cos))
 
 
+register("sqrt")(_unary(torch.sqrt))
+register("rsqrt")(_unary(lambda x: 1.0 / torch.sqrt(x)))
+register("abs")(_unary(tie_abs))
+register("round")(_unary(torch.round))
+register("reciprocal")(_unary(lambda x: 1.0 / x))
+register("softsign")(_unary(lambda x: x / (tie_abs(x) + 1)))
+register("softplus")(_unary(lambda x: torch.logaddexp(x, torch.zeros_like(x))))
+register("sin")(_unary(torch.sin))
+register("erf")(_unary(torch.erf))
+register("logsigmoid")(_unary(torch.nn.functional.logsigmoid))
+
+
 @register("pow")
 def pow_op(ins, attrs):
     return as_out(torch.pow(first(ins, "X"), attrs.get("factor", 1.0)))
+
+
+@register("leaky_relu")
+def leaky_relu(ins, attrs):
+    x = first(ins, "X")
+    return as_out(torch.where(x > 0, x, attrs.get("alpha", 0.02) * x))
+
+
+@register("elu")
+def elu(ins, attrs):
+    """``jax.nn.elu``: alpha·expm1(x) where x <= 0 (the expm1 of a
+    zeroed argument elsewhere, so a large x never overflows)."""
+    x = first(ins, "X")
+    alpha = attrs.get("alpha", 1.0)
+    pos = x > 0
+    return as_out(torch.where(
+        pos, x, alpha * torch.expm1(torch.where(pos, torch.zeros_like(x),
+                                                x))))
+
+
+@register("relu6")
+def relu6(ins, attrs):
+    return as_out(tie_clip(first(ins, "X"), 0.0,
+                           attrs.get("threshold", 6.0)))
+
+
+@register("hard_sigmoid")
+def hard_sigmoid(ins, attrs):
+    x = first(ins, "X")
+    return as_out(tie_clip(x * attrs.get("slope", 0.2)
+                           + attrs.get("offset", 0.5), 0.0, 1.0))
+
+
+@register("swish")
+def swish(ins, attrs):
+    x = first(ins, "X")
+    return as_out(x * torch.sigmoid(attrs.get("beta", 1.0) * x))
+
+
+@register("clip")
+def clip(ins, attrs):
+    return as_out(tie_clip(first(ins, "X"), attrs["min"], attrs["max"]))
+
+
+@register("clip_by_norm")
+def clip_by_norm(ins, attrs):
+    """x · max_norm / ‖x‖ where ‖x‖ > max_norm, with the norm floored at
+    1e-12 in the division (the reference's guard)."""
+    x = first(ins, "X")
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm, max_norm / tie_max(norm, 1e-12),
+                        torch.ones_like(norm))
+    return as_out(x * scale)
+
+
+@register("squared_l2_norm")
+def squared_l2_norm(ins, attrs):
+    return as_out(torch.sum(torch.square(first(ins, "X"))).reshape(1))
+
+
+@register("isfinite", not_differentiable=True)
+def isfinite(ins, attrs):
+    return as_out(torch.all(torch.isfinite(first(ins, "X"))).reshape(1))
 
 # exact erf form, as jax.nn.gelu(approximate=False) in the reference
 register("gelu")(_unary(
@@ -194,8 +308,24 @@ def _reduce(fn):
     return kernel
 
 
+def _prod_dims(x, dim, keepdim):
+    """``jnp.prod`` over several dims (``torch.prod`` takes one): the
+    reduced dims moved last and flattened."""
+    keep = [d for d in range(x.ndim) if d not in dim]
+    flat = x.permute(keep + list(dim)).reshape(
+        [x.shape[d] for d in keep] + [-1])
+    out = torch.prod(flat, dim=-1)
+    if keepdim:
+        out = out.reshape([1 if d in dim else x.shape[d]
+                           for d in range(x.ndim)])
+    return out
+
+
 register("reduce_sum")(_reduce(torch.sum))
 register("reduce_mean")(_reduce(torch.mean))
+register("reduce_max")(_reduce(torch.amax))
+register("reduce_min")(_reduce(torch.amin))
+register("reduce_prod")(_reduce(_prod_dims))
 
 
 # -- comparison / logical (controlflow/compare_op.cc) -----------------------

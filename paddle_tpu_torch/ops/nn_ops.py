@@ -3,13 +3,15 @@ transformer NMT (port of ``paddle_tpu/ops/nn_ops.py``): softmax,
 cross_entropy over probabilities (with its lod mask),
 softmax_with_cross_entropy with its fused grad, dropout, layer_norm with
 its analytic grad, lookup_table with its dense and SelectedRows grads,
-square_error_cost, sigmoid_cross_entropy_with_logits, one_hot and
-label_smooth.
+square_error_cost, sigmoid_cross_entropy_with_logits, one_hot,
+label_smooth, and ``norm`` with ``l2_normalize``, ``smooth_l1_loss`` and
+``hierarchical_sigmoid`` (on the default complete binary tree).
 
 Reference semantics: ``softmax_op.cc``, ``cross_entropy_op.cc``,
 ``softmax_with_cross_entropy_op.cc``, ``dropout_op.cc`` (two
 implementations), ``layer_norm_op.cc``, ``lookup_table_op.cc:71``
-(padding_idx).
+(padding_idx), ``norm_op.cc``, ``smooth_l1_loss_op.h``,
+``hierarchical_sigmoid_op.h`` (``math/matrix_bit_code.h``'s SimpleCode).
 
 Training-mode dropout keys its mask by the reference's per-op seed
 recipe (``registry.op_seed``: program seed, op seed, step) and draws it
@@ -32,6 +34,7 @@ from . import dropout_kernels
 from .registry import (register, register_grad, register_vjp, first, as_out,
                        amp_inputs, current, dropout_keep, generic_grad_kernel,
                        has_out_grad, op_seed, output_read)
+from .math_ops import tie_abs, tie_max
 from .sequence_kernels import length_mask
 from .tensor_ops import take_rows
 
@@ -372,3 +375,62 @@ def label_smooth(ins, attrs):
 @register("square_error_cost")
 def square_error_cost(ins, attrs):
     return as_out(torch.square(first(ins, "X") - first(ins, "Y")))
+
+
+@register("norm")
+def norm(ins, attrs):
+    """X / sqrt(sum(X², axis) + epsilon), with that norm as Norm."""
+    x = first(ins, "X")
+    nrm = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                               keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": [x / nrm], "Norm": [nrm]}
+
+
+@register("l2_normalize")
+def l2_normalize(ins, attrs):
+    return {"Out": norm(ins, attrs)["Out"]}
+
+
+@register("smooth_l1_loss")
+def smooth_l1_loss(ins, attrs):
+    """Per-row sum of 0.5·σ²·d² where |d| < 1/σ², |d| - 0.5/σ² elsewhere,
+    d = X - Y: Out [N, 1] and Diff."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    s2 = attrs.get("sigma", 1.0) ** 2
+    diff = x - y
+    ad = tie_abs(diff)
+    elem = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    return {"Out": [elem.reshape(x.shape[0], -1).sum(dim=1, keepdim=True)],
+            "Diff": [diff]}
+
+
+@register("hierarchical_sigmoid")
+def hierarchical_sigmoid(ins, attrs):
+    """Summed sigmoid cross entropy along the label's path in the default
+    complete binary tree over C classes (SimpleCode: code = label + C;
+    the node at depth d is (code >> (d + 1)) - 1 and its bit (code >> d)
+    & 1; depths past the code's length count 0): X [N, D], W [C - 1, D],
+    optional Bias [C - 1].  Out [N, 1] and PreOut [N, depth], the path's
+    logits.  O(D log C) a row."""
+    import math
+
+    x = first(ins, "X")
+    w = first(ins, "W")
+    bias = first(ins, "Bias")
+    c = int(attrs["num_classes"])
+    label = squeeze_ids(first(ins, "Label")).reshape(-1).long()
+    depth = max(int(math.ceil(math.log2(c))), 1)
+    code = label + c
+    ds = torch.arange(depth, device=x.device)
+    node = (code[:, None] >> (ds[None, :] + 1)) - 1         # [N, depth]
+    valid = node >= 0
+    node = node.clamp_min(0)
+    bit = ((code[:, None] >> ds[None, :]) & 1).to(x.dtype)
+    logits = torch.einsum("nd,ntd->nt", x, w[node])
+    if bias is not None:
+        logits = logits + bias.reshape(-1)[node]
+    ce = tie_max(logits, 0.0) - logits * bit + \
+        torch.log1p(torch.exp(-tie_abs(logits)))
+    loss = torch.where(valid, ce, torch.zeros_like(ce)).sum(dim=1,
+                                                           keepdim=True)
+    return {"Out": [loss], "PreOut": [logits]}

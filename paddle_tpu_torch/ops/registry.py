@@ -45,6 +45,7 @@ _CUSTOM_GRADS = {}
 _VJPS = {}
 _NOT_DIFFERENTIABLE = set()
 _GENERATOR_OPS = set()
+_HOST_READ_OPS = set()
 
 # ---------------------------------------------------------------------------
 # bf16 mixed precision (the reference's registry.py:66-124): a cast policy
@@ -311,18 +312,34 @@ def launch_key(seed, device):
     return k0, k1, None
 
 
-def dropout_keep(seed, shape, p, device):
-    """Keep mask of one dropout draw: element i (row-major) takes word
-    i % 4 of Philox at counter (i // 4, 0, 0, 0) under key `seed`, and
-    is kept when that word is below :func:`keep_threshold` (p)."""
+def philox_words(seed, shape, device, tag=0):
+    """The 32-bit words of one draw over `shape`: element i (row-major)
+    takes word i % 4 of Philox at counter (i // 4 as two words, tag, 0)
+    under key `seed` (an int or a :class:`DeviceSeed`).  The same bits
+    on the CPU and on the card, and with a device seed a captured graph
+    draws the step it replays at.  `tag` separates an op's streams."""
     n = 1
     for s in shape:
         n *= s
     j = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
     zero = torch.zeros_like(j)
-    bits = philox4x32(torch.stack([j & _MASK32, j >> 32, zero, zero]),
+    bits = philox4x32(torch.stack([j & _MASK32, j >> 32, zero + tag, zero]),
                       seed_key(seed))
-    return (bits.t().reshape(-1)[:n] < keep_threshold(p)).reshape(shape)
+    return bits.t().reshape(-1)[:n].reshape(shape)
+
+
+def dropout_keep(seed, shape, p, device):
+    """Keep mask of one dropout draw: an element is kept when its
+    :func:`philox_words` word (tag 0) is below :func:`keep_threshold`
+    (p)."""
+    return philox_words(seed, shape, device) < keep_threshold(p)
+
+
+def uniforms(seed, shape, device, tag=0):
+    """Uniforms in [0, 1) of one draw: the top 24 bits of each element's
+    :func:`philox_words` word, exact in float32."""
+    return (philox_words(seed, shape, device, tag) >> 8).to(
+        torch.float32) * (1.0 / (1 << 24))
 
 
 def generator_for(attrs):
@@ -336,22 +353,32 @@ def generator_for(attrs):
     return gen
 
 
-def register(op_type, not_differentiable=False, generator=False):
+def register(op_type, not_differentiable=False, generator=False,
+             host_read=False):
     """Register `op_type`'s kernel.  `generator`: the kernel draws through
     :func:`generator_for`, whose reseeding is host state a captured CUDA
-    graph cannot follow (``Executor`` interprets such programs)."""
+    graph cannot follow.  `host_read`: the kernel reads its inputs' values
+    on the host (the reference's ``jax.pure_callback`` ops), which a
+    captured graph would replay stale.  ``Executor`` interprets programs
+    holding either."""
     def deco(fn):
         _KERNELS[op_type] = fn
         if not_differentiable:
             _NOT_DIFFERENTIABLE.add(op_type)
         if generator:
             _GENERATOR_OPS.add(op_type)
+        if host_read:
+            _HOST_READ_OPS.add(op_type)
         return fn
     return deco
 
 
 def draws_from_generator(op_type):
     return op_type in _GENERATOR_OPS
+
+
+def reads_on_host(op_type):
+    return op_type in _HOST_READ_OPS
 
 
 def register_grad(op_type):

@@ -2,7 +2,9 @@
 ``paddle_tpu/ops/tensor_ops.py``): the ops the BERT inference and
 training programs and their startup programs emit, the RNN slice's
 ``concat`` and ``fill_constant_batch_size_like``, and the control-flow
-slice's ``expand``, ``where``, ``increment`` and ``stack``.
+slice's ``expand``, ``where``, ``increment`` and ``stack``, and the
+shape, index and selection ops the front end's layers emit
+(``fill_zeros_like`` ... ``row_conv``).
 
 Reference: ``fill_constant_op.cc``, ``fill_any_like_op.cc``,
 ``fill_constant_batch_size_like_op.cc``, ``assign_op.cc``,
@@ -10,14 +12,22 @@ Reference: ``fill_constant_op.cc``, ``fill_any_like_op.cc``,
 ``truncated_gaussian_random_op.cc``, ``assign_value_op.cc``,
 ``reshape_op.cc``, ``transpose_op.cc``, ``cast_op.cc``, ``concat_op.cc``,
 ``gather_op.cc``, ``slice_op.cc``, ``expand_op.cc``, ``where_op.cc``,
-``increment_op.cc``, ``stack_op.cc``.
+``increment_op.cc``, ``stack_op.cc``, ``fill_zeros_like_op.cc``,
+``squeeze_op.cc``, ``unsqueeze_op.cc``, ``flatten_op.cc``,
+``scatter_op.cc``, ``range_op.cc``, ``shape_op.cc``, ``reverse_op.cc``,
+``argsort_op.cc``, ``sampling_id_op.cc``, ``multiplex_op.cc``,
+``selu_op.cc``, ``is_empty_op.cc``, ``row_conv_op.cc``.
+
+Integer outputs (``shape``'s, ``argsort``'s indices, ``sampling_id``'s
+ids) keep the values of the JAX package, whose 64-bit types run as
+32-bit; the port's dtypes are the IR's.
 """
 
 import numpy as np
 import torch
 
 from .registry import (register, first, as_out, current, generator_for,
-                       np_dtype, torch_dtype)
+                       np_dtype, op_seed, torch_dtype, uniforms)
 
 
 def _random(attrs, draw):
@@ -219,3 +229,135 @@ def increment(ins, attrs):
     x = first(ins, "X")
     step = attrs.get("step", 1.0)
     return as_out(x + (step if x.is_floating_point() else int(step)))
+
+
+@register("fill_zeros_like", not_differentiable=True)
+def fill_zeros_like(ins, attrs):
+    return as_out(torch.zeros_like(first(ins, "X")))
+
+
+@register("squeeze")
+def squeeze(ins, attrs):
+    x = first(ins, "X")
+    axes = attrs.get("axes", [])
+    if axes:
+        return as_out(x.squeeze(tuple(a % x.ndim for a in axes)))
+    return as_out(x.squeeze())
+
+
+@register("unsqueeze")
+def unsqueeze(ins, attrs):
+    x = first(ins, "X")
+    for a in sorted(attrs["axes"]):
+        x = x.unsqueeze(a)
+    return as_out(x)
+
+
+@register("flatten")
+def flatten(ins, attrs):
+    x = first(ins, "X")
+    d0 = 1
+    for s in x.shape[:attrs.get("axis", 1)]:
+        d0 *= s
+    return as_out(x.reshape(d0, -1))
+
+
+@register("scatter")
+def scatter(ins, attrs):
+    """Rows `Ids` of X replaced by (``overwrite``) or added to `Updates`."""
+    x = first(ins, "X")
+    ids = first(ins, "Ids").long().reshape(-1)
+    upd = first(ins, "Updates")
+    return as_out(x.index_put((ids,), upd.to(x.dtype),
+                              accumulate=not attrs.get("overwrite", True)))
+
+
+@register("range", not_differentiable=True, host_read=True)
+def range_op(ins, attrs):
+    """arange(Start, End, Step) in Start's dtype.  Its length depends on
+    the three values, which are read on the host."""
+    start, end, step = (first(ins, s) for s in ("Start", "End", "Step"))
+    lo, hi, st = (float(v.reshape(())) for v in (start, end, step))
+    return as_out(torch.arange(lo, hi, st, dtype=torch.float64,
+                               device=start.device).to(start.dtype))
+
+
+@register("shape", not_differentiable=True)
+def shape_op(ins, attrs):
+    """X's shape as int32, made by fills on X's device (a copy from the
+    host could not be captured)."""
+    x = first(ins, "Input")
+    return as_out(torch.stack(
+        [torch.full((), d, dtype=torch.int32, device=x.device)
+         for d in x.shape]) if x.ndim else
+        torch.zeros(0, dtype=torch.int32, device=x.device))
+
+
+@register("reverse")
+def reverse(ins, attrs):
+    return as_out(torch.flip(first(ins, "X"), dims=tuple(attrs["axis"])))
+
+
+@register("argsort", not_differentiable=True)
+def argsort(ins, attrs):
+    """Ascending stable sort along `axis`: equal values keep their order,
+    as ``jnp.argsort``'s."""
+    x = first(ins, "X")
+    out, idx = torch.sort(x, dim=attrs.get("axis", -1), stable=True)
+    return {"Out": [out], "Indices": [idx]}
+
+
+# Philox stream tag of sampling_id's draw (registry.uniforms)
+_TAG_SAMPLING_ID = 1
+
+
+@register("sampling_id", not_differentiable=True)
+def sampling_id(ins, attrs):
+    """One id per row of X [N, C], drawn with probability proportional to
+    max(x, 1e-20): the reference's categorical over log(max(x, 1e-20)).
+    The uniform of row i is element i of the op's Philox draw
+    (``registry.uniforms``), and the id the first whose cumulative
+    probability, scaled by the row's total, exceeds it."""
+    x = first(ins, "X")
+    p = torch.clamp_min(x.float(), 1e-20)
+    u = uniforms(op_seed(attrs), (x.shape[0],), x.device, _TAG_SAMPLING_ID)
+    cum = torch.cumsum(p, dim=-1)
+    hit = cum > (u * cum[:, -1]).unsqueeze(1)
+    return as_out(torch.argmax(hit.to(torch.uint8), dim=-1))
+
+
+@register("multiplex")
+def multiplex(ins, attrs):
+    ids = first(ins, "Ids").reshape(-1).long()
+    xs = torch.stack(ins["X"], dim=0)                    # [K, N, D]
+    rows = torch.arange(xs.shape[1], device=xs.device)
+    return as_out(xs[ids, rows])
+
+
+@register("selu")
+def selu(ins, attrs):
+    x = first(ins, "X")
+    scale = attrs.get("scale", 1.0507009873554805)
+    alpha = attrs.get("alpha", 1.6732632423543772)
+    return as_out(scale * torch.where(x > 0, x, alpha * (torch.exp(x) - 1)))
+
+
+@register("is_empty", not_differentiable=True)
+def is_empty(ins, attrs):
+    x = first(ins, "X")
+    return as_out(torch.full((), x.numel() == 0, dtype=torch.bool,
+                             device=x.device))
+
+
+@register("row_conv")
+def row_conv(ins, attrs):
+    """Lookahead row convolution over X [N, T, D] with Filter [k, D]:
+    out[t] = sum_j x[t + j] * f[j], zero past the end."""
+    x = first(ins, "X")
+    f = first(ins, "Filter")
+    k, t = f.shape[0], x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, 0, k - 1))
+    out = torch.zeros_like(x)
+    for j in range(k):
+        out = out + pad[:, j:j + t, :] * f[j]
+    return as_out(out)

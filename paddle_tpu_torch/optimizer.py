@@ -1,6 +1,7 @@
 """Optimizers: minimize = append_backward + per-param update ops (a copy
-of ``paddle_tpu/optimizer.py``, for the optimizers whose update ops the
-port has: SGD, Momentum, Adagrad and Adam).
+of ``paddle_tpu/optimizer.py``'s ten optimizers: SGD, Momentum,
+LarsMomentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp
+and Ftrl; GradientMergeOptimizer and ModelAverage are not ported yet).
 
 Reference: ``python/paddle/fluid/optimizer.py`` — `Optimizer.minimize`
 (:357) = `backward()` + `apply_gradients` (:286,318);
@@ -172,6 +173,30 @@ class MomentumOptimizer(Optimizer):
             attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
+class LarsMomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="lars_momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self._momentum, "lars_coeff": self._lars_coeff,
+                   "lars_weight_decay": self._lars_weight_decay})
+
+
 class AdagradOptimizer(Optimizer):
     def __init__(self, learning_rate, epsilon=1e-6, **kw):
         super().__init__(learning_rate, **kw)
@@ -228,8 +253,151 @@ class AdamOptimizer(Optimizer):
 
 
 
+
+class AdamaxOptimizer(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p, shape=[1],
+                                  fill_value=self._beta1)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        inf = self._get_accumulator("inf_norm", p)
+        b1p = self._get_accumulator("beta1_pow_acc", p)
+        op = block.append_op(
+            type="adamax",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "InfNorm": [inf], "Beta1Pow": [b1p],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name],
+                     "InfNormOut": [inf.name]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+        # β1^t advances after the update (the reference's _finish_update)
+        block.append_op(type="scale", inputs={"X": [b1p]},
+                        outputs={"Out": [b1p.name]},
+                        attrs={"scale": self._beta1, "bias": 0.0,
+                               "bias_after_scale": True})
+        return op
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            type="decayed_adagrad",
+            inputs={"Param": [p], "Grad": [g], "Moment": [m],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("__avg_squared_grad", p)
+            self._add_accumulator("__avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        sq = self._get_accumulator("__avg_squared_grad", p)
+        upd = self._get_accumulator("__avg_squared_update", p)
+        return block.append_op(
+            type="adadelta",
+            inputs={"Param": [p], "Grad": [g], "AvgSquaredGrad": [sq],
+                    "AvgSquaredUpdate": [upd]},
+            outputs={"ParamOut": [p.name], "AvgSquaredGradOut": [sq.name],
+                     "AvgSquaredUpdateOut": [upd.name]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho})
+
+
+class RMSPropOptimizer(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("momentum", p)
+            self._add_accumulator("mean_square", p)
+            if self._centered:
+                self._add_accumulator("mean_grad", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        mom = self._get_accumulator("momentum", p)
+        ms = self._get_accumulator("mean_square", p)
+        inputs = {"Param": [p], "Grad": [g], "Moment": [mom],
+                  "MeanSquare": [ms],
+                  "LearningRate": [self._create_param_lr(param_and_grad)]}
+        outputs = {"ParamOut": [p.name], "MomentOut": [mom.name],
+                   "MeanSquareOut": [ms.name]}
+        if self._centered:
+            mg = self._get_accumulator("mean_grad", p)
+            inputs["MeanGrad"] = [mg]
+            outputs["MeanGradOut"] = [mg.name]
+        return block.append_op(
+            type="rmsprop", inputs=inputs, outputs=outputs,
+            attrs={"epsilon": self._epsilon, "decay": self._rho,
+                   "momentum": self._momentum, "centered": self._centered})
+
+
+class FtrlOptimizer(Optimizer):
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        sq = self._get_accumulator("squared", p)
+        lin = self._get_accumulator("linear", p)
+        return block.append_op(
+            type="ftrl",
+            inputs={"Param": [p], "Grad": [g], "SquaredAccumulator": [sq],
+                    "LinearAccumulator": [lin],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p.name], "SquaredAccumOut": [sq.name],
+                     "LinearAccumOut": [lin.name]},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power})
+
+
 # fluid-style lowercase aliases
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+LarsMomentum = LarsMomentumOptimizer

@@ -1524,7 +1524,8 @@ def quant_kernel_phase(torch):
             "row_major_ms": time_ms(torch, lambda: qk.int8_matmul(
                 xq, wq, cs))}
         rows[name] = row
-        host = host_ms(torch, lambda: qk.int8_matmul(xq, wk, cs))
+        host = row["host_ms"] = host_ms(torch,
+                                        lambda: qk.int8_matmul(xq, wk, cs))
         lib_txt = "refused" if lib is None else \
             f"{row['library_ms']:.6f} ms"
         print(f"{name}: M {m} K {k} N {n} max_abs_err K-major "
@@ -7284,6 +7285,635 @@ def front_end_phase(torch, smi, compiled):
     return out
 
 
+# the front end's remainder: the Predictor's zero-copy and AOT paths, the
+# gradient merge and the model average on BERT-base, the Trainer
+ZC_B = 32                   # the zero-copy batch
+AOT_B = 8                   # the exported batch: serving_phase's max batch
+AOT_RTOL = 1e-6             # exported against program mode (expected 0)
+AOT_DEVICE = "cuda"         # the device kind an export on the card records
+GM_K, GM_MICRO, GM_STEPS = 4, 8, 8
+GM_SGD_LR = 0.1
+# test_torch_gradient_merge.py's bars for k merged micro-batches against
+# one SGD step on their whole batch: each parameter within 1e-6 relative
+# and absolute (printed here: at BERT-base the whole batch's fp32 sums run
+# over 4096 tokens, and two free runs of one step part by ~1e-6, the
+# embedding grads' atomics), and each parameter's update within 1e-3 of
+# the whole batch's (2-norms; the gate: fp32 sums of 4096 terms with
+# cancellation part by 1e-5 to 1e-4, while a lost 1/k is a gap of 3, a
+# lost micro-batch 0.25 or more)
+GM_SGD_TOL = 1e-6
+GM_UPDATE_GAP = 1e-3
+MA_RATE, MA_MIN, MA_MAX, MA_STEPS = 0.15, 2, 6, 10
+MA_RTOL = 1e-6
+FAL_B, FAL_BATCHES, FAL_EPOCHS = 32, 12, 2
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want| (float64)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def zero_copy_path(torch, smi, fluid, fp32):
+    """BERT-base served through the zero-copy API at batch ZC_B: inputs
+    staged on the card once, zero_copy_run's output read back equal to
+    run()'s bit for bit, K1 12 times a batch; the walls of both."""
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    pred = fluid.create_paddle_predictor(
+        fluid.AnalysisConfig(fp32["model_dir"]))
+    names = pred.get_input_names()
+    batch = {n: np.concatenate([r[n] for r in fp32["reqs"][:ZC_B]])
+             for n in names}
+    out = pred.get_output_tensor(pred.get_output_names()[0])
+
+    def stage():
+        for n in names:
+            pred.get_input_tensor(n).copy_from_cpu(batch[n])
+
+    for _ in range(2):            # the signature's warm-up and capture
+        pred.run(batch)
+    stage()
+    pred.zero_copy_run()
+    torch.cuda.synchronize()
+    if not (isinstance(out._buf, torch.Tensor) and out._buf.is_cuda):
+        raise SystemExit("zero_copy_run's output left the card before "
+                         "copy_to_cpu")
+    ak.flash_attention.launches = 0
+    pred.zero_copy_run()
+    staged = out.copy_to_cpu()
+    launches = ak.flash_attention.launches
+    ran = pred.run(batch)[0]
+    equal = bool(np.array_equal(staged, ran))
+    stage_ms = wall_ms(torch, stage, reps=10)
+    zc_ms = wall_ms(torch, lambda: (pred.zero_copy_run(), out.copy_to_cpu()),
+                    reps=10)
+    run_ms = wall_ms(torch, lambda: pred.run(batch), reps=10)
+    print(f"[{smi}] zero-copy BERT-base batch {ZC_B}: zero_copy_run + "
+          f"copy_to_cpu {zc_ms:.6f} ms (staging the inputs once "
+          f"{stage_ms:.6f} ms), run() {run_ms:.6f} ms (medians of 10 after "
+          f"5 warm-ups); "
+          f"equal to run() bit for bit {equal}; flash_attention_fwd "
+          f"launches a batch {launches}", flush=True)
+    if not equal or launches != 12:
+        raise SystemExit(f"zero-copy run: equal {equal}, K1 launches "
+                         f"{launches} (expected 12)")
+    return {"ms": zc_ms, "run_ms": run_ms, "launches": launches}
+
+
+AOT_KINDS = ("fp32", "bf16", "quant")
+
+
+def export_worker(kind, src, dst):
+    """One precision's AOT path in a process of its own (the phase runs
+    the three beside its training paths, since a trace is host work): a
+    program-mode Predictor on the card over `src` with the precision
+    `kind` answers dst/batch.npz, exports into `dst`, and a fresh
+    Predictor over `dst` (no Program built) answers the batch again; the
+    numbers go to dst/result.json, which aot_path checks."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    device_phase(torch)         # TF32 off, as in the phase's process
+    cfg = fluid.AnalysisConfig(src)
+    if kind == "bf16":
+        cfg.enable_bf16()
+    if kind == "quant":
+        cfg.enable_quantize()
+    prog = fluid.create_paddle_predictor(cfg)
+    batch = dict(np.load(os.path.join(dst, "batch.npz")))
+    want = prog.run(batch)[0]
+    t0 = time.perf_counter()
+    prog.export_serialized(batch, dirname=dst)
+    export_s = time.perf_counter() - t0
+    del prog
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    aot = fluid.create_paddle_predictor(fluid.AnalysisConfig(dst))
+    load_s = time.perf_counter() - t0
+    nodes = [str(n.target) for n in aot._aot.ep.graph.nodes
+             if n.op == "call_function"]
+    counters = {"fwd": ak.flash_attention, "quant": qk.int8_matmul}
+    for c in counters.values():
+        c.launches = 0
+    got = aot.run(batch)[0]
+    with open(os.path.join(dst, "result.json"), "w") as f:
+        json.dump({"export_s": export_s, "load_s": load_s,
+                   "program_built": aot._program is not None,
+                   "k1_nodes": nodes.count(inf.CUSTOM_OPS["K1"]),
+                   "k6_nodes": nodes.count(inf.CUSTOM_OPS["K6"]),
+                   "launches": {k: c.launches for k, c in counters.items()},
+                   "rel_err": rel_err(got, want),
+                   "bit_for_bit": bool(np.array_equal(got, want)),
+                   "bytes": os.path.getsize(os.path.join(
+                       dst, inf.SERIALIZED_PT2))}, f)
+
+
+def start_exports(fp32):
+    """One export_worker process a precision over serving_phase's model
+    dir at batch AOT_B: {kind: (process, directory)}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    names = ("src_ids", "pos_ids", "sent_ids", "attn_bias")
+    batch = {n: np.concatenate([r[n] for r in fp32["reqs"][:AOT_B]])
+             for n in names}
+    # a trace is one Python thread: no intra-op pool to oversubscribe the
+    # host beside the phase's own process
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = {}
+    for kind in AOT_KINDS:
+        d = tempfile.mkdtemp(prefix=f"aot_{kind}_")
+        shutil.copytree(fp32["model_dir"], d, dirs_exist_ok=True)
+        np.savez(os.path.join(d, "batch.npz"), **batch)
+        code = (f"import sys; sys.path.insert(0, {here!r}); "
+                f"import chip_smoke; chip_smoke.export_worker({kind!r}, "
+                f"{fp32['model_dir']!r}, {d!r})")
+        out[kind] = (subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                                      env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True),
+                     d)
+    return out
+
+
+def aot_path(torch, smi, fluid, fp32, exports):
+    """Each precision's AOT path (export_worker, one process each): K1
+    (and K6) as custom-op nodes and launches a batch of the artifact a
+    fresh Predictor loaded, its answers against program mode's on the
+    same batch, the meta; the fp32 artifact also loaded here and served
+    (aot_serving) before the other precisions' processes are waited
+    for."""
+    from paddle_tpu_torch import inference as inf
+
+    out = {}
+    for kind in AOT_KINDS:
+        proc, d = exports[kind]
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"AOT {kind}: the export process failed:\n{log}")
+        row = json.load(open(os.path.join(d, "result.json")))
+        meta = json.load(open(os.path.join(d, inf.SERIALIZED_META)))
+        print(f"[{smi}] AOT {kind} (its own process): export "
+              f"{row['export_s']:.3f} s ({row['bytes']} bytes), load "
+              f"{row['load_s']:.3f} s, program built {row['program_built']}, "
+              f"meta amp {meta['amp']} quant {meta['quant']} device "
+              f"{meta['device']} custom ops {meta['custom_ops']}; graph "
+              f"nodes K1 {row['k1_nodes']} K6 {row['k6_nodes']}, launches a "
+              f"batch {row['launches']}; against program mode max relative "
+              f"error {row['rel_err']:.3e} (bar {AOT_RTOL:g}), bit for bit "
+              f"{row['bit_for_bit']}", flush=True)
+        want_k6 = 74 if kind == "quant" else 0
+        if row["program_built"] or row["k1_nodes"] != 12 or \
+                row["launches"]["fwd"] != 12 or row["k6_nodes"] != want_k6 \
+                or row["launches"]["quant"] != want_k6 or \
+                row["rel_err"] > AOT_RTOL or \
+                meta["amp"] != (kind == "bf16") or \
+                meta["quant"] != (kind == "quant") or \
+                meta["device"] != AOT_DEVICE:
+            raise SystemExit(f"AOT {kind}: {row}, meta {meta}")
+        out[kind] = row
+        if kind == "fp32":
+            # served here while the other exports finish
+            out[kind].update(aot_serving(torch, smi, fluid, fp32, d))
+    return out
+
+
+def aot_serving(torch, smi, fluid, fp32, d):
+    """The fp32 artifact in `d` loaded here and served through
+    ServingEngine on serving_phase's requests, beside serving_phase's
+    program-mode engine (max batch AOT_B) earlier in this run."""
+    from paddle_tpu_torch.ops import attention_kernels as ak
+
+    t0 = time.perf_counter()
+    aot = fluid.create_paddle_predictor(fluid.AnalysisConfig(d))
+    load_s = time.perf_counter() - t0
+    served = serve(fluid, aot, fp32["reqs"], AOT_B,
+                   {"fwd": ak.flash_attention})
+    per_batch = served["launches"]["fwd"] / served["batches"]
+    err = float(np.abs(served["served"] - fp32["served"]).max())
+    print(f"[{smi}] AOT fp32 through ServingEngine (loaded here in "
+          f"{load_s:.3f} s): {served['line']}; program mode (serving "
+          f"phase): {fp32['line']}; K1 launches a batch {per_batch:g}; "
+          f"answers against program mode's max_abs_err {err:.3e}",
+          flush=True)
+    del aot
+    torch.cuda.empty_cache()
+    if per_batch != 12 or err > SERVE_ATOL:
+        raise SystemExit(f"AOT serving: K1 {per_batch} a batch, answers "
+                         f"{err}")
+    return {"p50": served["p50"], "p99": served["p99"],
+            "program_p50": fp32["p50"], "program_p99": fp32["p99"],
+            "serving_launches": per_batch}
+
+
+def bert_base_program(fluid, dropout, batch_optimizer):
+    """BERT-base pretraining (12 layers) under `batch_optimizer(fluid, loss)`
+    (which calls minimize and returns whatever it builds besides), its
+    names fixed by a unique_name guard so two builds share parameter
+    names: (main, startup, loss, extra)."""
+    from paddle_tpu_torch.models.bert import BertConfig, bert_pretrain
+
+    cfg = BertConfig(num_layers=12, dropout=dropout, **BERT_BASE)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        loss, _ = bert_pretrain(cfg, TRAIN_T)
+        extra = batch_optimizer(fluid, loss)
+    return main, startup, loss, extra
+
+
+def split_feed(feed, k):
+    """A pretrain_feed batch cut into k equal micro-batches, each
+    mask_pos re-based to its own rows."""
+    b, t = feed["src_ids"].shape
+    bm, m = b // k, feed["mask_pos"].shape[0] // b
+    out = []
+    for i in range(k):
+        rows, masked = slice(i * bm, (i + 1) * bm), \
+            slice(i * bm * m, (i + 1) * bm * m)
+        micro = {n: feed[n][rows] for n in ("src_ids", "pos_ids",
+                                            "sent_ids", "attn_bias",
+                                            "nsp_label")}
+        micro.update({n: feed[n][masked] for n in ("mlm_label",
+                                                   "mlm_weight")})
+        micro["mask_pos"] = feed["mask_pos"][masked] - i * bm * t
+        out.append(micro)
+    return out
+
+
+def gradient_merge_path(torch, smi, fluid):
+    """BERT-base under GradientMergeOptimizer(Adam, k_steps=GM_K) at
+    micro-batch GM_MICRO, dropout 0.1 through K10, GM_STEPS steps: one
+    captured signature, the capture refusing nothing; captured against
+    uncaptured (compiled_arm: each uncaptured step from the captured
+    state before it) with losses bit for bit; every parameter and Adam
+    moment unchanged bit for bit off the boundary; K1/K2a/K2b/K10 launches
+    a micro-step.  Then under SGD with dropout 0: the boundary update of
+    k merged micro-batches against one step on their whole batch."""
+    from paddle_tpu_torch.core.executor import capture_refusals
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+
+    t0 = time.perf_counter()
+    fluid.set_flags({"use_fused_dropout": True})
+
+    def merged(inner):
+        def build(f, loss):
+            f.optimizer.GradientMergeOptimizer(inner(f), k_steps=GM_K,
+                                               avg=True).minimize(loss)
+        return build
+
+    main, startup, loss, _ = bert_base_program(
+        fluid, 0.1, merged(lambda f: f.optimizer.Adam(learning_rate=1e-4)))
+    refused = capture_refusals(main)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=init)
+    start = clone_state(init)
+    del init
+    feeds = [pretrain_feed(GM_MICRO, TRAIN_T, TRAIN_M, SEED + 61 + i)
+             for i in range(GM_STEPS)]
+    counters = {"fwd": ak.flash_attention, "dkv": ak.flash_attention_bwd_dkv,
+                "dq": ak.flash_attention_bwd_dq, "dropout": dk.fused_dropout}
+    held = []
+    cap = compiled_arm(torch, fluid, main, loss, start, feeds, True, held,
+                       counters)
+    compiles = cap["exe"].compile_count
+    cap["exe"].close()
+    del cap["exe"], cap["scope"], cap["step"]
+    block = main.global_block()
+    state = sorted(n for n in held[0]
+                   if held[0][n].is_floating_point()
+                   and "@GRAD_MERGE" not in n and block.has_var(n)
+                   and not n.startswith("learning_rate"))
+    params = {p.name for p in main.all_parameters()}
+    frozen, moved = [], []
+    for i in range(GM_STEPS):
+        changed = [n for n in state
+                   if not torch.equal(held[i][n], held[i + 1][n])]
+        if (i + 1) % GM_K:
+            frozen.append(len(changed) == 0)
+        else:
+            moved.append(params <= set(changed))
+    unc = compiled_arm(torch, fluid, main, loss, start, feeds, False, held,
+                       counters)
+    unc["exe"].close()
+    del unc["exe"], unc["scope"], unc["step"], held, start
+    torch.cuda.empty_cache()
+    equal = cap["losses"] == unc["losses"]
+    worst_gap = max(g[1] for g in unc["gaps"])
+    want = COMPILED_LAUNCHES["bert"]
+    step_ms = statistics.median(cap["walls"]) * 1e3
+    print(f"[{smi}] GradientMerge(Adam, k {GM_K}) BERT-base micro-batch "
+          f"{GM_MICRO}: capture refusals {refused}, captured signatures "
+          f"{compiles}; captured losses {cap['losses']}, uncaptured "
+          f"{unc['losses']} (each step from the captured state before it), "
+          f"bit for bit {equal}; worst leaf gap of an update "
+          f"{worst_gap:.3e} (bar {COMPILED_LEAF_GAP:g}); {len(state)} "
+          f"parameters and optimizer states unchanged bit for bit off the "
+          f"boundary {frozen}, every parameter moved on it {moved}; "
+          f"launches a micro-step {cap['launches']} (uncaptured "
+          f"{unc['launches']}); replayed micro-step {step_ms:.6f} ms, peak "
+          f"{cap['peak']} bytes ({cap['peak'] / 2**30:.3f} GiB)",
+          flush=True)
+    if refused or compiles != 1 or not equal or not all(frozen) or \
+            not all(moved) or cap["launches"] != want or \
+            unc["launches"] != want or not worst_gap <= COMPILED_LEAF_GAP:
+        raise SystemExit("GradientMerge on BERT-base failed its checks")
+    fluid.set_flags({"use_fused_dropout": False})
+    return {"launches": cap["launches"], "step_ms": step_ms,
+            "peak": cap["peak"], "seconds": time.perf_counter() - t0}
+
+
+def gradient_merge_sgd_check(torch, smi, fluid):
+    """BERT-base, dropout 0 (no random draw tells the arms apart): GM_K
+    micro-batches of GM_MICRO merged by GradientMergeOptimizer(SGD)
+    against one SGD step on their whole batch from the same state, each
+    parameter's update compared."""
+    t0 = time.perf_counter()
+
+    def sgd(f):
+        return f.optimizer.SGD(learning_rate=GM_SGD_LR)
+
+    def merged(f, loss):
+        f.optimizer.GradientMergeOptimizer(sgd(f), k_steps=GM_K,
+                                           avg=True).minimize(loss)
+
+    gm = bert_base_program(fluid, 0.0, merged)
+    big = bert_base_program(fluid, 0.0,
+                            lambda f, loss: sgd(f).minimize(loss))
+    init = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(gm[1], scope=init)
+    start = clone_state(init)
+    del init
+    whole = pretrain_feed(GM_K * GM_MICRO, TRAIN_T, TRAIN_M, SEED + 71)
+    names = [p.name for p in gm[0].all_parameters()]
+    after = {}
+    for label, (prog, _, lss, _), feeds in (
+            ("merged", gm, split_feed(whole, GM_K)),
+            ("whole", big, [whole])):
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), \
+            scope_from(fluid, start)
+        for feed in feeds:
+            exe.run(prog, feed=feed, fetch_list=[lss], scope=scope)
+        after[label] = {n: scope.find_var(n).clone() for n in names}
+        exe.close()
+    rows = []
+    for n in names:
+        w, m, p0 = (after["whole"][n].double(), after["merged"][n].double(),
+                    start[n].double())
+        update = torch.linalg.vector_norm(w - p0).item()
+        gap = torch.linalg.vector_norm(m - w).item() / max(update, 1e-30)
+        off = (m - w).abs().max().item()
+        elementwise = off / (GM_SGD_TOL * (1.0 + w.abs().max().item()))
+        rows.append((gap, n, elementwise, off, (w - p0).abs().max().item()))
+    rows.sort(reverse=True)
+    worst = rows[0][0]
+    worst_elementwise = max(r[2] for r in rows)
+    largest = max(r[4] for r in rows)
+    print(f"[{smi}] GradientMerge(SGD {GM_SGD_LR}, k {GM_K}) BERT-base, "
+          f"dropout 0: {GM_K} merged micro-batches of {GM_MICRO} against "
+          f"one step on their batch of {GM_K * GM_MICRO}, over {len(names)} "
+          f"parameters: worst update gap ||merged - whole|| / ||whole - "
+          f"start|| {worst:.3e} (bar {GM_UPDATE_GAP:g}); elementwise, the "
+          f"worst |merged - whole| over {GM_SGD_TOL:g} (1 + |whole|) "
+          f"{worst_elementwise:.3f} (1 or less meets the CPU test's "
+          f"elementwise bar); largest update {largest:.3e}; worst five "
+          f"(parameter, update gap, |merged - whole|, largest update "
+          f"element) {[(r[1], f'{r[0]:.3e}', f'{r[3]:.3e}', f'{r[4]:.3e}') for r in rows[:5]]}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    del after, start, gm, big
+    torch.cuda.empty_cache()
+    if worst > GM_UPDATE_GAP or largest < 100 * GM_SGD_TOL:
+        raise SystemExit(f"GradientMerge: merged update off the whole "
+                         f"batch's: {rows[:5]}")
+    return {"worst": worst, "elementwise": worst_elementwise}
+
+
+def window_average(values, rate, min_w, max_w):
+    """average_accumulates' window over the recorded values, on the host
+    in float64: the average ModelAverage.apply must put in place."""
+    s1 = s2 = s3 = 0.0
+    n_acc = old = n_upd = 0
+    for v in values:
+        n_upd += 1
+        n_acc += 1
+        s1 = s1 + v
+        if n_upd % 16384 == 0:
+            s2, s1 = s2 + s1, 0.0
+        limit = min(max_w, int(np.floor(np.float32(n_upd) *
+                                        np.float32(rate))))
+        if n_acc >= min_w and n_acc >= limit:
+            s3, s1, s2, old, n_acc = s1 + s2, 0.0, 0.0, n_acc, 0
+    return (s1 + s2 + s3) / (n_acc + old)
+
+
+def model_average_path(torch, smi, fluid):
+    """BERT-base with Adam and ModelAverage(MA_RATE, MA_MIN, MA_MAX),
+    MA_STEPS captured steps at batch GM_MICRO with dropout 0.1: one
+    signature, the launches of training_phase a step; apply() puts the
+    window average of each parameter in place (three held against a
+    host average of their recorded values), restore() the live values
+    bit for bit."""
+    from paddle_tpu_torch.core.executor import capture_refusals
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import dropout_kernels as dk
+
+    t0 = time.perf_counter()
+    fluid.set_flags({"use_fused_dropout": True})
+
+    def build(f, loss):
+        f.optimizer.Adam(learning_rate=1e-4).minimize(loss)
+        return f.optimizer.ModelAverage(MA_RATE, min_average_window=MA_MIN,
+                                        max_average_window=MA_MAX)
+
+    main, startup, loss, ma = bert_base_program(fluid, 0.1, build)
+    refused = capture_refusals(main)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = [p.name for p in ma.params]
+    watched = [names[0], names[len(names) // 2], names[-1]]
+    recorded = {n: [] for n in watched}
+    counters = {"fwd": ak.flash_attention, "dkv": ak.flash_attention_bwd_dkv,
+                "dq": ak.flash_attention_bwd_dq, "dropout": dk.fused_dropout}
+    feeds = [pretrain_feed(GM_MICRO, TRAIN_T, TRAIN_M, SEED + 81 + i % 2)
+             for i in range(2)]
+    walls = []
+    for i in range(MA_STEPS):
+        for c in counters.values():
+            c.launches = 0
+        t_step = time.perf_counter()
+        exe.run(main, feed=feeds[i % 2], fetch_list=[loss], scope=scope)
+        walls.append(time.perf_counter() - t_step)
+        for n in watched:
+            recorded[n].append(scope.find_var(n).double().cpu().numpy())
+    launches = {k: c.launches for k, c in counters.items()}
+    live = {n: scope.find_var(n).clone() for n in names}
+    with fluid.scope_guard(scope):
+        with ma.apply(exe):
+            averaged = {n: scope.find_var(n).clone() for n in names}
+    restored = all(torch.equal(scope.find_var(n), live[n]) for n in names)
+    errs = {n: rel_err(averaged[n].double().cpu().numpy(),
+                       window_average(recorded[n], MA_RATE, MA_MIN, MA_MAX))
+            for n in watched}
+    changed = sum(not torch.equal(averaged[n], live[n]) for n in names)
+    compiles = exe.compile_count
+    # steps 3 on replay the captured graph (each ended by its loss fetch)
+    step_ms = statistics.median(walls[2:]) * 1e3
+    exe.close()
+    del live, averaged
+    torch.cuda.empty_cache()
+    print(f"[{smi}] ModelAverage({MA_RATE}, {MA_MIN}, {MA_MAX}) on BERT-base"
+          f" with Adam, {MA_STEPS} steps: capture refusals {refused}, "
+          f"captured signatures {compiles}, launches of the last step "
+          f"{launches}, replayed step {step_ms:.6f} ms (median of "
+          f"{MA_STEPS - 2}); apply(): {changed} of {len(names)} parameters "
+          f"averaged, relative error against the host window average "
+          f"{errs} (bar {MA_RTOL:g}); restore() bit for bit {restored}",
+          flush=True)
+    fluid.set_flags({"use_fused_dropout": False})
+    if refused or compiles != 1 or launches != COMPILED_LAUNCHES["bert"] \
+            or not restored or max(errs.values()) > MA_RTOL or \
+            changed != len(names):
+        raise SystemExit("ModelAverage on BERT-base failed its checks")
+    return {"launches": launches, "step_ms": step_ms,
+            "seconds": time.perf_counter() - t0}
+
+
+def trainer_path(torch, smi, fluid):
+    """The book's fit_a_line through Trainer on the card (the pipelined
+    dataio loop, FAL_EPOCHS epochs with its events), then Inferencer on
+    the saved parameters against a CPU Inferencer on them."""
+    def net():
+        x = fluid.layers.data(name="x", shape=[13], dtype="float32")
+        return fluid.layers.fc(input=x, size=1, act=None)
+
+    def train_func():
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        return [fluid.layers.mean(fluid.layers.square_error_cost(
+            input=net(), label=y))]
+
+    def reader():
+        rng = np.random.RandomState(SEED)
+        w = np.linspace(-1.0, 1.0, 13).astype(np.float32)
+        for _ in range(FAL_BATCHES):
+            x = rng.randn(FAL_B, 13).astype(np.float32)
+            y = x @ w + 0.5
+            yield [(x[i], np.array([y[i]], np.float32))
+                   for i in range(FAL_B)]
+
+    t0 = time.perf_counter()
+    trainer = fluid.Trainer(train_func,
+                            lambda: fluid.optimizer.SGD(learning_rate=0.05),
+                            place=fluid.CUDAPlace(0))
+    events, losses = [], []
+
+    def handler(e):
+        events.append(type(e).__name__)
+        if isinstance(e, fluid.EndStepEvent):
+            losses.append(float(np.asarray(e.metrics[0]).reshape(())))
+
+    trainer.train(FAL_EPOCHS, handler, reader=reader, feed_order=["x", "y"])
+    path = tempfile.mkdtemp(prefix="fit_a_line_")
+    trainer.save_params(path)
+    xb = np.random.RandomState(SEED + 1).randn(8, 13).astype(np.float32)
+    card = fluid.Inferencer(net, path, place=fluid.CUDAPlace(0)).infer(
+        {"x": xb})[0]
+    cpu = fluid.Inferencer(net, path, place=fluid.CPUPlace()).infer(
+        {"x": xb})[0]
+    shutil.rmtree(path, ignore_errors=True)
+    err = float(np.abs(card - cpu).max())
+    want = ["BeginEpochEvent"] + ["BeginStepEvent", "EndStepEvent"] * \
+        FAL_BATCHES + ["EndEpochEvent"]
+    print(f"[{smi}] Trainer fit_a_line: {FAL_EPOCHS} epochs of "
+          f"{FAL_BATCHES} batches of {FAL_B}, losses {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}, events in order "
+          f"{events == want * FAL_EPOCHS}; Inferencer card vs CPU "
+          f"max_abs_err {err:.3e} (atol {SERVE_ATOL:g}); "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if events != want * FAL_EPOCHS or not np.isfinite(losses).all() or \
+            not losses[-1] < 0.5 * losses[0] or err > SERVE_ATOL:
+        raise SystemExit("Trainer fit_a_line on the card failed its checks")
+    return {"losses": losses}
+
+
+def front_end_remainder_phase(torch, smi, fp32):
+    """The Predictor's zero-copy and AOT paths over serving_phase's
+    BERT-base model dir (`fp32`, its result), GradientMerge and
+    ModelAverage on BERT-base training, and the Trainer; the K1 wrapper's
+    host time a call (a call of its custom op) at the serving shape.  The
+    three exports run in processes of their own (start_exports) while
+    this one runs the training paths; every process is waited for or
+    killed before the phase returns."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.ops import quant_kernels as qk
+
+    phase("front end remainder: zero-copy and AOT serving, GradientMerge, "
+          "ModelAverage, Trainer")
+    t0 = time.perf_counter()
+    # the wrappers' host times first, on a quiet host
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    q, k, v = (torch.randn(AOT_B, 12, TRAIN_T, 64, generator=g,
+                           device="cuda") for _ in range(3))
+    bias = torch.zeros(AOT_B, 1, 1, TRAIN_T, device="cuda")
+    scale = 1.0 / 8.0
+    out["k1_host_ms"] = host_ms(
+        torch, lambda: ak.flash_attention_fwd(q, k, v, bias), reps=500)
+    out["k1_op_host_ms"] = host_ms(
+        torch, lambda: torch.ops.paddle_tpu_torch.flash_attention_fwd(
+            q, k, v, bias, False, scale, 0.0, 0, None, False), reps=500)
+    xq = torch.randint(-127, 128, (1024, 768), generator=g,
+                       device="cuda", dtype=torch.int8)
+    wk = qk.k_major(torch.randint(-127, 128, (768, 768), generator=g,
+                                  device="cuda", dtype=torch.int8))
+    cs_ = torch.rand(768, generator=g, device="cuda") * 1e-4 + 1e-6
+    out["k6_host_ms"] = host_ms(torch, lambda: qk.int8_matmul(xq, wk,
+                                                              cs_),
+                                reps=500)
+    out["k6_op_host_ms"] = host_ms(
+        torch, lambda: torch.ops.paddle_tpu_torch.int8_matmul(xq, wk, cs_),
+        reps=500)
+    print(f"[{smi}] host ms a call (median of 500): K1 "
+          f"flash_attention_fwd at [{AOT_B}, 12, {TRAIN_T}, 64] with a "
+          f"row bias, the eager wrapper {out['k1_host_ms']:.6f}, the "
+          f"custom op paddle_tpu_torch::flash_attention_fwd through the "
+          f"dispatcher (an exported graph's node) "
+          f"{out['k1_op_host_ms']:.6f}; K6 int8_matmul at M 1024, K = N "
+          f"= 768, the eager wrapper {out['k6_host_ms']:.6f}, the custom "
+          f"op paddle_tpu_torch::int8_matmul {out['k6_op_host_ms']:.6f}",
+          flush=True)
+    del q, k, v, bias, xq, wk, cs_
+    exports = start_exports(fp32)
+    try:
+        out["zero_copy"] = zero_copy_path(torch, smi, fluid, fp32)
+        for key, path in (("gm", gradient_merge_path),
+                          ("ma", model_average_path),
+                          ("trainer", trainer_path),
+                          ("gm_sgd", gradient_merge_sgd_check)):
+            t_path = time.perf_counter()
+            out[key] = path(torch, smi, fluid)
+            print(f"{key}: {time.perf_counter() - t_path:.3f} s "
+                  f"(at {time.perf_counter() - t0:.1f} s of the phase)",
+                  flush=True)
+        t_path = time.perf_counter()
+        out["aot"] = aot_path(torch, smi, fluid, fp32, exports)
+        print(f"aot: {time.perf_counter() - t_path:.3f} s (at "
+              f"{time.perf_counter() - t0:.1f} s of the phase)", flush=True)
+    finally:
+        for proc, d in exports.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            shutil.rmtree(d, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[{smi}] front end remainder phase {out['seconds']:.3f} s",
+          flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -7338,6 +7968,7 @@ def main():
     compiled = compiled_step_phase(torch, smi, fp32)
     seq = sequence_labelling_phase(torch, smi)
     front = front_end_phase(torch, smi, compiled)
+    rest = front_end_remainder_phase(torch, smi, fp32)
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -7365,8 +7996,21 @@ def main():
                     **bf16_keys(amp_attn_rows[k][amp_bert],
                                 amp["bert"]["launches"][k] * AMP_STEPS),
                     device_key_ms=compiled["key_ms"][k],
-                    clip_bert_launches=front["bert"]["launches"][k])
+                    clip_bert_launches=front["bert"]["launches"][k],
+                    gradient_merge_launches=rest["gm"]["launches"][k],
+                    model_average_launches=rest["ma"]["launches"][k])
                for k in ("fwd", "dkv", "dq")]
+    # K1 as the custom op: its host time a wrapper call, its launches a
+    # batch on the zero-copy path and from the exported program (eager and
+    # served), and its nodes in the exported graphs
+    aot = rest["aot"]
+    kernels[0].update(
+        host_ms=rest["k1_host_ms"], custom_op_host_ms=rest["k1_op_host_ms"],
+        zero_copy_launches_per_batch=rest["zero_copy"]["launches"],
+        aot_launches_per_batch=aot["fp32"]["launches"]["fwd"],
+        aot_serving_launches_per_batch=aot["fp32"]["serving_launches"],
+        aot_bf16_launches_per_batch=aot["bf16"]["launches"]["fwd"],
+        aot_custom_op_nodes=aot["fp32"]["k1_nodes"])
     # K1 on the beam decode's path (Path B) at its decoder self-attention
     beam = control["rows"]["beam_dec_self"]
     kernels[0].update({"beam_decode_launches": control["beam"]["launches"],
@@ -7376,6 +8020,10 @@ def main():
     kernels.append(dict(KERNELS["quant"],
                         launches=quant["launches"]["quant"],
                         launches_per_batch=per_batch,
+                        aot_launches_per_batch=aot["quant"]["launches"][
+                            "quant"],
+                        aot_custom_op_nodes=aot["quant"]["k6_nodes"],
+                        custom_op_host_ms=rest["k6_op_host_ms"],
                         **quant_rows["qkv_out_m1024"]))
     # the RNN slice's shapes: the seq2seq encoder step, the GRU program's
     # step, the sequence-softmax program at T = 128
@@ -7415,6 +8063,10 @@ def main():
                                     * nmt_steps_amp),
                         device_key_ms=compiled["key_ms"]["dropout"],
                         clip_bert_launches=front["bert"]["launches"][
+                            "dropout"],
+                        gradient_merge_launches=rest["gm"]["launches"][
+                            "dropout"],
+                        model_average_launches=rest["ma"]["launches"][
                             "dropout"]))
     # the decode shape of bench_kernels.py: K4 with float32 arenas (the
     # disaggregated path's float32 pool; its bf16 arm beside it), K5 int8
@@ -7506,6 +8158,16 @@ def main():
           f"LARS step {fr['step_ms']:.6f} ms (Momentum "
           f"{compiled['resnet50']['step_ms']:.6f}); {len(front['sweep'])} "
           f"op types held card vs CPU; phase {front['seconds']:.3f} s")
+    zc, gm, ma = rest["zero_copy"], rest["gm"], rest["ma"]
+    print(f"[{smi}] front end remainder: zero-copy batch {ZC_B} "
+          f"{zc['ms']:.6f} ms (run() {zc['run_ms']:.6f}); AOT fp32 served "
+          f"p50 {aot['fp32']['p50']:.6f} ms (program mode "
+          f"{aot['fp32']['program_p50']:.6f}), K1 {aot['fp32']['k1_nodes']} "
+          f"nodes, K6 {aot['quant']['k6_nodes']} nodes quantized; "
+          f"GradientMerge micro-step {gm['step_ms']:.6f} ms, peak "
+          f"{gm['peak'] / 2**30:.3f} GiB, launches {gm['launches']}; "
+          f"ModelAverage launches {ma['launches']}; phase "
+          f"{rest['seconds']:.3f} s")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

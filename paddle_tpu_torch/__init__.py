@@ -32,7 +32,14 @@ by a ``DataFeeder`` or through ``layers.py_reader``, which stages each
 batch onto the card from pinned memory on a side stream.  And it trains
 and serves in bf16 mixed precision: ``contrib.mixed_precision.enable(
 main)`` before training, ``AnalysisConfig.enable_bf16()`` before serving
-(parameters and optimizer state stay fp32).
+(parameters and optimizer state stay fp32).  And it ships a model
+without its Program: ``Predictor.export_serialized`` writes a
+``torch.export`` artifact (K1's forward and K6 as ``torch.library``
+custom ops inside it), which a Predictor over that directory serves; the
+zero-copy API stages inputs on the card once.  ``Trainer``/``Inferencer``
+(``trainer_api.py``) run the book chapters' high-level loop, and
+``optimizer.GradientMergeOptimizer`` and ``optimizer.ModelAverage`` keep a
+training step one captured CUDA graph.
 """
 
 from .core import framework, unique_name  # noqa: F401
@@ -68,9 +75,16 @@ from . import parallel     # noqa: F401
 from . import profiler     # noqa: F401
 from . import observability  # noqa: F401
 from .flags import set_flags, get_flags  # noqa: F401
+from . import metrics      # noqa: F401
+from . import average      # noqa: F401
+from .average import WeightedAverage  # noqa: F401
+from .data_feed_desc import DataFeedDesc  # noqa: F401
+from .trainer_api import (Trainer, Inferencer,  # noqa: F401
+                          BeginEpochEvent, EndEpochEvent,
+                          BeginStepEvent, EndStepEvent)
 from . import inference    # noqa: F401
 from . import serving      # noqa: F401
 from .inference import (AnalysisConfig, PaddleTensor,  # noqa: F401
-                        create_paddle_predictor)
+                        ZeroCopyTensor, create_paddle_predictor)
 
 __version__ = "0.1.0"

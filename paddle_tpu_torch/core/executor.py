@@ -610,14 +610,21 @@ class _Captures:
     def write_adopted(self, scope, new):
         """The warmup's state write: in place into the Scope tensors that
         are adopted (so every captured signature binds the same tensors),
-        a swap for the rest, as the interpreter writes."""
-        pairs = []
+        a swap for the rest, as the interpreter writes.  A swapped-in
+        value that is one of the tensors written in place (a program that
+        backs a state tensor up under another name, as ModelAverage's
+        apply does) is cloned first, so the copies do not reach it."""
+        pairs, swaps = [], []
         for n, v in new.items():
             cur = scope.find_var(n)
             if self.owns(cur) and _matches(v, cur):
                 pairs.append((cur, v))
             else:
-                scope.set_var(n, v)
+                swaps.append((n, v))
+        targets = {_storage(t) for t, v in pairs if v is not t}
+        for n, v in swaps:
+            scope.set_var(n, v.clone() if isinstance(v, torch.Tensor)
+                          and _storage(v) in targets else v)
         _write_into(pairs)
 
 
@@ -852,40 +859,12 @@ class _CompiledBlock:
 
     def _capture(self, st, step):
         """Capture the step into one CUDA graph on the executor's pool and
-        stream.  Capture runs nothing; the launch counters' deltas over
-        the captured step are kept for the replays, and the counters
-        left as they were.  A failed capture raises, naming the op."""
-        from ..ops.cuda_build import launch_counters
-
+        stream (:func:`capture_graph`); the launch counters' deltas over
+        the captured step are kept for the replays."""
         caps = self.captures
-        before = {id(c): c.launches for c in launch_counters()}
-        graph = torch.cuda.CUDAGraph()
-        failed = []
         t0 = time.perf_counter()
-        try:
-            with _CAPTURE_LOCK, _no_collection():
-                with torch.cuda.graph(graph, pool=caps.pool(),
-                                      stream=caps.stream(),
-                                      capture_error_mode="thread_local"):
-                    try:
-                        st.fetches = self._body(st, step)
-                    except BaseException as e:
-                        failed.append(e)
-                        raise
-        except Exception as e:
-            cause = failed[0] if failed else e
-            notes = "; ".join(getattr(cause, "__notes__", ()))
-            raise RuntimeError(
-                "capturing the step as a CUDA graph failed "
-                f"({notes or 'outside any op'}): {cause!r}") from cause
-        finally:
-            deltas = []
-            for c in launch_counters():
-                b = before.get(id(c), 0)
-                deltas.append((c, c.launches - b))
-                c.launches = b
-        st.graph = graph
-        st.launches = tuple((c, d) for c, d in deltas if d)
+        st.graph, st.fetches, st.launches = capture_graph(
+            lambda: self._body(st, step), caps.pool(), caps.stream())
         caps.capture_ms.append((time.perf_counter() - t0) * 1e3)
 
     def _replay(self, st, feed, scope, step):
@@ -906,6 +885,42 @@ class _CompiledBlock:
         for n, t in st.targets.items():
             scope.set_var(n, t)
         return [f.clone() for f in fetches]
+
+
+def capture_graph(body, pool, stream):
+    """Capture body() into one CUDA graph on `pool` and `stream`, one
+    capture at a time in the process and with no cyclic collection during
+    it.  Capture runs nothing: returns (graph, body's result, ((launch
+    counter, its delta over the captured body), ...)), the counters left
+    as they were, for each replay to add its delta.  A failed capture
+    raises, naming the op."""
+    from ..ops.cuda_build import launch_counters
+
+    before = {id(c): c.launches for c in launch_counters()}
+    graph = torch.cuda.CUDAGraph()
+    failed = []
+    try:
+        with _CAPTURE_LOCK, _no_collection():
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                try:
+                    result = body()
+                except BaseException as e:
+                    failed.append(e)
+                    raise
+    except Exception as e:
+        cause = failed[0] if failed else e
+        notes = "; ".join(getattr(cause, "__notes__", ()))
+        raise RuntimeError(
+            "capturing the step as a CUDA graph failed "
+            f"({notes or 'outside any op'}): {cause!r}") from cause
+    finally:
+        deltas = []
+        for c in launch_counters():
+            b = before.get(id(c), 0)
+            deltas.append((c, c.launches - b))
+            c.launches = b
+    return graph, result, tuple((c, d) for c, d in deltas if d)
 
 
 class _ProgramCache:

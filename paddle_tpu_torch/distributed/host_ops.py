@@ -3,7 +3,8 @@ arms of ``paddle_tpu/distributed/host_ops.py``).
 
 A ``sharded_lookup_table`` or ``sharded_push_grad`` op cannot run as a
 device kernel: it dedups ids on the host and talks to the table's shard
-servers.  The Executor dispatches these op types here
+servers; the debug ``print`` op (``layers.Print``) prints a value on the
+host.  The Executor dispatches these op types here
 (``core/executor.py``).  The parameter-server op types (send, recv,
 barriers, ``distributed_lookup_table``, ``listen_and_serv``, ...) are
 queued with the pserver tier (ROADMAP queue 1 item 11) and raise.
@@ -12,7 +13,7 @@ queued with the pserver tier (ROADMAP queue 1 item 11) and raise.
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
-HOST_OP_TYPES = {"sharded_lookup_table", "sharded_push_grad"}
+HOST_OP_TYPES = {"sharded_lookup_table", "sharded_push_grad", "print"}
 
 # lookup-flavored host ops sharing the issue/collect contract: the
 # executor issues at the op and collects before the first reader
@@ -120,6 +121,17 @@ def run_host_op(op, env):
         from ..sparse.engine import run_sharded_push
 
         run_sharded_push(op, env, attrs, tid)
+        return
+    if t == "print":
+        import numpy as np
+        import torch
+
+        name = op.input("In")[0] if op.input("In") else op.input("X")[0]
+        v = env[name]
+        if isinstance(v, torch.Tensor):
+            v = v.detach().float().cpu().numpy() \
+                if v.dtype == torch.bfloat16 else v.detach().cpu().numpy()
+        print(f"{attrs.get('message', name)}: {np.asarray(v)}")
         return
     if t in QUEUED_HOST_OP_TYPES:
         raise NotImplementedError(

@@ -1,10 +1,12 @@
 """fluid.layers parity namespace (the layers the port has copied)."""
 
 from . import (control_flow, io, learning_rate_scheduler,  # noqa: F401
-               nn, nn_extra, ops, rnn, sequence, tensor)
+               nn, nn_extra, ops, parity_extra, rnn, sequence, tensor)
 from .io import data, py_reader, read_file             # noqa: F401
 from .nn import *          # noqa: F401,F403
 from .nn_extra import *    # noqa: F401,F403
+# after nn and nn_extra, as in the JAX package: its names shadow theirs
+from .parity_extra import *  # noqa: F401,F403
 from .sequence import *    # noqa: F401,F403
 from .rnn import (dynamic_lstm, dynamic_lstmp, dynamic_gru,  # noqa: F401
                   gru_unit, lstm_unit, StaticRNN)

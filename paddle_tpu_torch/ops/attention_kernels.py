@@ -28,6 +28,14 @@ axis (every group forms the scores over the whole head dim).
 launches`` count the kernels' launches; ``flash_attention_with_lse.
 launches`` counts the forward launches made for K3.
 
+K1's forward is the ``torch.library`` custom op
+``paddle_tpu_torch::flash_attention_fwd`` (registered at import, with a
+fake implementation that gives its output shapes), so ``torch.export``
+records each call as one node and an exported program launches the
+kernel, counted at run time inside the op's body; an eager call runs
+the body directly.  The backward kernels have no custom op and refuse
+an export trace (``cuda_build.refuse_export``).
+
 Dropout on the softmax weights draws its bits from counter-based Philox
 (Random123's philox4x32-10) keyed by (seed) with the element's
 coordinates (k, q, b·h, 0) as the counter, so the forward and both
@@ -43,11 +51,13 @@ reproduced.
 import ctypes
 import os
 import re
+from typing import Optional, Tuple
 
 import torch
 
 from . import cuda_build
-from .registry import keep_threshold, launch_key, philox4x32, seed_key
+from .registry import (DeviceSeed, keep_threshold, launch_key, philox4x32,
+                       seed_key)
 
 _FWD, _BWD = "flash_attention_fwd", "flash_attention_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -340,16 +350,22 @@ def _cut(t, d):
     return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
-def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
-                        dropout_p=0.0, seed=0, with_lse=False):
-    """K1 on a CUDA tensor (counted in ``flash_attention.launches``), its
-    plain version on a CPU tensor; not differentiable.  Returns out, or
-    (out, lse [B,H,Tq] fp32) with `with_lse`."""
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
+def _flash_attention_fwd_impl(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias: Optional[torch.Tensor],
+                              causal: bool, scale: float, dropout_p: float,
+                              seed: int, step_word: Optional[torch.Tensor],
+                              with_lse: bool
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's custom op body: on a CUDA tensor the hand kernel (counted in
+    ``flash_attention.launches`` here, at run time), on a CPU tensor its
+    plain version.  `seed` is an int key, or with `step_word` a
+    ``registry.DeviceSeed``'s base.  Returns (out, lse [B,H,Tq] fp32),
+    lse empty without `with_lse`."""
+    seed = DeviceSeed(seed, step_word) if step_word is not None else seed
     if not _on_cuda(q, dropout_p):
-        return flash_attention_reference(q, k, v, bias, causal, scale,
-                                         dropout_p, seed, with_lse)
+        got = flash_attention_reference(q, k, v, bias, causal, scale,
+                                        dropout_p, seed, with_lse)
+        return got if with_lse else (got, _no_lse(q))
     dp = _check(q, k, v, bias)
     q_, k_, v_ = (_dense(t, dp) for t in (q, k, v))
     out = torch.empty_like(q_)
@@ -358,7 +374,46 @@ def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
     _launch("flash_attention_fwd", q_, k_, bias,
             _ptrs(q_, k_, v_, out, lse), causal, scale, dropout_p, seed)
     flash_attention.launches += 1
-    out = _cut(out, q.shape[-1])
+    return _cut(out, q.shape[-1]), lse if with_lse else _no_lse(q)
+
+
+def _no_lse(q):
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+# K1 as a torch.library custom op, so torch.export records a call as one
+# graph node and an exported program launches the kernel
+_flash_attention_fwd_op = torch.library.custom_op(
+    "paddle_tpu_torch::flash_attention_fwd",
+    mutates_args=())(_flash_attention_fwd_impl)
+
+
+@_flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_shapes(q, k, v, bias, causal, scale, dropout_p,
+                                seed, step_word, with_lse):
+    lse = q.new_empty(q.shape[:3], dtype=torch.float32) if with_lse \
+        else _no_lse(q)
+    return q.new_empty(q.shape), lse
+
+
+def flash_attention_fwd(q, k, v, bias=None, causal=False, scale=None,
+                        dropout_p=0.0, seed=0, with_lse=False):
+    """K1 on a CUDA tensor (counted in ``flash_attention.launches``), its
+    plain version on a CPU tensor; not differentiable.  Returns out, or
+    (out, lse [B,H,Tq] fp32) with `with_lse`.  Under ``torch.export`` (or
+    ``torch.compile``) a call of the custom op
+    ``paddle_tpu_torch::flash_attention_fwd``; run eagerly, its body
+    without the dispatcher's host time (chip_smoke measures both)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if isinstance(seed, DeviceSeed):
+        base, word = int(seed.base), seed.step
+    else:
+        base, word = int(seed), None
+    op = _flash_attention_fwd_op if torch.compiler.is_compiling() else \
+        _flash_attention_fwd_impl
+    out, lse = op(q, k, v, bias, bool(causal), float(scale),
+                  float(dropout_p), base, word, bool(with_lse))
     return (out, lse) if with_lse else out
 
 
@@ -366,6 +421,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, dout, lse, delta, causal=False,
                             scale=None, dropout_p=0.0, seed=0):
     """K2a: (dk, dv) from the forward's lse [B,H,Tq] and delta =
     rowsum(dO·O) [B,H,Tq], both fp32."""
+    cuda_build.refuse_export("K2a (flash_attention_bwd_dkv)")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if not _on_cuda(q, dropout_p):
@@ -397,6 +453,7 @@ def flash_attention_bwd_dq(q, k, v, bias, dout, lse, delta, causal=False,
     rows in the kernel, by fp32 atomics into a [B, Tk] buffer; any other
     bias's grad is written whole, [B·H, Tq, Tk], and summed down to the
     bias's shape here."""
+    cuda_build.refuse_export("K2b (flash_attention_bwd_dq)")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if not _on_cuda(q, dropout_p):

@@ -8,6 +8,14 @@ source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU tests import every module on
 a machine with no ``nvcc``.
+
+Two kernels are ``torch.library`` custom ops as well (K1's forward,
+``paddle_tpu_torch::flash_attention_fwd``, and K6,
+``paddle_tpu_torch::int8_matmul``), so ``torch.export`` records them as
+graph nodes and an exported program launches them.  Every other
+wrapper calls :func:`refuse_export` first: under ``torch.export`` it
+raises :class:`KernelNotExportable` naming its kernel, rather than let
+the trace record the wrapper's plain version in the kernel's place.
 """
 
 import ctypes
@@ -115,3 +123,22 @@ def launch_counters():
 
     return [getattr(importlib.import_module(mod, __package__), name)
             for mod, names in _COUNTED for name in names]
+
+
+class KernelNotExportable(RuntimeError):
+    """A hand kernel's wrapper was reached while ``torch.export`` traced a
+    program, and the kernel has no custom op an exported graph could
+    hold."""
+
+
+def refuse_export(kernel):
+    """Raise :class:`KernelNotExportable` for `kernel` (its name and
+    wrapper) when ``torch.export`` is tracing; nothing otherwise."""
+    import torch
+
+    if torch.compiler.is_exporting():
+        raise KernelNotExportable(
+            f"{kernel} has no torch.library custom op, so an exported "
+            "program cannot launch it: export a program that does not "
+            "reach it (only K1's forward and K6 export; ROADMAP queue 1 "
+            "item 13 lists the rest)")

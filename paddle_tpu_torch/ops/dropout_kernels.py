@@ -78,6 +78,7 @@ def _kernel():
 def fused_dropout_fwd(x, p, seed, upscale=True):
     """K10 on a CUDA tensor, its plain version on a CPU tensor; not
     differentiable."""
+    cuda_build.refuse_export("K10 (fused_dropout)")
     if not 0.0 < p < 1.0:
         raise ValueError(f"fused_dropout: p must be in (0, 1), not {p}")
     if x.device.type == "cpu":

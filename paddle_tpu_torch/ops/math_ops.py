@@ -351,3 +351,27 @@ register("logical_xor", not_differentiable=True)(_cmp(torch.logical_xor))
 @register("logical_not", not_differentiable=True)
 def logical_not(ins, attrs):
     return as_out(torch.logical_not(first(ins, "X")))
+
+
+# -- the activation tail of layers/parity_extra.py (activation_op.cc) -------
+
+@register("brelu")
+def brelu(ins, attrs):
+    """clip(x, t_min, t_max), the tie's gradient split as ``jnp.clip``'s."""
+    return as_out(tie_clip(first(ins, "X"), attrs.get("t_min", 0.0),
+                           attrs.get("t_max", 24.0)))
+
+
+@register("stanh")
+def stanh(ins, attrs):
+    """b · tanh(a · x)."""
+    x = first(ins, "X")
+    return as_out(attrs.get("scale_b", 1.7159) *
+                  torch.tanh(attrs.get("scale_a", 0.67) * x))
+
+
+@register("soft_relu")
+def soft_relu(ins, attrs):
+    """log(1 + exp(clip(x, -t, t)))."""
+    t = attrs.get("threshold", 40.0)
+    return as_out(torch.log1p(torch.exp(tie_clip(first(ins, "X"), -t, t))))

@@ -1,9 +1,11 @@
 """Metric kernels (port of part of ``paddle_tpu/ops/metric_ops.py``):
-``edit_distance``.  The file's other ops wait for a later slice.
+``edit_distance`` and ``auc``.  The file's other ops wait for a later
+slice.
 
 Reference semantics: ``edit_distance_op.cc`` (Levenshtein distance per
 hypothesis/reference pair, optionally divided by the reference's
-length).
+length), ``auc_op.cc`` (the bucketed ROC AUC over running StatPos /
+StatNeg histograms).
 """
 
 import torch
@@ -44,3 +46,29 @@ def edit_distance(ins, attrs):
     return {"Out": [d.reshape(-1, 1)],
             "SequenceNum": [torch.full((), b, dtype=torch.int64,
                                        device=hx.device)]}
+
+
+@register("auc", not_differentiable=True)
+def auc(ins, attrs):
+    """Each prediction's class-1 probability picks a bucket of the
+    histograms (floor(p · T), clipped to [0, T]); the AUC is the
+    trapezoid area under the running totals' ROC, walked from the high
+    threshold down, over positives × negatives (0 while either is 0)."""
+    preds = first(ins, "Predict")
+    labels = first(ins, "Label").reshape(-1)
+    stat_pos, stat_neg = first(ins, "StatPos"), first(ins, "StatNeg")
+    num_t = stat_pos.shape[0] - 1
+    idx = torch.clamp((preds[:, -1] * num_t).to(torch.int32), 0,
+                      num_t).long()
+    pos = (labels > 0).to(stat_pos.dtype)
+    stat_pos = stat_pos.index_add(0, idx, pos)
+    stat_neg = stat_neg.index_add(0, idx, 1.0 - pos)
+    zero = stat_pos.new_zeros(1)
+    tp = torch.cat([zero, torch.cumsum(stat_pos.flip(0), 0)])
+    fp = torch.cat([zero, torch.cumsum(stat_neg.flip(0), 0)])
+    area = torch.sum((fp[1:] - fp[:-1]) * (tp[1:] + tp[:-1]) / 2.0)
+    both = tp[-1] * fp[-1]
+    auc_val = torch.where(both > 0, area / torch.clamp_min(both, 1.0),
+                          torch.zeros_like(area))
+    return {"AUC": [auc_val.reshape(())],
+            "StatPosOut": [stat_pos], "StatNegOut": [stat_neg]}

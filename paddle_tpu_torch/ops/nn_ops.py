@@ -434,3 +434,19 @@ def hierarchical_sigmoid(ins, attrs):
     loss = torch.where(valid, ce, torch.zeros_like(ce)).sum(dim=1,
                                                            keepdim=True)
     return {"Out": [loss], "PreOut": [logits]}
+
+
+@register("prelu")
+def prelu(ins, attrs):
+    """x where x > 0, else alpha · x, alpha one value (``all``), one a
+    channel (``channel``) or one an element of a sample (``element``)."""
+    x = first(ins, "X")
+    alpha = first(ins, "Alpha")
+    mode = attrs.get("mode", "all")
+    if mode == "all":
+        a = alpha.reshape(())
+    elif mode == "channel":
+        a = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    else:
+        a = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return as_out(torch.where(x > 0, x, a * x))

@@ -231,6 +231,7 @@ def paged_attention(q, k_arena, v_arena, block_table, lengths, scale=None,
     plain version on a CPU ``q``; ``select``/``interpret`` have no
     effect (see the module docstring)."""
     del select, interpret
+    cuda_build.refuse_export("K4 (paged_attention)")
     k, v, table, lens, _ = operands(q, k_arena, v_arena, block_table,
                                     lengths)
     scale = 1.0 / (q.shape[-1] ** 0.5) if scale is None else float(scale)

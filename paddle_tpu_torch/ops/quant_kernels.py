@@ -21,6 +21,12 @@ for Hopper.
   so, once at load, and :func:`int8_matmul` takes that view as it stands
   (:func:`is_k_major`).  Any other weight (tests, a caller's own) is laid
   out by the wrapper on every call.
+- K6 is also the ``torch.library`` custom op
+  ``paddle_tpu_torch::int8_matmul`` (registered at import, with a fake
+  implementation that gives its output shape): ``torch.export`` records
+  each call as one node, and an exported quantized program launches the
+  kernel, counted at run time inside the op's body; an eager call runs
+  the body directly.
 - :func:`quant_matmul` ``(x, wq, wscale)`` is the reference's: a dynamic
   per-tensor activation scale and int8 codes computed with torch ops
   around the kernel (as XLA ops surround the Pallas call), then K6.
@@ -148,11 +154,11 @@ def _check(xq, wq, colscale):
                              f"{xq.device}")
 
 
-def int8_matmul(xq, wq, colscale):
-    """K6 on CUDA tensors, its plain version on CPU tensors: ``xq`` int8
-    [M, K], ``wq`` int8 [K, N] (K-major as :func:`k_major` lays it out, or
-    laid out so here), ``colscale`` fp32 [N] -> fp32 [M, N]."""
-    _check(xq, wq, colscale)
+def _int8_matmul_impl(xq: torch.Tensor, wq: torch.Tensor,
+                      colscale: torch.Tensor) -> torch.Tensor:
+    """K6's custom op body: on CUDA tensors the hand kernel (counted in
+    ``int8_matmul.launches`` here, at run time), on CPU tensors its plain
+    version."""
     if xq.device.type == "cpu":
         return int8_matmul_reference(xq, wq, colscale)
     if xq.device.type != "cuda":
@@ -184,6 +190,30 @@ def int8_matmul(xq, wq, colscale):
                            f"{err_str(rc).decode()}")
     int8_matmul.launches += 1
     return out
+
+
+# K6 as a torch.library custom op, so torch.export records a call as one
+# graph node and an exported program launches the kernel
+_int8_matmul_op = torch.library.custom_op(
+    "paddle_tpu_torch::int8_matmul", mutates_args=())(_int8_matmul_impl)
+
+
+@_int8_matmul_op.register_fake
+def _int8_matmul_shape(xq, wq, colscale):
+    return xq.new_empty((xq.shape[0], wq.shape[1]), dtype=torch.float32)
+
+
+def int8_matmul(xq, wq, colscale):
+    """K6 on CUDA tensors, its plain version on CPU tensors: ``xq`` int8
+    [M, K], ``wq`` int8 [K, N] (K-major as :func:`k_major` lays it out, or
+    laid out so here), ``colscale`` fp32 [N] -> fp32 [M, N].  Under
+    ``torch.export`` (or ``torch.compile``) a call of the custom op
+    ``paddle_tpu_torch::int8_matmul``; run eagerly, its body without the
+    dispatcher's host time."""
+    _check(xq, wq, colscale)
+    if torch.compiler.is_compiling():
+        return _int8_matmul_op(xq, wq, colscale)
+    return _int8_matmul_impl(xq, wq, colscale)
 
 
 int8_matmul.launches = 0
@@ -309,6 +339,7 @@ def paged_attention_quant(q, k_arena, v_arena, k_scale, v_scale,
     time, the parts merged in the same launch), the wide loop above; the
     plain version on a CPU ``q``; numpy operands move to q's device."""
     del select, interpret
+    cuda_build.refuse_export("K5 (paged_attention_quant)")
     k, v, table, lens, (ks, vs) = paged_kernels.operands(
         q, k_arena, v_arena, block_table, lengths, (k_scale, v_scale))
     if k.dtype != torch.int8:

@@ -167,6 +167,7 @@ def _on_cuda(name, *ts, lens=None):
     version (CPU tensors).  Raises on mixed devices, other devices, or what
     the kernel does not take: fp32 matrices with unit stride along the
     row, and int32 lengths, one a row."""
+    cuda_build.refuse_export(f"K8/K9 ({name})")
     dev = ts[0].device
     for t in ts + ((lens,) if lens is not None else ()):
         if t.device != dev:

@@ -72,6 +72,7 @@ def _check(x, lens):
 def masked_softmax_fwd(x, lens):
     """K7 on CUDA tensors, its plain version on CPU tensors; not
     differentiable."""
+    cuda_build.refuse_export("K7 (masked_softmax)")
     _check(x, lens)
     if x.device.type == "cpu":
         return masked_softmax_reference(x, length_mask(lens, x.shape[1],

@@ -4,7 +4,9 @@ training programs and their startup programs emit, the RNN slice's
 ``concat`` and ``fill_constant_batch_size_like``, and the control-flow
 slice's ``expand``, ``where``, ``increment`` and ``stack``, and the
 shape, index and selection ops the front end's layers emit
-(``fill_zeros_like`` ... ``row_conv``).
+(``fill_zeros_like`` ... ``row_conv``), the tensor ops of
+``layers/parity_extra.py`` (``unstack``, ``pad2d``, the batch-size-like
+random draws, the SelectedRows pair) and ``gradient_merge_select``.
 
 Reference: ``fill_constant_op.cc``, ``fill_any_like_op.cc``,
 ``fill_constant_batch_size_like_op.cc``, ``assign_op.cc``,
@@ -16,7 +18,10 @@ Reference: ``fill_constant_op.cc``, ``fill_any_like_op.cc``,
 ``squeeze_op.cc``, ``unsqueeze_op.cc``, ``flatten_op.cc``,
 ``scatter_op.cc``, ``range_op.cc``, ``shape_op.cc``, ``reverse_op.cc``,
 ``argsort_op.cc``, ``sampling_id_op.cc``, ``multiplex_op.cc``,
-``selu_op.cc``, ``is_empty_op.cc``, ``row_conv_op.cc``.
+``selu_op.cc``, ``is_empty_op.cc``, ``row_conv_op.cc``, ``unstack_op.cc``,
+``pad2d_op.cc``, ``uniform_random_batch_size_like_op.cc``,
+``gaussian_random_batch_size_like_op.cc``,
+``get_tensor_from_selected_rows_op.cc``, ``merge_selected_rows_op.cc``.
 
 Integer outputs (``shape``'s, ``argsort``'s indices, ``sampling_id``'s
 ids) keep the values of the JAX package, whose 64-bit types run as
@@ -361,3 +366,98 @@ def row_conv(ins, attrs):
     for j in range(k):
         out = out + pad[:, j:j + t, :] * f[j]
     return as_out(out)
+
+
+# -- the tensor ops of layers/parity_extra.py and the gradient merge --------
+
+# Philox stream tags of the batch-size-like random draws
+# (registry.uniforms): a uniform draw, and the two of a gaussian's
+# Box-Muller pair
+_TAG_UNIFORM_LIKE, _TAG_GAUSS_U1, _TAG_GAUSS_U2 = 2, 3, 4
+
+
+def _batch_size_like_shape(ins, attrs):
+    ref = first(ins, "Input")
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = ref.shape[
+        attrs.get("input_dim_idx", 0)]
+    return tuple(shape), ref.device
+
+
+@register("uniform_random_batch_size_like", not_differentiable=True)
+def uniform_random_batch_size_like(ins, attrs):
+    """Uniforms in [min, max) of attrs' shape with the batch dim taken
+    from Input: the op's Philox draw (``registry.uniforms``, keyed by the
+    op seed and the step), so the card and the CPU draw the same values
+    and a captured step draws anew at every replay."""
+    shape, device = _batch_size_like_shape(ins, attrs)
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    u = uniforms(op_seed(attrs), shape, device, _TAG_UNIFORM_LIKE)
+    return as_out((u * (hi - lo) + lo).to(
+        torch_dtype(attrs.get("dtype", "float32"))))
+
+
+def standard_normals(seed, shape, device):
+    """Standard normals of one draw: Box-Muller over two Philox uniform
+    draws, sqrt(-2 log(1 - u1)) · cos(2π u2) (1 - u1 lies in (0, 1], so
+    the log is finite)."""
+    u1 = uniforms(seed, shape, device, _TAG_GAUSS_U1)
+    u2 = uniforms(seed, shape, device, _TAG_GAUSS_U2)
+    return torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos(
+        (2.0 * np.pi) * u2)
+
+
+@register("gaussian_random_batch_size_like", not_differentiable=True)
+def gaussian_random_batch_size_like(ins, attrs):
+    """mean + std · N(0, 1) of attrs' shape with the batch dim taken from
+    Input, drawn as :func:`standard_normals` from the op's seed."""
+    shape, device = _batch_size_like_shape(ins, attrs)
+    z = standard_normals(op_seed(attrs), shape, device)
+    return as_out((z * attrs.get("std", 1.0) + attrs.get("mean", 0.0)).to(
+        torch_dtype(attrs.get("dtype", "float32"))))
+
+
+@register("unstack")
+def unstack(ins, attrs):
+    x = first(ins, "X")
+    return {"Y": list(torch.unbind(x, dim=attrs.get("axis", 0)))}
+
+
+@register("pad2d")
+def pad2d(ins, attrs):
+    """NCHW x padded by paddings [top, bottom, left, right]: a constant,
+    the reflection or the edge."""
+    x = first(ins, "X")
+    p = attrs["paddings"]
+    mode = attrs.get("mode", "constant")
+    cfg = (p[2], p[3], p[0], p[1])
+    if mode == "constant":
+        return as_out(torch.nn.functional.pad(
+            x, cfg, value=attrs.get("pad_value", 0.0)))
+    return as_out(torch.nn.functional.pad(
+        x, cfg, mode={"reflect": "reflect", "edge": "replicate"}[mode]))
+
+
+@register("get_tensor_from_selected_rows", not_differentiable=True)
+def get_tensor_from_selected_rows(ins, attrs):
+    from ..core.selected_rows import is_selected_rows
+
+    x = first(ins, "X")
+    return as_out(x.to_dense() if is_selected_rows(x) else x)
+
+
+@register("merge_selected_rows", not_differentiable=True)
+def merge_selected_rows(ins, attrs):
+    """The identity, as in the JAX package: a SelectedRows' duplicate
+    rows add up where it is applied (its ``to_dense`` and the sparse
+    update's index_add)."""
+    return as_out(first(ins, "X"))
+
+
+@register("gradient_merge_select", not_differentiable=True)
+def gradient_merge_select(ins, attrs):
+    """X where the scalar Cond holds, else Y (GradientMergeOptimizer's
+    k-step boundary): a select on the device, with no host read of Cond,
+    so a captured step keeps it."""
+    cond = first(ins, "Cond").reshape(()).to(torch.bool)
+    return as_out(torch.where(cond, first(ins, "X"), first(ins, "Y")))

@@ -1,7 +1,13 @@
 """Optimizers: minimize = append_backward + per-param update ops (a copy
-of ``paddle_tpu/optimizer.py``'s ten optimizers: SGD, Momentum,
+of ``paddle_tpu/optimizer.py``: the ten optimizers SGD, Momentum,
 LarsMomentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp
-and Ftrl; GradientMergeOptimizer and ModelAverage are not ported yet).
+and Ftrl, with ``GradientMergeOptimizer`` and ``ModelAverage``).
+
+Both of the last two stay branch-free, so a step under them is still
+one captured CUDA graph (``core/executor.capturable``): gradient merging
+runs the inner optimizer at every step and rolls its writes back off the
+k-step boundary with ``gradient_merge_select`` (a device select), and
+the model average's window is ``average_accumulates``' selects.
 
 Reference: ``python/paddle/fluid/optimizer.py`` — `Optimizer.minimize`
 (:357) = `backward()` + `apply_gradients` (:286,318);
@@ -13,8 +19,9 @@ the next run sees them.
 """
 
 from .core import unique_name
-from .core.framework import (Variable, default_main_program,
-                             default_startup_program)
+from .core.framework import (Operator, Program, Variable,
+                             default_main_program, default_startup_program,
+                             program_guard)
 from .core.backward import append_backward
 from .layer_helper import LayerHelper
 from .initializer import ConstantInitializer
@@ -401,3 +408,253 @@ Adadelta = AdadeltaOptimizer
 RMSProp = RMSPropOptimizer
 Ftrl = FtrlOptimizer
 LarsMomentum = LarsMomentumOptimizer
+
+
+class GradientMergeOptimizer:
+    """Gradient accumulation (the multi_batch_merge_pass capability /
+    fluid GradientMergeOptimizer): k micro-batch gradients add up in
+    persistable buffers, and the inner optimizer's update takes effect
+    only on every k-th step.
+
+    The reference's lowering, kept op for op: a persistable ``gm_step``
+    counter, ``increment``, ``elementwise_mod`` and ``equal`` make the
+    boundary predicate; each grad is ``sum``-med into its accumulator
+    (and ``scale``-d by 1/k with `avg`); the inner optimizer runs
+    unconditionally on the merged grads, and every state var it writes
+    that existed before (params, moments, beta pows) is snapshotted
+    before it and rolled back off the boundary by
+    ``gradient_merge_select``; the accumulators reset to
+    ``fill_zeros_like`` on the boundary.  No op reads a value on the
+    host, so the step stays one CUDA graph."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        self.inner = inner_optimizer
+        self.k_steps = int(k_steps)
+        self.avg = avg
+
+    def backward(self, *args, **kwargs):
+        return self.inner.backward(*args, **kwargs)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        block = loss.block
+        params_grads = self.inner.backward(loss, startup_program,
+                                           parameter_list, no_grad_set)
+        helper = LayerHelper("gradient_merge")
+        sb = default_startup_program().global_block()
+
+        def pvar(name, shape, dtype):
+            v = block.create_var(name=name, shape=shape, dtype=dtype,
+                                 persistable=True, stop_gradient=True)
+            sv = sb.create_var(name=name, shape=shape, dtype=dtype,
+                               persistable=True, stop_gradient=True)
+            ConstantInitializer(0.0)(sv, sb)
+            return v
+
+        def temp(dtype, shape):
+            v = helper.create_variable_for_type_inference(dtype, True)
+            v.shape = shape
+            return v
+
+        counter = pvar(unique_name.generate("gm_step"), (1,), "int32")
+        block.append_op(type="increment", inputs={"X": [counter]},
+                        outputs={"Out": [counter]}, attrs={"step": 1.0})
+        k_var = temp("int32", (1,))
+        block.append_op(type="fill_constant", inputs={},
+                        outputs={"Out": [k_var]},
+                        attrs={"shape": [1], "value": self.k_steps,
+                               "dtype": "int32"})
+        mod = temp("int32", (1,))
+        block.append_op(type="elementwise_mod",
+                        inputs={"X": [counter], "Y": [k_var]},
+                        outputs={"Out": [mod]}, attrs={"axis": -1})
+        zero = temp("int32", (1,))
+        block.append_op(type="fill_constant", inputs={},
+                        outputs={"Out": [zero]},
+                        attrs={"shape": [1], "value": 0, "dtype": "int32"})
+        cond = temp("bool", (1,))
+        block.append_op(type="equal", inputs={"X": [mod], "Y": [zero]},
+                        outputs={"Out": [cond]})
+
+        merged_pg = []
+        acc_updates = []            # (accumulator, merged grad)
+        for p, g in params_grads:
+            acc = pvar(unique_name.generate(p.name + "@GRAD_MERGE"),
+                       tuple(p.shape), g.dtype)
+            merged = temp(g.dtype, p.shape)
+            block.append_op(type="sum", inputs={"X": [acc, g]},
+                            outputs={"Out": [merged]})
+            scaled = merged
+            if self.avg:
+                scaled = temp(g.dtype, p.shape)
+                block.append_op(type="scale", inputs={"X": [merged]},
+                                outputs={"Out": [scaled]},
+                                attrs={"scale": 1.0 / self.k_steps,
+                                       "bias": 0.0,
+                                       "bias_after_scale": True})
+            merged_pg.append((p, scaled))
+            acc_updates.append((acc, merged))
+
+        # the inner optimizer on the merged grads (clip and regularization
+        # applied to the aggregate, as the reference does)
+        merged_pg = append_gradient_clip_ops(merged_pg)
+        merged_pg = append_regularization_ops(merged_pg,
+                                              self.inner.regularization)
+        opt_start = len(block.ops)
+        self.inner._create_optimization_pass(merged_pg, loss)
+        opt_ops = block.ops[opt_start:]
+        # roll back only state that existed before the pass: a temp first
+        # defined inside it (a per-param LR scale) has no prior value and
+        # is recomputed every step
+        pre_defined = {n for op in block.ops[:opt_start]
+                       for n in op.output_arg_names}
+        pre_defined |= {n for n, v in block.vars.items()
+                        if getattr(v, "persistable", False)}
+        written = sorted({n for op in opt_ops for n in op.output_arg_names
+                          if n in pre_defined})
+        snaps = []
+        for w in written:
+            wv = block.var(w)
+            snap = block.create_var(
+                name=unique_name.generate(w + "@GM_SNAP"), shape=wv.shape,
+                dtype=wv.dtype, stop_gradient=True)
+            snaps.append((Operator(block, "assign", inputs={"X": [w]},
+                                   outputs={"Out": [snap.name]}),
+                          snap.name))
+        block.ops = block.ops[:opt_start] + [op for op, _ in snaps] + \
+            opt_ops
+        block.program._bump_version()
+        for (_, snap_name), w in zip(snaps, written):
+            block.append_op(type="gradient_merge_select",
+                            inputs={"Cond": [cond], "X": [w],
+                                    "Y": [snap_name]},
+                            outputs={"Out": [w]})
+        # the boundary resets each accumulator, off it the sum is kept
+        for acc, merged in acc_updates:
+            zeros = temp(acc.dtype, acc.shape)
+            block.append_op(type="fill_zeros_like", inputs={"X": [merged]},
+                            outputs={"Out": [zeros]})
+            block.append_op(type="gradient_merge_select",
+                            inputs={"Cond": [cond], "X": [zeros],
+                                    "Y": [merged]},
+                            outputs={"Out": [acc.name]})
+        return [], params_grads
+
+
+class ModelAverage(Optimizer):
+    """Sliding-window parameter averaging (reference optimizer.py:1484,
+    average_accumulates_op.h): the main program accumulates each
+    parameter every step (``average_accumulates``); ``apply(exe)`` swaps
+    the averaged values in, backing up the live ones bit for bit, and
+    ``restore(exe)`` swaps them back.
+
+    Construct it after ``minimize()``, as in the reference: its
+    accumulate ops ride the main program's step."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, regularization=None, name=None):
+        super().__init__(0.0, regularization=regularization, name=name)
+        self.average_window = float(average_window_rate)
+        self.min_average_window = int(min_average_window)
+        self.max_average_window = int(max_average_window)
+
+        block = default_main_program().global_block()
+        self.params = [p for p in block.all_parameters()
+                       if getattr(p, "do_model_average", None) is not False]
+        self._backups = {}
+        for p in self.params:
+            self._append_accumulate(block, p)
+
+        self.apply_program = Program()
+        with program_guard(self.apply_program):
+            for p in self.params:
+                self._add_apply_ops(p)
+        self.restore_program = Program()
+        with program_guard(self.restore_program):
+            for p in self.params:
+                self._add_restore_ops(p)
+
+    @staticmethod
+    def _ref(block, var):
+        """A persistable var of `var`'s name in a side program, so that
+        program reads and writes the training Scope's value."""
+        return block.create_var(name=var.name, shape=var.shape,
+                                dtype=var.dtype, persistable=True,
+                                stop_gradient=True)
+
+    def _append_accumulate(self, block, param):
+        s1 = self._add_accumulator("sum_1", param)
+        s2 = self._add_accumulator("sum_2", param)
+        s3 = self._add_accumulator("sum_3", param)
+        n_acc = self._add_accumulator("num_accumulates", param,
+                                      dtype="int64", shape=[1])
+        o_acc = self._add_accumulator("old_num_accumulates", param,
+                                      dtype="int64", shape=[1])
+        n_upd = self._add_accumulator("num_updates", param, dtype="int64",
+                                      shape=[1])
+        backup = block.create_var(
+            name=unique_name.generate(f"{param.name}_ma_backup"),
+            shape=param.shape, dtype=param.dtype, persistable=True,
+            stop_gradient=True)
+        sb = default_startup_program().global_block()
+        sv = sb.create_var(name=backup.name, shape=param.shape,
+                           dtype=param.dtype, persistable=True,
+                           stop_gradient=True)
+        ConstantInitializer(0.0)(sv, sb)
+        self._backups[param.name] = backup
+        block.append_op(
+            type="average_accumulates",
+            inputs={"Param": [param], "InSum1": [s1], "InSum2": [s2],
+                    "InSum3": [s3], "InNumAccumulates": [n_acc],
+                    "InOldNumAccumulates": [o_acc],
+                    "InNumUpdates": [n_upd]},
+            outputs={"OutSum1": [s1], "OutSum2": [s2], "OutSum3": [s3],
+                     "OutNumAccumulates": [n_acc],
+                     "OutOldNumAccumulates": [o_acc],
+                     "OutNumUpdates": [n_upd]},
+            attrs={"average_window": self.average_window,
+                   "min_average_window": self.min_average_window,
+                   "max_average_window": self.max_average_window})
+
+    def _add_apply_ops(self, param):
+        from .layers import tensor as tl
+        from .layers.nn import elementwise_div
+
+        block = default_main_program().global_block()
+        acc = {n: self._ref(block, self._get_accumulator(n, param))
+               for n in ("sum_1", "sum_2", "sum_3", "num_accumulates",
+                         "old_num_accumulates")}
+        p = self._ref(block, param)
+        backup = self._ref(block, self._backups[param.name])
+        tl.assign(p, output=backup)
+        total = tl.sums([acc["num_accumulates"],
+                         acc["old_num_accumulates"]])
+        ssum = tl.sums([acc["sum_1"], acc["sum_2"], acc["sum_3"]])
+        avg = elementwise_div(ssum, tl.cast(total, param.dtype))
+        tl.assign(avg, output=p)
+
+    def _add_restore_ops(self, param):
+        from .layers import tensor as tl
+
+        block = default_main_program().global_block()
+        tl.assign(self._ref(block, self._backups[param.name]),
+                  output=self._ref(block, param))
+
+    def apply(self, executor, need_restore=True):
+        """Context manager: the averaged parameters are in effect inside
+        it, and the live ones come back on exit (unless `need_restore`
+        is False)."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def _ctx():
+            executor.run(self.apply_program)
+            try:
+                yield
+            finally:
+                if need_restore:
+                    self.restore(executor)
+        return _ctx()
+
+    def restore(self, executor):
+        executor.run(self.restore_program)

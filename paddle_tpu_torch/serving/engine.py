@@ -91,12 +91,21 @@ class ServingEngine:
         self._handle = predictor.serving_handle()
         self._seq_buckets = tuple(sorted(cfg.seq_buckets)) \
             if cfg.seq_buckets else None
-        max_batch = cfg.max_batch_size
-        self._batch_buckets = tuple(sorted(
-            cfg.batch_buckets or bk.default_batch_buckets(max_batch)))
-        if self._batch_buckets[-1] != max_batch:
-            raise ValueError(
-                "largest batch bucket must equal max_batch_size")
+        fixed = getattr(self._handle, "fixed_shapes", None)
+        if fixed is not None:
+            # an exported (AOT) program: its row count was fixed at
+            # export, so exactly one batch bucket; the other dims must
+            # match the export already (the engine cannot know which axis
+            # is ragged; ragged AOT service needs seq_buckets configured)
+            max_batch = fixed[0][0]
+            self._batch_buckets = (max_batch,)
+        else:
+            max_batch = cfg.max_batch_size
+            self._batch_buckets = tuple(sorted(
+                cfg.batch_buckets or bk.default_batch_buckets(max_batch)))
+            if self._batch_buckets[-1] != max_batch:
+                raise ValueError(
+                    "largest batch bucket must equal max_batch_size")
         self._metrics = ServingMetrics()
         self._broken = None          # set when a failure poisons the device
         self._batcher = MicroBatcher(max_batch, cfg.max_wait_ms,

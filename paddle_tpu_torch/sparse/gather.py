@@ -119,6 +119,7 @@ def gather_rows(table, idx, impl=None):
     K11 writes their rows as zeros rather than read outside the table).
     Returns a tensor ``[N, D]`` on the table's device.  K11 on a CUDA
     table, the plain version on a CPU table or with ``impl="plain"``."""
+    cuda_build.refuse_export("K11 (gather_rows)")
     if impl not in (None, "plain"):
         raise ValueError(f"gather_rows impl {impl!r}: None (K11 on a CUDA "
                          "table) or 'plain'")
@@ -157,6 +158,7 @@ def gather_rows_to_host(table, ids):
     launch on the current stream, which is then synchronised; the array
     returned is that output's memory and keeps it alive as long as it
     lives.  On a CPU table: the plain version."""
+    cuda_build.refuse_export("K11 (gather_rows_to_host)")
     ids = np.asarray(ids)
     if ids.ndim != 1:
         raise ValueError(f"gather_rows takes ids [N], not {ids.shape}")

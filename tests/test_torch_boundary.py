@@ -110,7 +110,12 @@ NEW_MODULES = ("paddle_tpu_torch.analysis", "paddle_tpu_torch.passes",
                "paddle_tpu_torch.ops.loss_ops",
                "paddle_tpu_torch.layers.learning_rate_scheduler",
                "paddle_tpu_torch.models.label_semantic_roles",
-               "paddle_tpu_torch.models.recommender_system")
+               "paddle_tpu_torch.models.recommender_system",
+               "paddle_tpu_torch.layers.parity_extra",
+               "paddle_tpu_torch.metrics",
+               "paddle_tpu_torch.average",
+               "paddle_tpu_torch.data_feed_desc",
+               "paddle_tpu_torch.trainer_api")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops import registry as jax_registry
 from paddle_tpu_torch.ops import registry as port_registry
+from torch_op_parity import jax_trace
 
 ATOL = RTOL = 1e-5
 
@@ -25,9 +26,10 @@ def f32(rng, *shape):
 
 def run_both(op, ins, attrs):
     """Forward outputs of `op` in both packages: {slot: [(jax, port)]}."""
-    jout = jax_registry.run_op(
-        op, {s: [jnp.asarray(v) for v in vs] for s, vs in ins.items()},
-        dict(attrs))
+    with jax_trace(attrs):
+        jout = jax_registry.run_op(
+            op, {s: [jnp.asarray(v) for v in vs] for s, vs in ins.items()},
+            dict(attrs))
     pout = port_registry.run_op(
         op, {s: [torch.from_numpy(v) for v in vs] for s, vs in ins.items()},
         dict(attrs))
@@ -67,7 +69,8 @@ def check_grads(op, ins, attrs, wrt, rng, fw_outs=None, saved=()):
         pins[f"{s}@GRAD_OUT"] = [torch.from_numpy(cots[s])]
     for s in saved:
         pins[f"{s}@FW_OUT"] = [outs[s][0][1]]
-    jg = jax_registry.run_op("generic_grad", jins, gattrs)
+    with jax_trace(attrs):
+        jg = jax_registry.run_op("generic_grad", jins, gattrs)
     pg = port_registry.run_op("generic_grad", pins, gattrs)
     for s in wrt:
         assert_close(jg[f"{s}@GRAD"][0], pg[f"{s}@GRAD"][0], f"d{s}")

@@ -26,7 +26,9 @@ with ``ast``:
 Any other ``type=`` fails the scan, so a new helper cannot hide a type.
 A type is runnable when ``registry._KERNELS`` holds it, or when the
 Executor runs it itself: the sub-block ops ``while`` and
-``conditional_block`` (``executor._SUB_BLOCK_OPS``).
+``conditional_block`` (``executor._SUB_BLOCK_OPS``) and the host ops that
+run (``host_ops.HOST_OP_TYPES``: the sharded engine's and ``print``; the
+parameter-server tier's queued types raise, so they do not count).
 """
 
 import ast
@@ -36,6 +38,7 @@ import os
 import pytest
 
 from paddle_tpu_torch.core import executor
+from paddle_tpu_torch.distributed import host_ops
 from paddle_tpu_torch.ops import registry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -213,7 +216,8 @@ def emitted():
 
 def missing(types, kernels):
     return sorted(t for t in types if t not in kernels
-                  and t not in executor._SUB_BLOCK_OPS)
+                  and t not in executor._SUB_BLOCK_OPS
+                  and t not in host_ops.HOST_OP_TYPES)
 
 
 def test_every_emitted_op_type_has_a_kernel(emitted):
@@ -231,6 +235,21 @@ def test_scan_reads_the_front_ends_helpers(emitted):
               "elementwise_floordiv", "elementwise_pow", "clip_by_norm",
               "squared_l2_norm", "abs", "lars_momentum", "ftrl", "relu"):
         assert t in emitted, t
+
+
+def test_scan_reads_parity_extra_and_the_optimizer_tail(emitted):
+    """``layers/parity_extra.py`` is scanned (its activations, metrics,
+    random and host ops), and so are the gradient merge's and the model
+    average's rewrites of ``optimizer.py``; ``print`` is a host op."""
+    for t in ("brelu", "stanh", "soft_relu", "prelu", "pad2d", "unstack",
+              "uniform_random_batch_size_like",
+              "gaussian_random_batch_size_like", "mean_iou", "auc",
+              "add_position_encoding", "get_tensor_from_selected_rows",
+              "merge_selected_rows", "print", "gradient_merge_select",
+              "average_accumulates"):
+        assert t in emitted, t
+    assert "print" in host_ops.HOST_OP_TYPES and \
+        "print" not in registry._KERNELS
 
 
 def test_check_names_a_planted_gap(emitted):
@@ -257,5 +276,7 @@ def test_unresolved_type_fails_the_scan():
 
 def test_registry_counts_the_ported_types():
     # 126 before this slice, the 77 the front end emitted without a
-    # kernel, and the 8 ops of the optimizers
-    assert len(registry._KERNELS) >= 211, len(registry._KERNELS)
+    # kernel, and the 8 ops of the optimizers; then 15 more: the 13 op
+    # types of layers/parity_extra.py that run as kernels, with
+    # gradient_merge_select and average_accumulates
+    assert len(registry._KERNELS) >= 227, len(registry._KERNELS)

@@ -9,6 +9,8 @@ and bool outputs must be equal; the JAX package runs 64-bit types as
 32-bit, so values are compared, not dtypes.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -23,6 +25,30 @@ GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-6
 
 def f32(rng, *shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+@contextlib.contextmanager
+def jax_trace(attrs):
+    """The JAX registry's trace context as the op's own attrs set it: the
+    JAX executor leaves ``TRACE_CTX.is_test`` (and ``.amp``) as the last
+    program it ran set them, which would turn a training-mode op (a
+    batch_norm, a dropout) into its test-mode form when another test in
+    the process ran a test program first.  Restored on exit."""
+    ctx = jax_registry.TRACE_CTX
+    saved = ctx.is_test, ctx.amp
+    fw = attrs.get("fw_attrs")
+    ctx.is_test = bool(attrs.get("is_test", isinstance(fw, dict)
+                                 and fw.get("is_test", False)))
+    ctx.amp = False
+    try:
+        yield
+    finally:
+        ctx.is_test, ctx.amp = saved
+
+
+def _run_jax_op(op_type, ins, attrs):
+    with jax_trace(attrs):
+        return jax_registry.run_op(op_type, ins, dict(attrs))
 
 
 def _to_jax(v):
@@ -49,8 +75,7 @@ def _jins(ins):
 
 def _traces(op_type, jins, attrs):
     try:
-        jax.eval_shape(lambda i: jax_registry.run_op(op_type, i,
-                                                     dict(attrs)), jins)
+        jax.eval_shape(lambda i: _run_jax_op(op_type, i, attrs), jins)
         return True
     except jax.errors.ConcretizationTypeError:
         return False
@@ -66,12 +91,12 @@ def jax_outputs_of(calls):
               if _traces(op, jins[k], attrs)]
 
     def run_all(args):
-        return [jax_registry.run_op(calls[k][0], a, dict(calls[k][2]))
+        return [_run_jax_op(calls[k][0], a, calls[k][2])
                 for k, a in zip(traced, args)]
 
     outs = dict(zip(traced, jax.jit(run_all)([jins[k] for k in traced])))
     return [outs[k] if k in outs else
-            jax_registry.run_op(op, jins[k], dict(attrs))
+            _run_jax_op(op, jins[k], attrs)
             for k, (op, _, attrs) in enumerate(calls)]
 
 
@@ -85,7 +110,7 @@ def grad_call(op_type, ins, attrs):
     """The generic grad op's ``(op_type, ins, attrs)`` call for `op_type`
     over `ins` (:func:`grad_case` over the forward's output shapes)."""
     outs = jax.eval_shape(
-        lambda i: jax_registry.run_op(op_type, i, dict(attrs)), _jins(ins))
+        lambda i: _run_jax_op(op_type, i, attrs), _jins(ins))
     gins, gattrs = grad_case(op_type, ins, attrs, outs)
     return "generic_grad", gins, gattrs
 

@@ -3,6 +3,8 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py segments   # the build and segments_phase alone
+    python3 chip_smoke.py compiled   # ... serving and compiled_step_phase
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -326,6 +328,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -5909,12 +5912,12 @@ class counted_syncs:
         self.ex, self.orig = ex, ex._run_while
         torch = self.torch
 
-        def run_while(op, env, read):
+        def run_while(op, env, read, *body):
             with warnings.catch_warnings(record=True) as seen:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
                 try:
-                    self.orig(op, env, read)
+                    self.orig(op, env, read, *body)
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
             for w in seen:
@@ -6052,6 +6055,7 @@ def mt_path(torch, smi):
                             scope=card_scope)
 
     decode()                            # warm: allocator, cuBLAS
+    decode()                            # captures the segments
     torch.cuda.synchronize()
     rk.fused_lstm_cell.launches = 0
     ex.loop_counts.update(loops=0, iterations=0, condition_reads=0)
@@ -7914,6 +7918,407 @@ def front_end_remainder_phase(torch, smi, fp32):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the mixed host/device runner: device segments captured between host ops
+# ---------------------------------------------------------------------------
+
+SEG_STEPS = 5              # a path's runs an arm: warm, capture, replays
+SEG_BODY_SIGNATURES = 3    # the most a loop body's segment may capture
+
+
+def segment_arm(torch, label, arm, run, steps, counter):
+    """`steps` runs of run() (the last under device_record) with
+    `counter`'s launches counted from 0; returns {"outs", "walls",
+    "wall", "busy", "launches"}."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.launches = 0
+    outs, walls = [], []
+    for i in range(steps - 1):
+        t0 = time.perf_counter()
+        outs.append(run(i))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    box = []
+    wall, busy, _ = device_record(torch, lambda: box.append(run(steps - 1)))
+    outs.append(box[0])
+    walls.append(wall)
+    return {"outs": outs, "walls": walls, "wall": wall, "busy": busy,
+            "launches": counter.launches,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def segment_stats(exe):
+    """The captured arm's executor's segment_stats() with its
+    compile_count (read before close() frees the graphs)."""
+    return dict(exe.segment_stats(), compile_count=exe.compile_count)
+
+
+def first_gaps(a, b, k=4):
+    """The first `k` entries of two {name: array} maps that differ, with
+    their largest absolute gap."""
+    out = []
+    for n in a:
+        x, y = np.asarray(a[n]), np.asarray(b.get(n))
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            out.append((n, float(np.max(np.abs(x.astype(np.float64)
+                                               - y.astype(np.float64))))
+                        if x.shape == y.shape else "shape"))
+            if len(out) == k:
+                break
+    return out
+
+
+def segment_report(smi, label, arms, stats, want, same, extra=""):
+    """Print a path's two arms and gate them: equal launches a step, the
+    expected count, at least one graph captured, and `same` (captured =
+    op by op bit for bit).  Returns the path's numbers."""
+    cap, plain = arms["captured"], arms["op by op"]
+    steps = len(cap["walls"])
+    wall = statistics.median(cap["walls"][2:-1])
+    row = {"wall": wall,
+           "plain_wall": statistics.median(plain["walls"][1:-1]),
+           "busy": cap["busy"], "plain_busy": plain["busy"],
+           "idle": 1.0 - cap["busy"] / cap["wall"],
+           "plain_idle": 1.0 - plain["busy"] / plain["wall"],
+           "busy_share": cap["busy"] / wall,
+           "launches": cap["launches"] / steps,
+           "plain_launches": plain["launches"] / steps,
+           "captured": stats["compile_count"],
+           "segments": stats["segments"],
+           "replays": stats["replays"], "uncaptured": stats["uncaptured"],
+           "bitwise": same}
+    print(f"[{smi}] segments {label}: step wall {row['wall']:.6f} ms "
+          f"(median of replays; op by op {row['plain_wall']:.6f}), device "
+          f"busy {row['busy']:.6f} ms of {cap['wall']:.6f} profiled, idle "
+          f"share {row['idle']:.4f} (busy over the median wall "
+          f"{row['busy_share']:.4f}; op by op busy {row['plain_busy']:.6f}"
+          f" of {plain['wall']:.6f}, idle {row['plain_idle']:.4f}); "
+          f"segments {row['segments']}, captured signatures "
+          f"{row['captured']}, replays {row['replays']}; launches a step "
+          f"{row['launches']:g} (op by op {row['plain_launches']:g}, "
+          f"expected {want:g}); peak {cap['peak'] / 2**20:.3f} MiB (op by "
+          f"op {plain['peak'] / 2**20:.3f}); captured = op by op bit for "
+          f"bit: {same}{extra}", flush=True)
+    for u in row["uncaptured"]:
+        print(f"  uncaptured: {u['segment']}: {u['reason']}")
+    if not same:
+        print(f"  losses or outputs: captured {cap['outs']}, op by op "
+              f"{plain['outs']}; first differing state "
+              f"{first_gaps(cap.get('state', {}), plain.get('state', {}))}")
+        raise SystemExit(f"segments {label}: the captured run departs from "
+                         "the op-by-op run")
+    if row["launches"] != want or row["plain_launches"] != want:
+        raise SystemExit(f"segments {label}: launches a step "
+                         f"{row['launches']} / {row['plain_launches']}, "
+                         f"expected {want}")
+    if row["captured"] < 1:
+        raise SystemExit(f"segments {label}: no graph was captured")
+    return row
+
+
+def states_equal(torch, a, b):
+    return a.keys() == b.keys() and all(
+        np.asarray(a[n]).tobytes() == np.asarray(b[n]).tobytes() for n in a)
+
+
+def ctr_segments(torch, smi):
+    """The CTR trainer (host lookups and pushes between two device
+    segments) at ctr_training_phase's configuration, captured and op by
+    op from one state: the dense state, one pair of tables loaded into
+    fresh shard servers for each arm."""
+    import paddle_tpu_torch as fluid
+    import paddle_tpu_torch.sparse as sparse
+    from paddle_tpu_torch.models.ctr import (CTR_DIM, CTR_VOCAB, DEEP_TABLE,
+                                             WIDE_TABLE, ctr_batch)
+
+    main, startup, loss = ctr_program(fluid)
+    rng = np.random.RandomState(SEED + 30)
+    tables = {DEEP_TABLE: (rng.standard_normal((CTR_VOCAB, CTR_DIM))
+                           * 0.01).astype(np.float32),
+              WIDE_TABLE: np.zeros((CTR_VOCAB, 1), np.float32)}
+    feeds = [ctr_batch(rng, CTR_B, CTR_VOCAB) for _ in range(SEG_STEPS)]
+    state, arms, stats = None, {}, None
+    for arm in ("captured", "op by op"):
+        servers = ctr_cluster(fluid, sparse, fluid.CUDAPlace(0), tables)
+        try:
+            tp, ts = sparse.shard_program(main, startup)
+            if state is None:
+                init = fluid.Scope()
+                fluid.Executor(fluid.CUDAPlace(0)).run(ts, scope=init)
+                state = host_state(init)
+            scope = fluid.io.state_from_numpy(
+                state, scope=fluid.Scope(), place=fluid.CUDAPlace(0),
+                main_program=tp)
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            cache = arm == "captured"
+            arms[arm] = segment_arm(
+                torch, "CTR", arm, lambda i: exe.run(
+                    tp, feed=feeds[i], fetch_list=[loss], scope=scope,
+                    use_program_cache=cache)[0], SEG_STEPS,
+                sparse.gather_rows)
+            if cache:
+                stats = segment_stats(exe)
+            exe.close()                         # every push applied
+            arms[arm]["mirrors"] = mirrors_equal(torch, servers)
+            arms[arm]["state"] = host_state(scope)
+            arms[arm]["tables"] = {n: np.concatenate(
+                [s.values[n] for s in servers]) for n in tables}
+        finally:
+            for s in servers:
+                s.shutdown()
+    cap, plain = arms["captured"], arms["op by op"]
+    same = states_equal(torch, dict(enumerate(cap["outs"])),
+                        dict(enumerate(plain["outs"]))) and \
+        states_equal(torch, cap["state"], plain["state"]) and \
+        states_equal(torch, cap["tables"], plain["tables"]) and \
+        cap["mirrors"] and plain["mirrors"]
+    return segment_report(
+        smi, f"CTR (vocab {CTR_VOCAB} x {CTR_DIM} and x 1, batch {CTR_B}, "
+        f"{CTR_SHARDS} shards)", arms, stats, 2 * CTR_SHARDS, same,
+        f"; mirrors equal {cap['mirrors']}/{plain['mirrors']}; losses "
+        f"{[float(x) for x in cap['outs']]}")
+
+
+def seq2seq_segments(torch, smi):
+    """The seq2seq model (dynamic_rnn) at seq2seq_training_phase's width,
+    captured whole and op by op from one state."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.lod import bucket_len
+    from paddle_tpu_torch.models.rnn import seq2seq_batch, seq_to_seq_net
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    main, startup, loss = rnn_program(
+        fluid, seq_to_seq_net, fluid.optimizer.Adam(learning_rate=1e-3),
+        **S2S_FULL)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=init)
+    state = host_state(init)
+    feed = seq2seq_batch(np.random.RandomState(SEED + 8), S2S_B,
+                         S2S_FULL["dict_size"], *S2S_LENS)
+    t_src = bucket_len(max(len(s) for s in feed["source_sequence"]))
+    arms, exes = {}, {}
+    for arm in ("captured", "op by op"):
+        scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                          place=fluid.CUDAPlace(0),
+                                          main_program=main)
+        exe = exes[arm] = fluid.Executor(fluid.CUDAPlace(0))
+        cache = arm == "captured"
+        arms[arm] = segment_arm(
+            torch, "seq2seq", arm, lambda i: exe.run(
+                main, feed=feed, fetch_list=[loss], scope=scope,
+                use_program_cache=cache)[0], SEG_STEPS, rk.fused_lstm_cell)
+        arms[arm]["state"] = host_state(scope)
+    cap, plain = arms["captured"], arms["op by op"]
+    same = states_equal(torch, dict(enumerate(cap["outs"])),
+                        dict(enumerate(plain["outs"]))) and \
+        states_equal(torch, cap["state"], plain["state"])
+    torch.cuda.empty_cache()
+    return segment_report(
+        smi, f"seq2seq (dictionary {S2S_FULL['dict_size']}, width "
+        f"{S2S_FULL['hidden']}, batch {S2S_B}, padded source T {t_src}; "
+        f"captured whole: {fluid.core.executor.capturable(main)})", arms,
+        segment_stats(exes["captured"]), 4 * t_src, same,
+        f"; losses {[float(x) for x in cap['outs']]}")
+
+
+def mt_decode_segments(torch, smi):
+    """The book machine translation's While decode (startup weights),
+    its segments captured and op by op; a body segment may capture at
+    most SEG_BODY_SIGNATURES signatures."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import executor as ex
+    from paddle_tpu_torch.core.lod import bucket_len
+    from paddle_tpu_torch.models import machine_translation as mt
+    from paddle_tpu_torch.ops import rnn_kernels as rk
+
+    cfg = mt.BOOK
+    _, startup, _, dec, outs = mt_programs(fluid)
+    init = fluid.Scope()
+    fluid.Executor(fluid.CUDAPlace(0)).run(startup, scope=init)
+    state = host_state(init)
+    srcs = mt.train_batch(np.random.default_rng(SEED + 31), MT_B,
+                          cfg["dict_size"])["src_word_id"]
+    dfeed = mt.decode_feed(srcs, cfg["beam_size"])
+    arms, exes, counts = {}, {}, {}
+    for arm in ("captured", "op by op"):
+        scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                          place=fluid.CUDAPlace(0),
+                                          main_program=dec)
+        exe = exes[arm] = fluid.Executor(fluid.CUDAPlace(0))
+        cache = arm == "captured"
+        ex.loop_counts.update(loops=0, iterations=0, condition_reads=0)
+        arms[arm] = segment_arm(
+            torch, "MT decode", arm, lambda i: exe.run(
+                dec, feed=dfeed, fetch_list=list(outs), scope=scope,
+                use_program_cache=cache), SEG_STEPS, rk.fused_lstm_cell)
+        counts[arm] = dict(ex.loop_counts)
+        arms[arm]["state"] = host_state(scope)
+    cap, plain = arms["captured"], arms["op by op"]
+    same = all(states_equal(torch, dict(enumerate(a)), dict(enumerate(b)))
+               for a, b in zip(cap["outs"], plain["outs"])) and \
+        states_equal(torch, cap["state"], plain["state"]) and \
+        counts["captured"] == counts["op by op"]
+    (seg,) = [c for c in exes["captured"]._cache.values()
+              if isinstance(c, ex._SegmentedProgram)]
+    body = {r.label: r.compile_count for r in seg.runners
+            if r.block.idx != 0}
+    row = segment_report(
+        smi, f"machine translation While decode ({MT_B} sentences, beam "
+        f"{cfg['beam_size']}, max length {cfg['max_length']})", arms,
+        segment_stats(exes["captured"]),
+        bucket_len(max(len(x) for x in srcs)), same,
+        f"; loop counts {counts['captured']}; body signatures {body}")
+    if max(body.values()) > SEG_BODY_SIGNATURES:
+        raise SystemExit(f"segments MT decode: a body segment captured "
+                         f"{body}, more than {SEG_BODY_SIGNATURES}")
+    return row
+
+
+def mesh_segments(torch, smi):
+    """The dry run's dp x tp x sp x pp step at BERT-base attention width
+    over the 32-entry cuda:0 mesh through CompiledProgram, captured and
+    op by op (the executor's _captured refusing) from one state."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import dryrun
+    from paddle_tpu_torch.ops import attention_kernels as ak
+    from paddle_tpu_torch.parallel import make_mesh
+
+    label, d_model, heads, micro, _ = SP_CONFIGS[0]
+    dp, sp = SP_MESH["data"], SP_MESH["seq"]
+    n_dev = int(np.prod(list(SP_MESH.values())))
+    mesh = make_mesh(SP_MESH, devices=[torch.device("cuda", 0)] * n_dev)
+    main, loss, state, feed = dryrun_state(fluid, dryrun, d_model, heads,
+                                           micro)
+    counters = (ak.flash_attention_bwd_dkv, ak.flash_attention_bwd_dq)
+    arms, exes = {}, {}
+    for arm in ("captured", "op by op"):
+        scope = fluid.io.state_from_numpy(state, scope=fluid.Scope(),
+                                          place=fluid.CUDAPlace(0),
+                                          main_program=main)
+        exe = exes[arm] = fluid.Executor(fluid.CUDAPlace(0))
+        if arm == "op by op":
+            exe._captured = lambda program: False
+        prog = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name)
+        prog._mesh = mesh
+        for c in counters:
+            c.launches = 0
+        arms[arm] = segment_arm(
+            torch, "mesh", arm, lambda i: exe.run(
+                prog, feed=feed, fetch_list=[loss], scope=scope)[0],
+            SEG_STEPS, ak.flash_attention_with_lse)
+        arms[arm]["bwd"] = [c.launches // SEG_STEPS for c in counters]
+        arms[arm]["state"] = host_state(scope)
+    cap, plain = arms["captured"], arms["op by op"]
+    pairs = dp * sp * (sp + 1) // 2
+    same = states_equal(torch, dict(enumerate(cap["outs"])),
+                        dict(enumerate(plain["outs"]))) and \
+        states_equal(torch, cap["state"], plain["state"])
+    row = segment_report(
+        smi, f"dp x tp x sp x pp step ({label}) over {SP_MESH} on cuda:0",
+        arms, segment_stats(exes["captured"]), 2 * pairs, same,
+        f"; K2a/K2b a step {cap['bwd']} (op by op {plain['bwd']}, expected "
+        f"{pairs}); op by op: {exes['op by op'].segment_stats()['uncaptured']}")
+    if cap["bwd"] != [pairs] * 2 or plain["bwd"] != [pairs] * 2:
+        raise SystemExit(f"segments mesh: K2a/K2b launches a step "
+                         f"{cap['bwd']} / {plain['bwd']}, expected {pairs}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def embedding_grad_timing(torch, smi):
+    """The dense lookup_table grad (ops/nn_ops.py: a scatter-add into a
+    zeroed table, `index_add`) at BERT-base's tables, fp32: the word
+    table (30522 x 768) over the ids of a training batch (32 x 128) and
+    of the AMP batch (128 x 128), uniform, and the sentence table (2 x
+    768) over the AMP batch's ids, 8192 a row.  Timed alone as the port
+    runs it by default (atomics) and under torch's deterministic
+    algorithms (rows sorted, each summed in order), with whether each
+    gave the same bits twice."""
+    rows = {}
+    n_word, d = BERT_BASE["vocab_size"], BERT_BASE["hidden_size"]
+    for label, n, count in (
+            ("word table, fp32 batch 32", n_word, TRAIN_B * TRAIN_T),
+            ("word table, AMP batch 128", n_word, AMP_BERT_B * TRAIN_T),
+            ("sentence table, AMP batch 128", 2, AMP_BERT_B * TRAIN_T)):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+        ids = torch.randint(0, n, (count,), device="cuda", generator=g)
+        vals = torch.randn(count, d, device="cuda", generator=g)
+
+        def grad():
+            return torch.zeros(n, d, device="cuda").index_add(0, ids, vals)
+
+        row = rows[label] = {}
+        for mode in (False, True):
+            torch.use_deterministic_algorithms(mode)
+            try:
+                key = "deterministic" if mode else "default"
+                row[key + "_ms"] = time_ms(torch, grad)
+                row[key + "_repeatable"] = torch.equal(grad(), grad())
+                out = grad()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            row.setdefault("outs", []).append(out)
+        gap = (row["outs"][0] - row["outs"][1]).abs().max().item()
+        del row["outs"]
+        row["max_abs_gap"] = gap
+        print(f"[{smi}] dense lookup_table grad, {count} ids into [{n}, "
+              f"{d}] fp32 ({label}): index_add {row['default_ms']:.6f} ms "
+              f"by default (the same bits twice: "
+              f"{row['default_repeatable']}), "
+              f"{row['deterministic_ms']:.6f} ms under deterministic "
+              f"algorithms (the same bits twice: "
+              f"{row['deterministic_repeatable']}); zeroed table included;"
+              f" largest gap between the two {gap:.3e}", flush=True)
+        if not row["deterministic_repeatable"] or gap > 1e-3:
+            raise SystemExit("dense lookup_table grad: the deterministic "
+                             "arm is not repeatable or departs")
+    return rows
+
+
+def segments_phase(torch, smi):
+    """The mixed host/device runner on the card: the CTR trainer, seq2seq,
+    the machine translation's While decode and the dry run's mesh step,
+    each captured (device segments, or the step whole) and op by op from
+    one state, held bit for bit, with launches a step, device busy and
+    idle share of both arms."""
+    phase("segments: CTR, seq2seq, MT While decode, mesh step, captured "
+          "vs op by op")
+    t0 = time.perf_counter()
+    peak0 = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # bit for bit needs the scatter-adds (the dense embedding grads) to
+    # sum duplicate rows in order: torch's deterministic algorithms, on
+    # in both arms; an op with no deterministic arm warns.  New tensors
+    # are left unfilled, as outside this mode
+    import torch.utils.deterministic as det
+
+    fill = det.fill_uninitialized_memory
+    det.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            rows = {"ctr": ctr_segments(torch, smi),
+                    "seq2seq": seq2seq_segments(torch, smi),
+                    "mt": mt_decode_segments(torch, smi),
+                    "mesh": mesh_segments(torch, smi)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+    notes = sorted({str(w.message).split(".")[0] for w in seen
+                    if "determinis" in str(w.message)})
+    print(f"under deterministic algorithms; ops that warned: {notes}")
+    rows["embedding_grad"] = embedding_grad_timing(torch, smi)
+    rows["seconds"] = time.perf_counter() - t0
+    rows["peak"] = torch.cuda.max_memory_allocated()
+    print(f"segments phase {rows['seconds']:.3f} s, peak memory "
+          f"{rows['peak'] / 2**30:.3f} GiB (before it {peak0 / 2**30:.3f})")
+    return rows
+
+
+
 def main():
     import torch
 
@@ -7925,10 +8330,23 @@ def main():
         print("chip_smoke: run from a checkout (paddle_tpu_torch/ must sit "
               "beside this script)", file=sys.stderr)
         return 2
+    alone = sys.argv[1:]
+    if alone not in ([], ["segments"], ["compiled"]):
+        print("usage: python3 chip_smoke.py [segments | compiled]  (the "
+              "build and segments_phase, or serving_phase and "
+              "compiled_step_phase, alone)", file=sys.stderr)
+        return 2
     sys.path.insert(0, here)
     t_start = T_START[0] = time.perf_counter()
     smi = device_phase(torch)
     build_phase()
+    if alone:
+        if alone == ["segments"]:
+            segments_phase(torch, smi)
+        else:
+            compiled_step_phase(torch, smi, serving_phase(torch, smi))
+        print(f"total {time.perf_counter() - t_start:.3f} s")
+        return 0
     kernel_phase(torch)
     train_rows = train_kernel_phase(torch)
     head_dim_phase(torch)
@@ -7969,6 +8387,7 @@ def main():
     seq = sequence_labelling_phase(torch, smi)
     front = front_end_phase(torch, smi, compiled)
     rest = front_end_remainder_phase(torch, smi, fp32)
+    segs = segments_phase(torch, smi)
 
     phase("report")
     print(f"flash_attention_fwd launches: serving {fp32['launches']['fwd']},"
@@ -8168,6 +8587,13 @@ def main():
           f"{gm['peak'] / 2**30:.3f} GiB, launches {gm['launches']}; "
           f"ModelAverage launches {ma['launches']}; phase "
           f"{rest['seconds']:.3f} s")
+    for key, label in (("ctr", "CTR trainer"), ("seq2seq", "seq2seq"),
+                       ("mt", "MT While decode"), ("mesh", "mesh step")):
+        r = segs[key]
+        print(f"[{smi}] segmented {label}: step {r['wall']:.6f} ms (op by "
+              f"op {r['plain_wall']:.6f}), idle share {r['idle']:.4f} (op "
+              f"by op {r['plain_idle']:.4f}), {r['captured']} signatures "
+              f"captured over {r['segments']} segments")
     print(f"total {time.perf_counter() - t_start:.3f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -9,12 +9,18 @@ model axes only place values (GSPMD keeps the math of one device) and
 the ring attention and gpipe ops run per-shard programs over the seq and
 pipe axes.
 
-The port keeps that contract single-controller: ``_run`` interprets the
+The port keeps that contract single-controller: ``_run`` runs the
 program with the Executor on the executor's place, with the mesh in the
 run's context (``registry.ExecContext.mesh``, the reference's
 ``TRACE_CTX.mesh``).  Dense ops run on that one device, so the data and
 model axes change no number; ``ring_attention`` and ``gpipe`` place their
-shards and stages on the mesh's entries.  Spreading the dense ops over
+shards and stages on the mesh's entries.  The executor decides how the
+step runs (``Executor._run_step``): where every entry of the mesh is its
+CUDA device (the dry run's mesh), on its segmented runner, as
+``Executor.run`` runs a program (the step captured whole when no op ends
+a segment); over distinct devices a graph cannot hold the ``Tensor.to``
+moves between them, and the step is interpreted op by op, the executor
+recording why (``Executor.segment_stats``).  Spreading the dense ops over
 several cards waits for the multi-process mesh (ROADMAP queue 1).
 """
 
@@ -140,7 +146,7 @@ class CompiledProgram:
                 run_program,
                 read_names(run_program.global_block(), fetch_names))
         run_program, reads = prepared
-        out = executor._run_program(run_program, feed, fetch_names, scope,
-                                    return_numpy, reads, mesh=self._mesh)
+        out = executor._run_step(run_program, feed, fetch_names, scope,
+                                 return_numpy, reads=reads, mesh=self._mesh)
         executor.last_guard = None       # no StepGuard in the port yet
         return out

@@ -8,6 +8,11 @@ host.  The Executor dispatches these op types here
 (``core/executor.py``).  The parameter-server op types (send, recv,
 barriers, ``distributed_lookup_table``, ``listen_and_serv``, ...) are
 queued with the pserver tier (ROADMAP queue 1 item 11) and raise.
+
+A host op reads a device value through a :class:`HostCopy` where the
+segmented runner made one: the value copied into pinned host memory as
+its segment ended, which the op waits for by its CUDA event alone (the
+reference's ``copy_to_host_async``), never by synchronising the device.
 """
 
 import threading
@@ -24,6 +29,48 @@ LOOKUP_HOST_OPS = {"sharded_lookup_table"}
 QUEUED_HOST_OP_TYPES = {"send", "recv", "send_barrier", "fetch_barrier",
                         "listen_and_serv", "checkpoint_notify",
                         "distributed_lookup_table", "send_sparse_grad"}
+
+
+class HostCopy:
+    """A device tensor's copy into pinned host memory, started without
+    blocking on the current stream and marked by a CUDA event; a CPU
+    tensor is its own copy.  :meth:`numpy` waits for that event alone."""
+
+    def __init__(self, value):
+        import torch
+
+        value = value.detach()
+        if value.device.type != "cuda":
+            self.host, self.event = value, None
+            return
+        self.host = torch.empty(value.shape, dtype=value.dtype,
+                                pin_memory=True)
+        self.host.copy_(value, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def numpy(self):
+        import torch
+
+        if self.event is not None:
+            self.event.synchronize()
+        t = self.host
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def host_array(value):
+    """A host numpy array of an env value: a :class:`HostCopy` once its
+    copy landed, a tensor copied to the host, anything else as is."""
+    import numpy as np
+    import torch
+
+    if isinstance(value, HostCopy):
+        return value.numpy()
+    if isinstance(value, torch.Tensor):
+        value = value.detach()
+        return (value.float() if value.dtype == torch.bfloat16
+                else value).cpu().numpy()
+    return np.asarray(value)
 
 
 def is_host_op(op_type):
@@ -123,15 +170,8 @@ def run_host_op(op, env):
         run_sharded_push(op, env, attrs, tid)
         return
     if t == "print":
-        import numpy as np
-        import torch
-
         name = op.input("In")[0] if op.input("In") else op.input("X")[0]
-        v = env[name]
-        if isinstance(v, torch.Tensor):
-            v = v.detach().float().cpu().numpy() \
-                if v.dtype == torch.bfloat16 else v.detach().cpu().numpy()
-        print(f"{attrs.get('message', name)}: {np.asarray(v)}")
+        print(f"{attrs.get('message', name)}: {host_array(env[name])}")
         return
     if t in QUEUED_HOST_OP_TYPES:
         raise NotImplementedError(

@@ -19,7 +19,11 @@ Under grad the stage body on the mesh runs under
 ``torch.utils.checkpoint`` (the reference's default
 ``FLAGS_pipeline_remat``): its backward keeps each tick's stage input and
 recomputes the interior activations one tick at a time, the memory bound
-1F1B schedules reach.  The grad is the generic grad:
+1F1B schedules reach.  It keeps no torch generator state for the
+recompute: the stage's random ops draw by Philox key (``registry.
+philox_words``) and the generator ops reseed per op, so the recompute
+draws the same bits anyway, and reading a CUDA generator's state is not
+allowed inside a CUDA graph capture.  The grad is the generic grad:
 autograd through the schedule.
 """
 
@@ -81,7 +85,8 @@ def gpipe(ins, attrs):
 
     def run_stage(s, h):
         if remat:
-            return checkpoint(stage_fn, h, *params[s], use_reentrant=False)
+            return checkpoint(stage_fn, h, *params[s], use_reentrant=False,
+                              preserve_rng_state=False)
         return stage_fn(h, *params[s])
 
     carry = [None] * s_total            # activation waiting at stage s

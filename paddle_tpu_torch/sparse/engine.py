@@ -18,7 +18,6 @@ issued at its op and collected before the first op that reads its rows.
 
 import copy
 
-import numpy as np
 import torch
 
 from . import table as table_mod
@@ -280,10 +279,11 @@ def install_client(client, trainer_id=0):
 
 def _host(value):
     """A host numpy view of an env value (the executor holds tensors on
-    its device; the engine's dedup and routing run on the host)."""
-    if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
-    return np.asarray(value)
+    its device, or their pinned copies, ``host_ops.HostCopy``; the
+    engine's dedup and routing run on the host)."""
+    from ..distributed.host_ops import host_array
+
+    return host_array(value)
 
 
 def issue_sharded_lookup(op, env, attrs, tid):

@@ -225,14 +225,23 @@ def test_capture_eligibility():
     with pfluid.program_guard(rnn, rnn_startup):
         seq_to_seq_net(pfluid, 50, 8, 8)
     assert any(op.type == "dynamic_rnn" for op in rnn.global_block().ops)
-    assert not pexec.capturable(rnn)
+    # dynamic_rnn loops the feed's padded length and reads nothing on the
+    # host: captured whole; the sharded program's refusals are host ops
+    assert pexec.capturable(rnn)
+    assert pexec.capture_refusals(sharded) and all(
+        is_host_op(t) for t in pexec.capture_refusals(sharded))
 
-    # the CPU interprets every program, and so does a CompiledProgram
+    # the CPU interprets every program, a CompiledProgram too
     exe = pfluid.Executor(pfluid.CPUPlace())
     assert not exe._captured(bert.main)
     exe.device = torch.device("cuda", 0)    # the decision alone, no card
     assert exe._captured(bert.main)
-    assert not exe._captured(rnn) and not exe._captured(sharded)
+    # a CUDA place runs every program on the segmented runner: a
+    # capturable one is one segment, captured whole
+    assert exe._captured(rnn) and exe._captured(sharded)
+    (seg,) = pexec._host_program_segments(rnn, [])
+    assert seg[0] == "device" and seg[1][4].reason is None
+    assert len(pexec._host_program_segments(sharded, [])) > 1
     exe = pfluid.Executor(pfluid.CPUPlace())
     scope = pfluid.Scope()
     exe.run(bert.startup, scope=scope)

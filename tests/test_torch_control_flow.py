@@ -398,12 +398,22 @@ def test_while_loop_counts_its_condition_reads():
 
 
 def test_capturable_leaves_loops_interpreted():
-    # a while loop reads its condition on the host: never captured; the
-    # arrays alone are device ops and are
-    assert not port_executor.capturable(build("port", _while_net)[0])
+    # a while loop reads its condition on the host: never captured whole;
+    # the arrays alone are device ops and are.  The segmented runner cuts
+    # a loop's program around it, and its body into segments of its own
+    main, _, outs = build("port", _while_net)
+    assert not port_executor.capturable(main)
     assert not port_executor.capturable(
         build("port", lambda f: _conditional_net(f, True))[0])
     assert port_executor.capturable(build("port", _array_net)[0])
+    assert port_executor.segment_breakers(main.global_block()) == ["while"]
+    segs = port_executor._host_program_segments(main, [o.name for o in outs])
+    assert [kind for kind, _ in segs] == ["device", "while", "device"]
+    (loop,) = [op for kind, op in segs if kind == "while"]
+    body = port_executor._host_program_segments(
+        main, [loop.inputs["Condition"][0]], block=loop.attrs["sub_block"])
+    assert [kind for kind, _ in body] == ["device"]
+    assert loop.inputs["Condition"][0] in body[0][1][2]
 
 
 def test_while_carries_only_names_that_exist_before_it():
